@@ -1,0 +1,59 @@
+"""qasr_torch — the qasr quaternion-CNN speech recognizer in PyTorch, for
+NVIDIA Hopper GPUs.
+
+A port of the JAX package ``qasr`` (which stays the reference): the same
+models, parameter names and shapes, with the TPU's Pallas kernels replaced by
+hand-written CUDA kernels built for ``sm_90a`` at first use. It imports
+``torch`` and never JAX. Framework-free pieces of ``qasr`` (configs, TIMIT
+tables, the native C++ beam decoder) are reused as they are.
+
+The symbols below are re-exported lazily, so ``import qasr_torch`` costs
+nothing until one is touched.
+"""
+
+__version__ = "0.1.0"
+
+# name -> submodule that defines it
+_API = {
+    # layers / models
+    "QConv": "qasr_torch.models.layers",
+    "QDense": "qasr_torch.models.layers",
+    "PReLU": "qasr_torch.models.layers",
+    "QCNNEncoder": "qasr_torch.models.qcnn",
+    "build_model": "qasr_torch.models",
+    # functional ops
+    "qconv": "qasr_torch.ops.qlinalg",
+    "qdense": "qasr_torch.ops.qlinalg",
+    "qdense_fast8": "qasr_torch.ops.qlinalg",
+    "hamilton_product": "qasr_torch.ops.quaternion",
+    "quaternion_init": "qasr_torch.ops.initializers",
+    "qconv_ft8": "qasr_torch.ops.kernels.qconv_ft",
+    "chain_layer": "qasr_torch.ops.kernels.qconv_chain",
+    "qgemm8_cl": "qasr_torch.ops.kernels.qgemm8",
+    "qdense_pallas8": "qasr_torch.ops.kernels.qgemm8",
+    # decode / features / inference
+    "ctc_greedy_decode": "qasr_torch.ops.ctc",
+    "featurize_waveform": "qasr_torch.features.frontend",
+    "Transcriber": "qasr_torch.infer",
+    # weights
+    "params_from_jax": "qasr_torch.bridge",
+    "save_params_npz": "qasr_torch.bridge",
+    "load_params_npz": "qasr_torch.bridge",
+}
+
+__all__ = ["__version__", *sorted(_API)]
+
+
+def __getattr__(name: str):
+    target = _API.get(name)
+    if target is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(target), name)
+    globals()[name] = value  # cache for next access
+    return value
+
+
+def __dir__():
+    return __all__

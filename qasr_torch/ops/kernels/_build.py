@@ -1,0 +1,121 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+At first use, every ``qasr_torch/csrc/*.cu`` is compiled by ``nvcc`` for
+Hopper (``sm_90a``) into one shared library with a plain C interface,
+``qasr_torch/_build/libqasr_kernels.so``, which is loaded with ``ctypes``.
+The library is rebuilt when any source (``*.cu`` or ``*.cuh``) is newer than
+it. A failure to build raises; nothing falls back.
+
+Every C entry returns a ``cudaError_t``; :func:`check` raises on a nonzero
+one with CUDA's own message.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libqasr_kernels.so")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_lib = None
+#: what the last build printed (nvcc's ``-Xptxas -v`` register and shared
+#: memory report) and how long it took; empty when the library was current
+build_log = ""
+build_seconds = 0.0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ENTRIES = {
+    # x, wc, bias, alpha, out, B, F, T, Cin, Cout, kh, kw, dtype, v8, o8, stream
+    "qasr_qconv_ft8": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P, _P, _P],
+    # x4, wc8, y4, M, K, N, dtype, v8, o8, stream
+    "qasr_qgemm8": [_P, _P, _P] + [_I] * 4 + [_P, _P, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "qasr_torch CUDA kernels are built from source at first use"
+    )
+
+
+def _sources() -> tuple[list[str], list[str]]:
+    cu = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    deps = cu + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    return cu, deps
+
+
+def _stale(deps: list[str]) -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    return any(os.path.getmtime(d) > built for d in deps)
+
+
+def _compile(cu: list[str]) -> None:
+    global build_log, build_seconds
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+        capture_output=True,
+        text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if stale) and load the kernel library; raises on any failure."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        cu, deps = _sources()
+        if not cu:
+            raise RuntimeError(f"no CUDA sources under {CSRC}")
+        if _stale(deps):
+            _compile(cu)
+        lib = ctypes.CDLL(LIB_PATH)
+        for name, argtypes in _ENTRIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.qasr_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.qasr_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise when a kernel entry returned a CUDA error."""
+    if err != 0:
+        msg = lib.qasr_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

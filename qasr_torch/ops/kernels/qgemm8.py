@@ -1,0 +1,108 @@
+"""Rank-8 quaternion GEMM: kernel B (``qasr_torch/csrc/qgemm8.cu``) and its
+plain PyTorch version.
+
+Counterpart of ``qasr/ops/pallas/qgemm8.py``: the TPU kernel
+``_qgemm8_kernel`` (forward role) becomes a hand-written CUDA kernel for
+Hopper that forms the 2-sparse V8 input combos in shared memory from each
+staged input chunk, accumulates the eight products in f32 and recombines them
+with O8 in registers. Layout: component-leading ``x4 [4, M, K]`` -> ``y4 [4, M, N]``;
+``qdense_pallas8`` wraps it for the packed ``[..., 4K]`` layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from qasr_torch.ops.kernels import _build
+from qasr_torch.ops.kernels.qconv_ft import _DTYPE_CODE, _O8_F32, _V8_F32, _check_cuda_tensor
+from qasr_torch.ops.quaternion import O8, V8, combine_weights
+
+
+def qgemm8_cl_plain(x4: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel B: ``qdense_fast8``'s einsums on ``[4, M, K]``
+    with ``w [4, K, N]``; products in x's dtype, O8 recombination in f32."""
+    v8 = torch.as_tensor(V8, dtype=x4.dtype, device=x4.device)
+    xc = torch.einsum("amk,pa->pmk", x4, v8)
+    prods = torch.bmm(xc, combine_weights(w, x4.dtype)).float()  # [8, M, N]
+    o8 = torch.as_tensor(O8, dtype=torch.float32, device=x4.device)
+    return torch.einsum("pmn,bp->bmn", prods, o8).to(x4.dtype)
+
+
+def qgemm8_cuda(x4: torch.Tensor, wc8: torch.Tensor) -> torch.Tensor:
+    """Launch kernel B on ``x4 [4, M, K]`` and U8-combined ``wc8 [8, K, N]``:
+    one CUDA device, contiguous, both f32 or both bf16, K and N multiples of
+    8. Raises on anything the kernel does not take, or when it fails to build
+    or launch."""
+    if x4.ndim != 3 or x4.shape[0] != 4 or wc8.ndim != 3 or wc8.shape[0] != 8:
+        raise ValueError(
+            f"expected x4 [4,M,K] and wc8 [8,K,N], got {tuple(x4.shape)} and "
+            f"{tuple(wc8.shape)}"
+        )
+    _, m, k = x4.shape
+    n = wc8.shape[2]
+    if x4.dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernel B takes float32 or bfloat16, got {x4.dtype}")
+    if k % 8 or n % 8:
+        raise ValueError(f"kernel B needs K and N multiples of 8, got K={k} N={n}")
+    _check_cuda_tensor("x4", x4, x4.dtype, x4.shape)
+    _check_cuda_tensor("wc8", wc8, x4.dtype, (8, k, n))
+    if wc8.device != x4.device:
+        raise ValueError(f"wc8 is on {wc8.device}, x4 on {x4.device}")
+    lib = _build.load_library()
+    y4 = torch.empty((4, m, n), dtype=x4.dtype, device=x4.device)
+    if y4.numel() == 0:
+        return y4
+    with torch.cuda.device(x4.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.qasr_qgemm8(
+            x4.data_ptr(), wc8.data_ptr(), y4.data_ptr(), m, k, n,
+            _DTYPE_CODE[x4.dtype],
+            _V8_F32.ctypes.data_as(ctypes.c_void_p),
+            _O8_F32.ctypes.data_as(ctypes.c_void_p),
+            stream,
+        )
+    _build.check(lib, err, "qgemm8 launch")
+    qgemm8_cl.launches += 1
+    return y4
+
+
+def qgemm8_cl(x4: torch.Tensor, w: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """Component-leading rank-8 quaternion GEMM: ``x4 [4, M, K]`` with stacked
+    weights ``w [4, K, N]`` -> ``[4, M, N]`` in x's dtype.
+
+    A CPU tensor (or ``plain=True``) takes the plain version; a CUDA tensor
+    launches kernel B or raises. Ragged K and N are zero-padded to multiples
+    of 8 here; ragged M is masked in the kernel.
+    """
+    if w.ndim != 3 or w.shape[0] != 4 or w.shape[1] != x4.shape[-1]:
+        raise ValueError(f"weights {tuple(w.shape)} incompatible with x4 {tuple(x4.shape)}")
+    if plain or not x4.is_cuda:
+        return qgemm8_cl_plain(x4, w)
+    k, n = w.shape[1], w.shape[2]
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    wc8 = combine_weights(w, x4.dtype)
+    if (kp, np_) != (k, n):
+        x4 = F.pad(x4, (0, kp - k))
+        wc8 = F.pad(wc8, (0, np_ - n, 0, kp - k))
+    y4 = qgemm8_cuda(x4.contiguous(), wc8.contiguous())
+    return y4[:, :, :n] if np_ != n else y4
+
+
+#: launches of kernel B since the last reset (counted where it launches)
+qgemm8_cl.launches = 0
+
+
+def qdense_pallas8(x: torch.Tensor, w: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """Packed-layout wrapper: ``[..., 4K] x [4, K, N] -> [..., 4N]`` through
+    the component-leading GEMM (one transpose in, one out)."""
+    *lead, c4 = x.shape
+    k = c4 // 4
+    if c4 % 4 or w.shape[:2] != (4, k):
+        raise ValueError(f"weights {tuple(w.shape)} incompatible with x {tuple(x.shape)}")
+    m = x.numel() // c4
+    x4 = x.reshape(m, 4, k).transpose(0, 1)
+    y4 = qgemm8_cl(x4, w, plain=plain)
+    return y4.transpose(0, 1).reshape(*lead, 4 * w.shape[2])
