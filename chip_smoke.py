@@ -2,35 +2,47 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (``qasr_torch``, no JAX) once at the full
-width of ``timit_qcnn`` (the paper's QCNN-256, bf16 compute, random weights
-from a seeded ``torch.Generator``), through the two hand-written CUDA kernels,
-and checks it. Phases, one line each:
+Drives the port's serving path and its training path (``qasr_torch``, no
+JAX) at the full width of ``timit_qcnn`` (the paper's QCNN-256, bf16
+compute, random weights from a seeded ``torch.Generator``), through the
+hand-written CUDA kernels, and checks them. Phases, one line each (or a few):
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc build of qasr_torch/csrc/*.cu into qasr_torch/_build/
-  3. parity   each kernel against its plain PyTorch version on the card, at
-              the path's shapes, f32 (tight) and bf16 (loose), gated
+  3. parity   each kernel (A: the conv, B: the GEMM and its dx role, C: the
+              transposed conv with the PReLU backward) against its plain
+              PyTorch version on the card, at the paths' shapes, f32
+              (tight) and bf16 (loose), gated
   4. serving  a Transcriber on four synthetic 1-3 s waveforms, greedy and
               beam; kernel launch counts per forward; kernel-path logits
               against the plain path's, gated
-  5. timing   encoder forward at B16 x T256 and each kernel at its path
-              shape, kernel path against plain path (CUDA events; not gated)
+  5. timing   encoder forward and train step at B16 x T256, and each kernel
+              at its path shape, against its plain version and one library
+              call (CUDA events; not gated)
+  6. train    gradient parity of one train step, kernel path against plain
+              path (bf16 and f32); launches per step; twenty steps on one
+              batch lower the loss; one ``train()`` call with an eval and a
+              checkpoint that a Transcriber then serves; gated
 
-then one JSON line with the per-kernel results and, last, the device line
-``{"ok": true, "device": {...}}``. Any failure raises: the script then exits
-non-zero and prints no result line. It fails without a CUDA device.
+then one JSON line with the per-kernel results, the nvidia-smi line and,
+last, the device line ``{"ok": true, "device": {...}}``. Any failure raises:
+the script then exits non-zero and prints no result line. It fails without
+a CUDA device.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import os
+import shutil
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 # f32 runs the kernels' CUDA-core path: only the summation order differs
@@ -39,7 +51,8 @@ TOL_F32 = {"rel_norm": 2e-5, "max_rel": 2e-4}
 # bf16 rounds the input combos (V8 x) and the weight combos (U8 w) to an
 # 8-bit mantissa (unit roundoff 2^-9 ~ 2e-3 each) before the f32-accumulated
 # products: ~4e-3 relative per output, held against the f32 plain version
-# on the same bf16 inputs.
+# on the same bf16 inputs. Kernel C's dalpha sums g * z_prev of such outputs
+# in f32: the same relative error.
 TOL_BF16 = {"rel_norm": 1e-2, "max_rel": 5e-2}
 # Serving logits in bf16 end to end, against the plain path in f32 on the
 # same weights: each of the 13 layer boundaries rounds to bf16 (~4e-3 each,
@@ -47,6 +60,30 @@ TOL_BF16 = {"rel_norm": 1e-2, "max_rel": 5e-2}
 # path: two such paths rounding at different places, ~sqrt(2) more.
 TOL_LOGITS_F32 = {"rel_norm": 3e-2, "max_rel": 1e-1}
 TOL_LOGITS = {"rel_norm": 5e-2, "max_rel": 1e-1}
+# One train step's gradients, kernel path against plain path on the same
+# weights and batch. Two sources of difference. (a) Rounding: in bf16 the
+# forward rounds at 13 layer boundaries and the backward at 13 more, ~4e-3
+# each, at different places on the two paths: ~sqrt(2 * 26) * 4e-3 ~ 3e-2.
+# (b) The PReLU kink: a pre-activation within the forward error d of zero
+# takes the other slope on one path; a fraction ~0.8 d / sigma of the
+# elements does, so a layer's gradient moves by ~0.75 sqrt(0.8 d / sigma)
+# relative: ~4e-2 a layer in bf16 (d / sigma ~ 4e-3), and the deepest
+# gradients gather it from every layer above. Limit 1.5e-1 on each
+# parameter's gradient. The loss is a mean over 4096 frames whose
+# per-frame errors largely cancel: 1e-2.
+TOL_GRAD_BF16 = {"rel_norm": 1.5e-1}
+TOL_LOSS_BF16 = 1e-2
+# In f32 the kink alone would give ~0.75 sqrt(0.8e-6) ~ 7e-4 a layer, so the
+# f32 check sets every PReLU slope to 1 (no kink) and holds the arithmetic:
+# every kernel sums in f32 in another order (~1e-6 a layer), compounding
+# over 26 layers to ~1e-5; limit 1e-4.
+TOL_GRAD_F32 = {"rel_norm": 1e-4}
+TOL_LOSS_F32 = 1e-4
+
+# H100 SXM datasheet peaks, the bounds' denominators (dense bf16, HBM3)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_S = 3.35e12
+FRAME_S = 0.010  # 10 ms hop: one frame is 10 ms of audio
 
 
 def _line(**kw) -> None:
@@ -72,6 +109,13 @@ def _gate(name: str, err: dict, tol: dict) -> None:
             raise RuntimeError(f"{name}: {k}={err[k]:.3e} exceeds {lim:.1e}")
 
 
+def _report(name: str, err: dict, tol: dict) -> None:
+    _gate(name, err, tol)
+    print(f"phase 3 parity {name}: max_abs {err['max_abs_err']:.3e} "
+          f"max_rel {err['max_rel']:.3e} rel_norm {err['rel_norm']:.3e} (tol {tol})",
+          flush=True)
+
+
 def _time_ms(fn, n: int) -> float:
     for _ in range(2):
         fn()
@@ -95,6 +139,38 @@ def _alternating(kernel_fn, plain_fn, n: int) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def _bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take, in ms: the larger of the
+    operations over the bf16 tensor-core peak and the bytes (each input read
+    once, each output written once) over the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _counters():
+    from qasr_torch.ops.kernels.qconv_dx8 import qconv_dx8
+    from qasr_torch.ops.kernels.qconv_ft import qconv_ft8
+    from qasr_torch.ops.kernels.qgemm8 import qgemm8_cl, qgemm8_dx
+
+    return {"qconv_ft8": qconv_ft8, "qgemm8": qgemm8_cl, "qgemm8_dx": qgemm8_dx,
+            "qconv_dx8": qconv_dx8}
+
+
+def _reset_counts() -> None:
+    torch.cuda.synchronize()
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -103,12 +179,24 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    from qasr.configs import get_config
+    from qasr_torch.configs import get_config
     from qasr_torch.infer import Transcriber, _next_time_pad
     from qasr_torch.models import build_model
+    from qasr_torch.models.layers import PReLU
     from qasr_torch.ops.kernels import _build
+    from qasr_torch.ops.kernels.qconv_chain import qconv_dw8
+    from qasr_torch.ops.kernels.qconv_dx8 import conj_transpose_w, qconv_dx8, qconv_dx8_plain
     from qasr_torch.ops.kernels.qconv_ft import qconv_fast8_stacked_plain, qconv_ft8
-    from qasr_torch.ops.kernels.qgemm8 import qgemm8_cl, qgemm8_cl_plain
+    from qasr_torch.ops.kernels.qgemm8 import (
+        conj_transpose_dense,
+        qgemm8_cl,
+        qgemm8_cl_plain,
+        qgemm8_dx,
+    )
+    from qasr_torch.ops.quaternion import hamilton_expand
+    from qasr_torch.train.loop import train
+    from qasr_torch.train.state import create_train_state
+    from qasr_torch.train.step import batch_to_device, loss_fn, train_step
 
     # 1. device
     smi = subprocess.run(
@@ -138,40 +226,54 @@ def main() -> int:
         w = rnd(4, *ks, c, c, scale=(1.0 / (ks[0] * ks[1] * c)) ** 0.5)
         bias = rnd(4 * c, scale=0.1)
         alpha = rnd(4 * c, scale=0.25).abs()
+        slopes = rnd(4 * c, scale=0.25)  # kernel C: signed, so alpha < 0 is covered
         x32 = rnd(b, 4, f, t, c, scale=0.5)
+        dz32 = rnd(b, 4, f, t, c)
+        shape = f"B{b} F{f} T{t} C{c} k{ks[0]}x{ks[1]}"
         for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
-            x = x32.to(dtype)
+            x, dz = x32.to(dtype), dz32.to(dtype)
+            dname = str(dtype)[6:]
             for bb, aa in ((None, None), (bias, alpha)):
                 got = qconv_ft8(x, w, bb, aa)
                 ref = qconv_fast8_stacked_plain(x.float(), w, bb, aa)
-                torch.cuda.synchronize()
                 err = _errors(got, ref)
-                name = (f"qconv_ft8 B{b} F{f} T{t} C{c} k{ks[0]}x{ks[1]} "
-                        f"{str(dtype)[6:]} prologue+bias={bb is not None}")
-                _gate(name, err, tol)
-                print(f"phase 3 parity {name}: max_abs {err['max_abs_err']:.3e} "
-                      f"max_rel {err['max_rel']:.3e} rel_norm {err['rel_norm']:.3e} "
-                      f"(tol {tol})", flush=True)
+                _report(f"qconv_ft8 {shape} {dname} prologue+bias={bb is not None}", err, tol)
                 if (t, dtype, bb is not None) == (256, torch.bfloat16, True):
                     results["qconv_ft8"] = err["max_abs_err"]
+            for epi in (False, True):
+                zz, sl = (x, slopes) if epi else (None, None)
+                got, got_da = qconv_dx8(dz, w, zz, sl)
+                ref, ref_da = qconv_dx8_plain(dz.float(), w, None if zz is None else zz.float(), sl)
+                err = _errors(got, ref)
+                _report(f"qconv_dx8 {shape} {dname} epilogue={epi} dx", err, tol)
+                if epi:
+                    da_err = _errors(got_da, ref_da)
+                    _report(f"qconv_dx8 {shape} {dname} epilogue=True dalpha", da_err, tol)
+                elif got_da is not None:
+                    raise RuntimeError("qconv_dx8 without its epilogue returned a dalpha")
+                if (t, dtype, epi) == (256, torch.bfloat16, True):
+                    results["qconv_dx8"] = max(err["max_abs_err"], da_err["max_abs_err"])
+                    # dalpha is reduced without atomics: the same bits every run
+                    again, again_da = qconv_dx8(dz, w, zz, sl)
+                    if not (torch.equal(again, got) and torch.equal(again_da, got_da)):
+                        raise RuntimeError("qconv_dx8 differs between two runs on the same inputs")
     for m, k, n in ((4096, 3328, 256), (1000, 3328, 256), (4096, 256, 256), (1000, 256, 256)):
         w = rnd(4, k, n, scale=(1.0 / k) ** 0.5)
         x32 = rnd(4, m, k, scale=0.5)
+        dy32 = rnd(4, m, n)
         for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
-            x4 = x32.to(dtype)
-            got = qgemm8_cl(x4, w)
-            ref = qgemm8_cl_plain(x4.float(), w)
-            torch.cuda.synchronize()
-            err = _errors(got, ref)
-            name = f"qgemm8 M{m} K{k} N{n} {str(dtype)[6:]}"
-            _gate(name, err, tol)
-            print(f"phase 3 parity {name}: max_abs {err['max_abs_err']:.3e} "
-                  f"max_rel {err['max_rel']:.3e} rel_norm {err['rel_norm']:.3e} "
-                  f"(tol {tol})", flush=True)
+            x4, dy4 = x32.to(dtype), dy32.to(dtype)
+            dname = str(dtype)[6:]
+            err = _errors(qgemm8_cl(x4, w), qgemm8_cl_plain(x4.float(), w))
+            _report(f"qgemm8 M{m} K{k} N{n} {dname}", err, tol)
             if (m, k, dtype) == (4096, 3328, torch.bfloat16):
                 results["qgemm8"] = err["max_abs_err"]
+            err = _errors(qgemm8_dx(dy4, w), qgemm8_cl_plain(dy4.float(), conj_transpose_dense(w)))
+            _report(f"qgemm8_dx M{m} N{n} -> K{k} {dname}", err, tol)
+            if (m, k, dtype) == (4096, 3328, torch.bfloat16):
+                results["qgemm8_dx"] = err["max_abs_err"]
 
-    # 4. serving: the port's main path, full width
+    # 4. serving: the port's serving path, full width
     cfg = get_config("timit_qcnn")
     model = build_model(cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
     params = model.state_dict()
@@ -184,18 +286,16 @@ def main() -> int:
         n = int(n_s * cfg.data.sample_rate)
         env = np.abs(np.sin(np.linspace(0, 6 * np.pi, n)))  # syllable-like bursts
         wavs.append((0.1 * env * rng.standard_normal(n)).astype(np.float32))
-    torch.cuda.synchronize()
-    qconv_ft8.launches = 0
-    qgemm8_cl.launches = 0
+    _reset_counts()
     hyp_greedy = greedy.transcribe_batch(wavs)
     hyp_beam = beam.transcribe_batch(wavs)
-    torch.cuda.synchronize()
-    launches = {"qconv_ft8": qconv_ft8.launches, "qgemm8": qgemm8_cl.launches}
+    serve_counts = _read_counts()
     n_fat = sum(greedy.model.stacked)
     n_dense = greedy.model.n_dense
-    want = {"qconv_ft8": 2 * n_fat, "qgemm8": 2 * n_dense}  # two forwards
-    if launches != want or n_fat != 9 or n_dense != 3:
-        raise RuntimeError(f"kernel launches {launches}, expected {want} (9 and 3 per forward)")
+    want = {"qconv_ft8": 2 * n_fat, "qgemm8": 2 * n_dense, "qgemm8_dx": 0,
+            "qconv_dx8": 0}  # two forwards, no backward
+    if serve_counts != want or n_fat != 9 or n_dense != 3:
+        raise RuntimeError(f"serving launches {serve_counts}, expected {want}")
     logits, lengths = greedy.logits(wavs)
     logits_plain, _ = greedy.logits(wavs, plain=True)
     torch.cuda.synchronize()
@@ -214,7 +314,7 @@ def main() -> int:
     print(f"phase 4 serving: timit_qcnn QCNN-256 bf16, {len(wavs)} utterances "
           f"({', '.join(f'{len(w) / cfg.data.sample_rate:.2f}' for w in wavs)} s), "
           f"logits {tuple(logits.shape)} finite; launches per forward "
-          f"qconv_ft8 {launches['qconv_ft8'] // 2} qgemm8 {launches['qgemm8'] // 2}; "
+          f"qconv_ft8 {serve_counts['qconv_ft8'] // 2} qgemm8 {serve_counts['qgemm8'] // 2}; "
           f"greedy phones {[len(h) for h in hyp_greedy]}, beam (W={cfg.decode.beam_width}, "
           f"prune {cfg.decode.beam_prune_logp}) phones {[len(h) for h in hyp_beam]}; "
           f"logits kernel vs plain max_abs {lerr['max_abs_err']:.3e} "
@@ -222,38 +322,239 @@ def main() -> int:
           f"path: kernel rel_norm {kerr32['rel_norm']:.3e}, bf16 plain rel_norm "
           f"{perr32['rel_norm']:.3e} (tol {TOL_LOGITS_F32})", flush=True)
 
-    # 5. timing (informational)
+    # The training configuration: timit_qcnn at full width on synthetic data
+    # (the corpus does not ship with the repo), 40 mels, 62 classes, one
+    # 256-frame bucket, a 2-step warmup. The preset's peak rate of 1e-3 is
+    # reached after 500 warmup steps; after 2, its first updates overshoot
+    # and the loss diverges on the kernel and the plain path alike, so the
+    # short runs here train at 1e-4. The fixed batch is TIMIT-like: 16
+    # utterances of 256 frames (2.56 s) with 40 phone labels each.
+    tcfg = cfg.override(**{"data.dataset": "synthetic", "data.n_mels": 40, "model.vocab": 62,
+                           "data.bucket_sizes": (256,), "train.warmup_steps": 2,
+                           "train.learning_rate": 1e-4})
+    brng = np.random.default_rng(SEED + 1)
+    batch = {
+        "features": brng.standard_normal((16, 256, 40, 4)).astype(np.float32),
+        "feature_lengths": np.full(16, 256, np.int32),
+        "labels": brng.integers(1, 62, size=(16, tcfg.data.max_label_len)).astype(np.int32),
+        "label_lengths": np.full(16, 40, np.int32),
+        "real_rows": np.ones(16, bool),
+    }
+    train_audio_s = 16 * 256 * FRAME_S
+
+    # 5. timing (informational), at the paths' shapes
     enc = greedy.model
     feats = rnd(16, 256, cfg.data.n_mels, 4)
-    audio_s = 16 * 256 * 0.010  # 10 ms hop per frame
+    audio_s = 16 * 256 * FRAME_S
+    timing = {}
     with torch.no_grad():
         fwd_k, fwd_p = _alternating(lambda: enc(feats), lambda: enc(feats, plain=True), 5)
+        # kernel A and its library call: one F.conv2d on the Hamilton-expanded
+        # weight over the packed NCHW input (the equal-width real conv)
         xa = rnd(16, 4, 13, 256, 256, scale=0.5).to(torch.bfloat16)
         wa = rnd(4, 3, 3, 256, 256, scale=0.02)
         ba, aa = rnd(1024, scale=0.1), rnd(1024, scale=0.25).abs()
-        a_k, a_p = _alternating(lambda: qconv_ft8(xa, wa, ba, aa),
-                                lambda: qconv_fast8_stacked_plain(xa, wa, ba, aa), 10)
+        timing["qconv_ft8"] = _alternating(lambda: qconv_ft8(xa, wa, ba, aa),
+                                           lambda: qconv_fast8_stacked_plain(xa, wa, ba, aa), 10)
+        xa_lib = xa.permute(0, 1, 4, 2, 3).reshape(16, 1024, 13, 256).contiguous()
+        wa_lib = hamilton_expand(wa).permute(3, 2, 1, 0).contiguous().to(torch.bfloat16)
+        lib = F.conv2d(xa_lib, wa_lib, padding=1)
+        ref = qconv_fast8_stacked_plain(xa.float(), wa).permute(0, 1, 4, 2, 3)
+        ref = ref.reshape(16, 1024, 13, 256)
+        _gate("library conv2d for kernel A", _errors(lib, ref), TOL_BF16)
+        lib_a = _time_ms(lambda: F.conv2d(xa_lib, wa_lib, padding=1), 10)
+        fl_a = 2 * 8 * 16 * 13 * 256 * 256 * 256 * 9
+        bound_a = _bound(fl_a, 2 * _nbytes(xa) + 8 * 9 * 256 * 256 * 2 + _nbytes(ba, aa))
+        # kernel C, epilogue on; its library call: one F.conv2d on the
+        # expanded adjoint weight (the transposed conv without the epilogue)
+        dza = rnd(16, 4, 13, 256, 256).to(torch.bfloat16)
+        sa = rnd(1024, scale=0.25)
+        timing["qconv_dx8"] = _alternating(lambda: qconv_dx8(dza, wa, xa, sa),
+                                           lambda: qconv_dx8_plain(dza, wa, xa, sa), 10)
+        dza_lib = dza.permute(0, 1, 4, 2, 3).reshape(16, 1024, 13, 256).contiguous()
+        wc_lib = hamilton_expand(conj_transpose_w(wa)).permute(3, 2, 1, 0).contiguous()
+        wc_lib = wc_lib.to(torch.bfloat16)
+        lib = F.conv2d(dza_lib, wc_lib, padding=1)
+        ref = qconv_dx8_plain(dza.float(), wa)[0].permute(0, 1, 4, 2, 3)
+        ref = ref.reshape(16, 1024, 13, 256)
+        _gate("library conv2d for kernel C", _errors(lib, ref), TOL_BF16)
+        lib_c = _time_ms(lambda: F.conv2d(dza_lib, wc_lib, padding=1), 10)
+        # dz and z_prev in, dx out, the combos, slopes in and dalpha out
+        bound_c = _bound(fl_a, 3 * _nbytes(dza) + 8 * 9 * 256 * 256 * 2 + 2 * _nbytes(sa))
+        # kernel C without its epilogue (the first stacked layer's dx)
+        c0_k, c0_p = _alternating(lambda: qconv_dx8(dza, wa), lambda: qconv_dx8_plain(dza, wa), 10)
+        # the layer's dW (plain PyTorch: eight cuDNN weight-gradient convs)
+        dw_ms = _time_ms(lambda: qconv_dw8(xa, dza, (3, 3)), 5)
+        # kernel B, forward and dx role, and their library calls: one matmul
+        # on the Hamilton-expanded weight
         xb = rnd(4, 4096, 3328, scale=0.5).to(torch.bfloat16)
         wb = rnd(4, 3328, 256, scale=0.02)
-        b_k, b_p = _alternating(lambda: qgemm8_cl(xb, wb), lambda: qgemm8_cl_plain(xb, wb), 10)
+        timing["qgemm8"] = _alternating(lambda: qgemm8_cl(xb, wb),
+                                        lambda: qgemm8_cl_plain(xb, wb), 10)
+        xb_lib = xb.permute(1, 0, 2).reshape(4096, 4 * 3328).contiguous()
+        wb_lib = hamilton_expand(wb).to(torch.bfloat16)
+        lib_b = _time_ms(lambda: torch.matmul(xb_lib, wb_lib), 10)
+        fl_b = 2 * 8 * 4096 * 3328 * 256
+        bound_b = _bound(fl_b, _nbytes(xb) + 8 * 3328 * 256 * 2 + 4 * 4096 * 256 * 2)
+        dyb = rnd(4, 4096, 256).to(torch.bfloat16)
+        wbt = conj_transpose_dense(wb)
+        timing["qgemm8_dx"] = _alternating(lambda: qgemm8_dx(dyb, wb),
+                                           lambda: qgemm8_cl_plain(dyb, wbt), 10)
+        dyb_lib = dyb.permute(1, 0, 2).reshape(4096, 4 * 256).contiguous()
+        wbt_lib = hamilton_expand(wbt).to(torch.bfloat16)
+        lib_bdx = _time_ms(lambda: torch.matmul(dyb_lib, wbt_lib), 10)
+        bound_bdx = _bound(fl_b, _nbytes(dyb) + 8 * 3328 * 256 * 2 + _nbytes(xb))
         xb2 = rnd(4, 4096, 256, scale=0.5).to(torch.bfloat16)
         wb2 = rnd(4, 256, 256, scale=0.05)
         b2_k, b2_p = _alternating(lambda: qgemm8_cl(xb2, wb2),
                                   lambda: qgemm8_cl_plain(xb2, wb2), 10)
+        xb2_lib = xb2.permute(1, 0, 2).reshape(4096, 1024).contiguous()
+        wb2_lib = hamilton_expand(wb2).to(torch.bfloat16)
+        lib_b2 = _time_ms(lambda: torch.matmul(xb2_lib, wb2_lib), 10)
+        bound_b2 = _bound(2 * 8 * 4096 * 256 * 256,
+                          _nbytes(xb2) + 8 * 256 * 256 * 2 + _nbytes(xb2))
+    del xa, dza, xa_lib, dza_lib, xb, xb_lib, dyb, dyb_lib, lib, ref
+    # one train step, kernel path against plain path, on the fixed batch
+    st_k = create_train_state(tcfg, device=dev)
+    st_p = create_train_state(tcfg, device=dev)
+    step_k, step_p = _alternating(lambda: train_step(st_k, batch),
+                                  lambda: train_step(st_p, batch, plain=True), 3)
+    del st_k, st_p
+    torch.cuda.empty_cache()
+    tk = timing
     print(f"phase 5 timing on {smi}: encoder fwd B16xT256 kernel {fwd_k:.3f} ms "
           f"({audio_s / fwd_k * 1e3:.1f} audio-s/s), plain {fwd_p:.3f} ms "
-          f"({audio_s / fwd_p * 1e3:.1f} audio-s/s); qconv_ft8 B16 F13 T256 C256 "
-          f"kernel {a_k:.3f} ms plain {a_p:.3f} ms; qgemm8 M4096 K3328 N256 kernel "
-          f"{b_k:.3f} ms plain {b_p:.3f} ms; qgemm8 M4096 K256 N256 kernel "
-          f"{b2_k:.3f} ms plain {b2_p:.3f} ms; build {build_s:.2f} s", flush=True)
+          f"({audio_s / fwd_p * 1e3:.1f} audio-s/s); train step B16xT256 kernel "
+          f"{step_k:.3f} ms ({train_audio_s / step_k * 1e3:.1f} audio-s/s), plain "
+          f"{step_p:.3f} ms ({train_audio_s / step_p * 1e3:.1f} audio-s/s)", flush=True)
+    print(f"phase 5 timing on {smi}: qconv_ft8 B16 F13 T256 C256 kernel "
+          f"{tk['qconv_ft8'][0]:.3f} ms plain {tk['qconv_ft8'][1]:.3f} ms library "
+          f"{lib_a:.3f} ms bound {bound_a[0]:.3f} ms; qconv_dx8 same shape kernel "
+          f"{tk['qconv_dx8'][0]:.3f} ms plain {tk['qconv_dx8'][1]:.3f} ms library "
+          f"{lib_c:.3f} ms bound {bound_c[0]:.3f} ms; qconv_dx8 without epilogue kernel "
+          f"{c0_k:.3f} ms plain {c0_p:.3f} ms; conv dW (cuDNN) {dw_ms:.3f} ms; "
+          f"qgemm8 M4096 K3328 N256 kernel "
+          f"{tk['qgemm8'][0]:.3f} ms plain {tk['qgemm8'][1]:.3f} ms library {lib_b:.3f} ms "
+          f"bound {bound_b[0]:.3f} ms; qgemm8_dx M4096 N256 -> K3328 kernel "
+          f"{tk['qgemm8_dx'][0]:.3f} ms plain {tk['qgemm8_dx'][1]:.3f} ms library "
+          f"{lib_bdx:.3f} ms bound {bound_bdx[0]:.3f} ms; qgemm8 M4096 K256 N256 kernel "
+          f"{b2_k:.3f} ms plain {b2_p:.3f} ms library {lib_b2:.3f} ms bound "
+          f"{bound_b2[0]:.4f} ms ({bound_b2[1]}); build {build_s:.2f} s", flush=True)
+
+    # 6. training: the port's training path, full width
+    # gradient parity, kernel path against plain path, dropout off
+    def grads(cfg_, plain, unit_slopes):
+        st = create_train_state(cfg_, device=dev)
+        if unit_slopes:
+            with torch.no_grad():
+                for m in st.model.modules():
+                    if isinstance(m, PReLU):
+                        m.alpha.fill_(1.0)
+        b = batch_to_device(batch, dev)
+        loss = loss_fn(cfg_, st.model(b["features"], plain=plain, generator=st.generator), b)
+        loss.backward()
+        out = {k: p.grad.float() for k, p in st.model.named_parameters()}
+        return loss.detach().float(), out
+
+    for dtype, tol, tol_loss, unit in (("bfloat16", TOL_GRAD_BF16, TOL_LOSS_BF16, False),
+                                       ("float32", TOL_GRAD_F32, TOL_LOSS_F32, True)):
+        pcfg = tcfg.override(**{"model.dropout_rate": 0.0, "model.compute_dtype": dtype})
+        loss_k, g_k = grads(pcfg, False, unit)
+        loss_p, g_p = grads(pcfg, True, unit)
+        torch.cuda.synchronize()
+        dl = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        if not (math.isfinite(loss_k.item()) and dl <= tol_loss):
+            raise RuntimeError(f"train loss {dtype}: kernel {loss_k.item()} plain "
+                               f"{loss_p.item()} (rel {dl:.3e} > {tol_loss:.1e})")
+        worst = ("", 0.0)
+        for k in g_p:
+            err = _errors(g_k[k], g_p[k])
+            _gate(f"train grad {dtype} {k}", err, tol)
+            worst = max(worst, (k, err["rel_norm"]), key=lambda v: v[1])
+        print(f"phase 6 train parity {dtype}{' (PReLU slopes 1)' if unit else ''}: loss kernel "
+              f"{loss_k.item():.6f} plain "
+              f"{loss_p.item():.6f} (rel {dl:.3e}, tol {tol_loss:.0e}); {len(g_p)} gradients, "
+              f"worst rel_norm {worst[1]:.3e} ({worst[0]}) (tol {tol})", flush=True)
+        del g_k, g_p
+        torch.cuda.empty_cache()
+
+    # launches of one train step, and twenty steps on the fixed batch
+    state = create_train_state(tcfg, device=dev)
+    _reset_counts()
+    losses = [train_step(state, batch)["loss"].item()]
+    step_counts = _read_counts()
+    want = {"qconv_ft8": 9, "qconv_dx8": 9, "qgemm8": 3, "qgemm8_dx": 3}
+    if step_counts != want:
+        raise RuntimeError(f"launches in one train step {step_counts}, expected {want}")
+    for _ in range(19):
+        losses.append(train_step(state, batch)["loss"].item())
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"twenty steps on one batch did not lower the loss: {losses}")
+    print(f"phase 6 train steps: launches per step {step_counts}; loss over 20 steps on one "
+          f"batch (dropout {tcfg.model.dropout_rate}) {losses[0]:.4f} -> {losses[-1]:.4f}",
+          flush=True)
+    del state
+    # the preset's peak rate (1e-3) after the same 2-step warmup, on both
+    # paths (not gated): why the runs here train at 1e-4
+    rate = {}
+    for plain in (False, True):
+        st = create_train_state(tcfg.override(**{"train.learning_rate": 1e-3}), device=dev)
+        rate[plain] = [round(train_step(st, batch, plain=plain)["loss"].item(), 3)
+                       for _ in range(6)]
+        del st
+    print(f"phase 6 train rate 1e-3 (not gated): loss over 6 steps kernel path {rate[False]}, "
+          f"plain path {rate[True]}", flush=True)
+    torch.cuda.empty_cache()
+
+    # the main path: one train() call (4 steps, an eval over the synthetic
+    # set, a checkpoint) and a Transcriber serving that checkpoint
+    ckpt_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "qasr_torch",
+                             "_build", "smoke_train")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    lcfg = tcfg.override(**{"train.num_steps": 4, "train.log_every": 2,
+                            "train.eval_every": 4, "train.checkpoint_every": 4})
+    _reset_counts()
+    t0 = time.perf_counter()
+    lstate, last = train(lcfg, device=dev, checkpoint_dir=ckpt_root)
+    train_s = time.perf_counter() - t0
+    train_counts = _read_counts()
+    if lstate.step != 4 or not math.isfinite(last["loss"]) or "dev_per" not in last:
+        raise RuntimeError(f"train() ended at step {lstate.step} with {last}")
+    if train_counts["qconv_dx8"] != 9 * 4 or train_counts["qgemm8_dx"] != 3 * 4:
+        raise RuntimeError(f"train() launches {train_counts}: expected 9 and 3 a step backward")
+    served = Transcriber(last["checkpoint"], device=dev)
+    hyp = served.transcribe_batch(wavs)
+    ck_logits, _ = served.logits(wavs)
+    if not torch.isfinite(ck_logits).all() or len(hyp) != len(wavs):
+        raise RuntimeError("the trained checkpoint did not serve")
+    sd = lstate.model.state_dict()
+    for k, v in served.model.state_dict().items():
+        if not torch.equal(v, sd[k]):
+            raise RuntimeError(f"checkpoint param {k} differs from the trained one")
+    print(f"phase 6 train(): {lcfg.model.conv_features[0]}-wide qcnn, {lstate.step} steps in "
+          f"{train_s:.2f} s, last log {json.dumps({k: last[k] for k in sorted(last)})}; "
+          f"launches {train_counts}; checkpoint served {len(hyp)} utterances "
+          f"(phones {[len(h) for h in hyp]})", flush=True)
+    del lstate, served
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    def entry(name, source, replaces, bound, lib_ms):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": train_counts[name], "max_abs_err": results[name],
+                "ms": timing[name][0], "plain_ms": timing[name][1], "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": lib_ms}
 
     _line(kernels=[
-        {"name": "qconv_ft8", "route": "cuda", "source": "qasr_torch/csrc/qconv_ft8.cu",
-         "replaces": "qasr/ops/pallas/qconv_ft.py:120", "launches": launches["qconv_ft8"],
-         "max_abs_err": results["qconv_ft8"], "ms": a_k, "plain_ms": a_p},
-        {"name": "qgemm8", "route": "cuda", "source": "qasr_torch/csrc/qgemm8.cu",
-         "replaces": "qasr/ops/pallas/qgemm8.py:84", "launches": launches["qgemm8"],
-         "max_abs_err": results["qgemm8"], "ms": b_k, "plain_ms": b_p},
+        entry("qconv_ft8", "qasr_torch/csrc/qconv_ft8.cu",
+              "qasr/ops/pallas/qconv_ft.py:120 (fwd); qasr/ops/pallas/qconv_chain.py:118",
+              bound_a, lib_a),
+        entry("qconv_dx8", "qasr_torch/csrc/qconv_dx8.cu",
+              "qasr/ops/pallas/qconv_chain.py:254; qasr/ops/pallas/qconv_ft.py:120 (dx role)",
+              bound_c, lib_c),
+        entry("qgemm8", "qasr_torch/csrc/qgemm8.cu", "qasr/ops/pallas/qgemm8.py:84 (fwd)",
+              bound_b, lib_b),
+        entry("qgemm8_dx", "qasr_torch/csrc/qgemm8.cu",
+              "qasr/ops/pallas/qgemm8.py:84 (in_kind=dx)", bound_bdx, lib_bdx),
     ])
     print(smi, flush=True)
     _line(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ NVIDIA Hopper GPUs.
 A port of the JAX package ``qasr`` (which stays the reference): the same
 models, parameter names and shapes, with the TPU's Pallas kernels replaced by
 hand-written CUDA kernels built for ``sm_90a`` at first use. It imports
-``torch`` and never JAX. Framework-free pieces of ``qasr`` (configs, TIMIT
-tables, the native C++ beam decoder) are reused as they are.
+``torch`` and never JAX, and nothing of ``qasr``: it keeps its own copies of
+the framework-free pieces (configs, TIMIT tables, batching, the native C++
+decoder and scorer).
 
 The symbols below are re-exported lazily, so ``import qasr_torch`` costs
 nothing until one is touched.
@@ -19,6 +20,7 @@ _API = {
     "QConv": "qasr_torch.models.layers",
     "QDense": "qasr_torch.models.layers",
     "PReLU": "qasr_torch.models.layers",
+    "Dropout": "qasr_torch.models.layers",
     "QCNNEncoder": "qasr_torch.models.qcnn",
     "build_model": "qasr_torch.models",
     # functional ops
@@ -29,16 +31,27 @@ _API = {
     "quaternion_init": "qasr_torch.ops.initializers",
     "qconv_ft8": "qasr_torch.ops.kernels.qconv_ft",
     "chain_layer": "qasr_torch.ops.kernels.qconv_chain",
+    "qconv_dx8": "qasr_torch.ops.kernels.qconv_dx8",
+    "ChainLayerFn": "qasr_torch.ops.kernels.qconv_chain",
     "qgemm8_cl": "qasr_torch.ops.kernels.qgemm8",
+    "QGemm8Fn": "qasr_torch.ops.kernels.qgemm8",
     "qdense_pallas8": "qasr_torch.ops.kernels.qgemm8",
     # decode / features / inference
     "ctc_greedy_decode": "qasr_torch.ops.ctc",
+    "ctc_loss": "qasr_torch.ops.ctc",
     "featurize_waveform": "qasr_torch.features.frontend",
     "Transcriber": "qasr_torch.infer",
+    # configs / training
+    "Config": "qasr_torch.configs",
+    "get_config": "qasr_torch.configs",
+    "create_train_state": "qasr_torch.train.state",
+    "train_step": "qasr_torch.train.step",
+    "train": "qasr_torch.train.loop",
     # weights
     "params_from_jax": "qasr_torch.bridge",
     "save_params_npz": "qasr_torch.bridge",
     "load_params_npz": "qasr_torch.bridge",
+    "params_to_jax": "qasr_torch.bridge",
 }
 
 __all__ = ["__version__", *sorted(_API)]

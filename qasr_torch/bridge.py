@@ -4,7 +4,8 @@ The port keeps the JAX parameter names and shapes exactly, so the bridge is
 a name flattening, not a re-layout: the JAX tree ``{"qconv_3": {"kernel":
 ...}}`` is the state_dict entry ``"qconv_3.kernel"``. A JAX-side caller
 exports a restored tree with ``jax.tree.map(np.asarray, params)``; the port
-reads it, or a ``.npz`` written from it, without JAX.
+reads it, or a ``.npz`` written from it, without JAX. The other way,
+:func:`params_to_jax` gives a port-trained state_dict as a JAX tree.
 
 ``.npz`` files hold flat ``"qconv_3/kernel"`` keys in f32.
 """
@@ -37,6 +38,22 @@ def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
         tree = tree["params"]
     flat = _flatten(tree, "", ".", {})
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in flat.items()}
+
+
+def params_to_jax(state_dict: Mapping) -> dict:
+    """state_dict -> the nested JAX param tree of f32 numpy arrays
+    (``{"qconv_3": {"kernel": ...}}``), which the JAX package's
+    ``model.apply({"params": tree}, ...)`` takes as it is."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        if torch.is_tensor(value):
+            value = value.detach().to("cpu", torch.float32).numpy()
+        node[leaf] = np.asarray(value, np.float32)
+    return tree
 
 
 def save_params_npz(params: Mapping, path: str) -> None:

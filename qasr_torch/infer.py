@@ -6,11 +6,12 @@
     phones = t.transcribe_file("sx42.wav")            # ['h#', 'sh', ...]
     folded = t.transcribe_file("sx42.wav", fold=True) # 39-phone protocol
 
-A checkpoint directory for the port holds ``config.json`` (the
-``qasr.configs.Config`` JSON that training writes) and ``params.npz`` (see
+A checkpoint directory for the port holds ``config.json`` (the ``Config``
+JSON that either package's training writes) and ``params.npz`` (see
 ``qasr_torch.bridge``). Features, the encoder and greedy decoding run on
-``device``; ``beam=True`` decodes the logits on the host with the native C++
-prefix beam search (``qasr.native``) at the config's width and pruning.
+``device`` (the GPU unless the caller asks for the CPU); ``beam=True`` decodes
+the logits on the host with the native C++ prefix beam search
+(``qasr_torch.native``) at the config's width and pruning.
 """
 
 from __future__ import annotations
@@ -21,10 +22,13 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from qasr.configs import Config
+from qasr_torch.configs import Config
 from qasr_torch.bridge import load_params_npz, params_from_jax
+from qasr_torch.data.librispeech import ids_to_text
+from qasr_torch.data.timit import ID_TO_PHONE, fold_to_39, read_sphere
 from qasr_torch.features.frontend import FrontendConfig, featurize_waveform
 from qasr_torch.models import build_model
+from qasr_torch.native import ctc_beam_decode_native, flac_decode_native, flac_probe
 from qasr_torch.ops.ctc import ctc_greedy_decode
 
 
@@ -49,7 +53,8 @@ class Transcriber:
         instead of ``params.npz``.
       beam: prefix beam search (``cfg.decode.beam_width``,
         ``cfg.decode.beam_prune_logp``) instead of greedy best-path.
-      device: where features, the encoder and greedy decoding run.
+      device: where features, the encoder and greedy decoding run (the GPU
+        unless the caller asks for the CPU; no fallback when there is none).
     """
 
     def __init__(
@@ -59,7 +64,7 @@ class Transcriber:
         cfg: Config | None = None,
         params: Mapping | None = None,
         beam: bool = False,
-        device: torch.device | str,
+        device: torch.device | str = "cuda",
     ):
         if cfg is None:
             if checkpoint_dir is None:
@@ -103,8 +108,6 @@ class Transcriber:
         """Logits -> (sequences ``[B, L]`` padded with -1, lengths ``[B]``) as
         numpy arrays."""
         if self.beam:
-            from qasr.native import ctc_beam_decode_native
-
             seq, lens, _ = ctc_beam_decode_native(
                 logits.float().cpu().numpy(),
                 lengths.cpu().numpy(),
@@ -126,11 +129,7 @@ class Transcriber:
         if self.cfg.data.dataset == "librispeech":
             if fold:
                 raise ValueError("fold=True is the TIMIT 61->39 phone fold")
-            from qasr.data.librispeech import ids_to_text
-
             return ids_to_text(ids)
-        from qasr.data.timit import ID_TO_PHONE, fold_to_39
-
         phones = [ID_TO_PHONE[i] for i in ids if i in ID_TO_PHONE]
         return fold_to_39(phones) if fold else phones
 
@@ -148,14 +147,10 @@ class Transcriber:
     def transcribe_file(self, path: str, *, fold: bool = False):
         """Transcribe one audio file (NIST SPHERE / RIFF wav / FLAC)."""
         if path.lower().endswith(".flac"):
-            from qasr.native import flac_decode_native, flac_probe
-
             samples, rate = flac_decode_native(path)
             samples = samples[:, 0]  # [n, channels] -> mono
             scale = float(2 ** (flac_probe(path)["bps"] - 1))
         else:
-            from qasr.data.timit import read_sphere
-
             samples, rate = read_sphere(path)
             scale = 32768.0  # SPHERE/RIFF path is 16-bit PCM
         if rate != self.cfg.data.sample_rate:

@@ -1,11 +1,11 @@
-"""Model construction from a ``qasr.configs.Config`` (counterpart of
+"""Model construction from a ``Config`` (counterpart of
 ``qasr/train/state.py:build_model``)."""
 
 from __future__ import annotations
 
 import torch
 
-from qasr.configs import Config
+from qasr_torch.configs import Config
 from qasr_torch.models.qcnn import QCNNEncoder
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -15,10 +15,12 @@ def build_model(
     cfg: Config,
     *,
     generator: torch.Generator | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
+    train: bool = False,
 ) -> QCNNEncoder:
-    """The eval-mode encoder for ``cfg``, its weights drawn from
-    ``generator`` (the port's init) on ``device``.
+    """The encoder for ``cfg``, its weights drawn from ``generator`` (the
+    port's init) on ``device`` (the GPU unless the caller asks for the CPU),
+    in train mode (dropout at ``cfg.model.dropout_rate``) or eval mode.
 
     Only ``arch="qcnn"`` is ported so far.
     """
@@ -36,7 +38,8 @@ def build_model(
         kernel_size=tuple(m.kernel_size),
         pool_after=m.pool_after,
         pool_size=m.pool_size,
+        dropout_rate=m.dropout_rate,
         dtype=_DTYPES[m.compute_dtype],
         generator=generator,
         device=device,
-    ).eval()
+    ).train(train)

@@ -3,8 +3,11 @@
 Parameters keep the JAX package's names and shapes exactly
 (``docs/checkpoint_layout.md``): ``kernel [4, kh, kw, Cin, Cout]`` and
 ``bias [4*Cout]`` for a conv, ``kernel [4, K, N]`` and ``bias [4*N]`` for a
-dense layer, ``alpha [4*C]`` for the split PReLU. Parameters are f32; each
-layer computes in its ``dtype`` (e.g. bf16).
+dense layer, ``alpha [4*C]`` for the split PReLU. Parameters are f32 master
+weights; each layer casts them to its compute ``dtype`` (e.g. bf16) at use,
+as the JAX layers do, so gradients come back to the f32 parameters.
+Parameters are made on ``device``: the GPU unless the caller asks for the
+CPU.
 """
 
 from __future__ import annotations
@@ -46,8 +49,8 @@ class QConv(nn.Module):
     ``layout="btfc"``: packed ``[B, T, F, 4*Cin]`` in and out, block path
     (one ``F.conv2d`` on the 4x-expanded kernel) — the thin layer.
     ``layout="stacked_ft"``: ``[B, 4, F, T, Cin]`` in and out through
-    :func:`chain_layer` (kernel A on a CUDA tensor), optionally applying the
-    previous layer's PReLU slopes in its prologue.
+    :func:`chain_layer` (kernels A and C on a CUDA tensor), optionally
+    applying the previous layer's PReLU slopes in its prologue.
     """
 
     def __init__(
@@ -59,7 +62,7 @@ class QConv(nn.Module):
         layout: str = "btfc",
         dtype: torch.dtype = torch.float32,
         generator: torch.Generator | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         super().__init__()
         if layout not in ("btfc", "stacked_ft"):
@@ -89,7 +92,7 @@ class QConv(nn.Module):
 
 class QDense(nn.Module):
     """Quaternion dense layer on packed ``[..., 4*K]`` input, through the
-    rank-8 GEMM (kernel B on a CUDA tensor)."""
+    rank-8 GEMM (kernel B, forward and dx, on a CUDA tensor)."""
 
     def __init__(
         self,
@@ -98,7 +101,7 @@ class QDense(nn.Module):
         *,
         dtype: torch.dtype = torch.float32,
         generator: torch.Generator | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         super().__init__()
         self.dtype = dtype
@@ -117,7 +120,7 @@ class PReLU(nn.Module):
     per real channel, ``alpha [4*C]``. Takes packed ``[..., 4C]`` or stacked
     ``[B, 4, F, T, C]`` input."""
 
-    def __init__(self, channels: int, negative_slope_init: float = 0.25, *, device="cpu"):
+    def __init__(self, channels: int, negative_slope_init: float = 0.25, *, device="cuda"):
         super().__init__()
         self.alpha = nn.Parameter(torch.full((channels,), negative_slope_init, device=device))
 
@@ -139,7 +142,7 @@ class Dense(nn.Module):
         *,
         dtype: torch.dtype = torch.float32,
         generator: torch.Generator | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         super().__init__()
         self.dtype = dtype
@@ -152,3 +155,26 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         return x @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (as flax's ``nn.Dropout``): in train mode each element
+    is kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``;
+    in eval mode, or at rate 0, the identity. The mask is drawn from the
+    explicit ``generator`` the caller passes (on x's device); torch's global
+    RNG is never used."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("train-mode dropout needs an explicit torch.Generator")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))

@@ -1,9 +1,10 @@
-"""The QCNN acoustic model (counterpart of ``qasr/models/qcnn.py``), eval mode.
+"""The QCNN acoustic model (counterpart of ``qasr/models/qcnn.py``).
 
 Input: packed quaternion features ``[B, T, F_mel, 4]`` (one quaternion
 channel: fbank, Δ, ΔΔ, ΔΔΔ). Output: framewise CTC logits ``[B, T, vocab]``
-in f32. Time stride is 1 throughout. Dropout is the identity in eval mode
-and is not built.
+in f32. Time stride is 1 throughout. In train mode, dropout at
+``dropout_rate`` follows each dense PReLU (``qasr/models/qcnn.py:279-280``);
+there is no conv dropout, as in every preset.
 
 Layer order, as in the JAX encoder: thin conv(s) in the packed layout, each
 with its split PReLU; a frequency-only ``(1, pool)`` VALID max-pool after
@@ -25,6 +26,7 @@ from torch import nn
 
 from qasr_torch.models.layers import (
     Dense,
+    Dropout,
     PReLU,
     QConv,
     QDense,
@@ -65,8 +67,8 @@ def quaternion_conv_tower(
     pool_size: int,
     plain: bool = False,
 ) -> tuple[torch.Tensor, bool]:
-    """Run the conv tower (counterpart of ``qasr.models.qcnn.quaternion_conv_tower``,
-    eval mode) on packed ``x [B, T, F, 4*C]``.
+    """Run the conv tower (counterpart of ``qasr.models.qcnn.quaternion_conv_tower``
+    without conv dropout) on packed ``x [B, T, F, 4*C]``.
 
     ``stacked[i]`` says whether layer i runs in the stacked layout (see
     :func:`stacked_routing`; the layers were built to match). A run of
@@ -118,9 +120,10 @@ class QCNNEncoder(nn.Module):
         kernel_size: tuple[int, int] = (3, 3),
         pool_after: int = 1,
         pool_size: int = 3,
+        dropout_rate: float = 0.3,
         dtype: torch.dtype = torch.float32,
         generator: torch.Generator | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         super().__init__()
         self.pool_after = pool_after
@@ -143,12 +146,20 @@ class QCNNEncoder(nn.Module):
         for i, feats in enumerate(dense_features):
             self.add_module(f"qdense_{i}", QDense(k, feats, **common))
             self.add_module(f"dense_prelu_{i}", PReLU(4 * feats, device=device))
+            self.add_module(f"dense_dropout_{i}", Dropout(dropout_rate))
             k = feats
         self.output = Dense(4 * k, vocab, **common)
 
-    def forward(self, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,
+        *,
+        plain: bool = False,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
         """``x [B, T, F, 4]`` -> logits ``[B, T, vocab]`` f32. ``plain=True``
-        runs every kernel's plain PyTorch version, on any device."""
+        runs every kernel's plain PyTorch version, on any device. In train
+        mode the dropout masks come from ``generator`` (on x's device)."""
         if x.ndim != 4:
             raise ValueError(f"expected [B, T, F, 4*C] input, got {tuple(x.shape)}")
         n = len(self.stacked)
@@ -169,4 +180,5 @@ class QCNNEncoder(nn.Module):
             x = flatten_quaternion(x)
         for i in range(self.n_dense):
             x = getattr(self, f"dense_prelu_{i}")(getattr(self, f"qdense_{i}")(x, plain=plain))
+            x = getattr(self, f"dense_dropout_{i}")(x, generator)
         return self.output(x).float()

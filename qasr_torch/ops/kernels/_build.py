@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 At first use, every ``qasr_torch/csrc/*.cu`` is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
+Hopper (``sm_90a``), one ``nvcc -c`` per source, all started together, and
+the objects are linked into one shared library with a plain C interface,
 ``qasr_torch/_build/libqasr_kernels.so``, which is loaded with ``ctypes``.
 The library is rebuilt when any source (``*.cu`` or ``*.cuh``) is newer than
 it. A failure to build raises; nothing falls back.
@@ -24,10 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libqasr_kernels.so")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -43,6 +42,11 @@ _ENTRIES = {
     "qasr_qconv_ft8": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P, _P, _P],
     # x4, wc8, y4, M, K, N, dtype, v8, o8, stream
     "qasr_qgemm8": [_P, _P, _P] + [_I] * 4 + [_P, _P, _P],
+    # dz, wc, z, alpha, dx, partials, dalpha, B, F, T, Cin, Cout, kh, kw, dtype,
+    # v8, o8, stream
+    "qasr_qconv_dx8": [_P] * 7 + [_I] * 8 + [_P, _P, _P],
+    # B, F, T
+    "qasr_qconv_dx8_partial_rows": [_I] * 3,
 }
 
 
@@ -73,23 +77,43 @@ def _stale(deps: list[str]) -> bool:
     return any(os.path.getmtime(d) > built for d in deps)
 
 
+def _run(procs: list[tuple[str, subprocess.Popen]]) -> str:
+    """Wait for every process; raise if any failed. Returns their output."""
+    log, failed = [], []
+    for what, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {what}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{what} ({proc.returncode})")
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n" + "\n".join(log))
+    return "\n".join(log)
+
+
 def _compile(cu: list[str]) -> None:
     global build_log, build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    tag = os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-        capture_output=True,
-        text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    nvcc = _nvcc()
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(c)}.{tag}.o") for c in cu]
+    log = _run([
+        (os.path.basename(c), subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", o, c],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+        for c, o in zip(cu, objs)
+    ])
+    tmp = f"{LIB_PATH}.{tag}.tmp"
+    log += _run([("link", subprocess.Popen(
+        [nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    ))])
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = log
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,12 +1,19 @@
-"""Rank-8 quaternion GEMM: kernel B (``qasr_torch/csrc/qgemm8.cu``) and its
-plain PyTorch version.
+"""Rank-8 quaternion GEMM: kernel B (``qasr_torch/csrc/qgemm8.cu``), its
+plain PyTorch version, and its gradient.
 
 Counterpart of ``qasr/ops/pallas/qgemm8.py``: the TPU kernel
-``_qgemm8_kernel`` (forward role) becomes a hand-written CUDA kernel for
-Hopper that forms the 2-sparse V8 input combos in shared memory from each
-staged input chunk, accumulates the eight products in f32 and recombines them
-with O8 in registers. Layout: component-leading ``x4 [4, M, K]`` -> ``y4 [4, M, N]``;
+``_qgemm8_kernel`` becomes a hand-written CUDA kernel for Hopper that forms
+the 2-sparse V8 input combos in shared memory from each staged input chunk,
+accumulates the eight products in f32 and recombines them with O8 in
+registers. Layout: component-leading ``x4 [4, M, K]`` -> ``y4 [4, M, N]``;
 ``qdense_pallas8`` wraps it for the packed ``[..., 4K]`` layout.
+
+:class:`QGemm8Fn` is the counterpart of ``qgemm8_cl``'s custom VJP. Its dx
+role runs kernel B again, on the U8 combos of the conjugate-transposed
+weights: the adjoint of quaternion left-multiplication is multiplication by
+the conjugate, so ``dx4 = qgemm8(dy4, conj(w)^T)`` (the TPU kernel formed
+dense O8-column combos instead; both give the same dx). dW is plain PyTorch
+with the reference's two formulations, as the JAX package left it to XLA.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import torch.nn.functional as F
 
 from qasr_torch.ops.kernels import _build
 from qasr_torch.ops.kernels.qconv_ft import _DTYPE_CODE, _O8_F32, _V8_F32, _check_cuda_tensor
-from qasr_torch.ops.quaternion import O8, V8, combine_weights
+from qasr_torch.ops.quaternion import HAMILTON_E, O8, U8, V8, combine_weights
 
 
 def qgemm8_cl_plain(x4: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -31,11 +38,12 @@ def qgemm8_cl_plain(x4: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("pmn,bp->bmn", prods, o8).to(x4.dtype)
 
 
-def qgemm8_cuda(x4: torch.Tensor, wc8: torch.Tensor) -> torch.Tensor:
+def qgemm8_cuda(x4: torch.Tensor, wc8: torch.Tensor, *, role: str = "fwd") -> torch.Tensor:
     """Launch kernel B on ``x4 [4, M, K]`` and U8-combined ``wc8 [8, K, N]``:
     one CUDA device, contiguous, both f32 or both bf16, K and N multiples of
-    8. Raises on anything the kernel does not take, or when it fails to build
-    or launch."""
+    8. ``role`` ("fwd" or "dx") names the counter the launch adds to. Raises
+    on anything the kernel does not take, or when it fails to build or
+    launch."""
     if x4.ndim != 3 or x4.shape[0] != 4 or wc8.ndim != 3 or wc8.shape[0] != 8:
         raise ValueError(
             f"expected x4 [4,M,K] and wc8 [8,K,N], got {tuple(x4.shape)} and "
@@ -65,34 +73,105 @@ def qgemm8_cuda(x4: torch.Tensor, wc8: torch.Tensor) -> torch.Tensor:
             stream,
         )
     _build.check(lib, err, "qgemm8 launch")
-    qgemm8_cl.launches += 1
+    if role == "dx":
+        qgemm8_dx.launches += 1
+    else:
+        qgemm8_cl.launches += 1
     return y4
 
 
-def qgemm8_cl(x4: torch.Tensor, w: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
-    """Component-leading rank-8 quaternion GEMM: ``x4 [4, M, K]`` with stacked
-    weights ``w [4, K, N]`` -> ``[4, M, N]`` in x's dtype.
-
-    A CPU tensor (or ``plain=True``) takes the plain version; a CUDA tensor
-    launches kernel B or raises. Ragged K and N are zero-padded to multiples
-    of 8 here; ragged M is masked in the kernel.
-    """
-    if w.ndim != 3 or w.shape[0] != 4 or w.shape[1] != x4.shape[-1]:
-        raise ValueError(f"weights {tuple(w.shape)} incompatible with x4 {tuple(x4.shape)}")
-    if plain or not x4.is_cuda:
-        return qgemm8_cl_plain(x4, w)
+def _qgemm8_padded(x4: torch.Tensor, w: torch.Tensor, role: str) -> torch.Tensor:
+    """Kernel B on ``x4 [4, M, K]`` (CUDA) and ``w [4, K, N]``; ragged K and N
+    are zero-padded to multiples of 8 here, ragged M is masked in the
+    kernel."""
     k, n = w.shape[1], w.shape[2]
     kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
     wc8 = combine_weights(w, x4.dtype)
     if (kp, np_) != (k, n):
         x4 = F.pad(x4, (0, kp - k))
         wc8 = F.pad(wc8, (0, np_ - n, 0, kp - k))
-    y4 = qgemm8_cuda(x4.contiguous(), wc8.contiguous())
+    y4 = qgemm8_cuda(x4.contiguous(), wc8.contiguous(), role=role)
     return y4[:, :, :n] if np_ != n else y4
 
 
-#: launches of kernel B since the last reset (counted where it launches)
+def conj_transpose_dense(w: torch.Tensor) -> torch.Tensor:
+    """``[4, K, N]`` -> the adjoint weights ``[4, N, K]``: conjugate
+    components, K and N swapped (after ``qasr/ops/pallas/qgemm.py:_conj_transpose_w``)."""
+    return torch.cat([w[:1], -w[1:]], dim=0).transpose(1, 2)
+
+
+def qgemm8_dx(dy4: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx role: ``dy4 [4, M, N]`` -> ``dx4 [4, M, K]`` for the forward weights
+    ``w [4, K, N]``. A CPU tensor takes the plain version; a CUDA tensor
+    launches kernel B on the conj-transposed weights (counted in
+    ``qgemm8_dx.launches``) or raises."""
+    wt = conj_transpose_dense(w)
+    if not dy4.is_cuda:
+        return qgemm8_cl_plain(dy4, wt)
+    return _qgemm8_padded(dy4, wt, "dx")
+
+
+def qgemm8_dw(x4: torch.Tensor, dy4: torch.Tensor) -> torch.Tensor:
+    """dW ``[4, K, N]`` f32 of the rank-8 GEMM, after ``qgemm8.py:240-259``.
+
+    Large ``K*N`` (>= 2**20): the rank-8 form, 8 GEMMs on the V8 input and
+    O8 output combos folded back with U8. Otherwise one block product
+    ``[4, K, 4, N]`` folded with the Hamilton table. Products in the compute
+    dtype, folds in f32.
+    """
+    k, n = x4.shape[2], dy4.shape[2]
+    if k * n >= 1 << 20:
+        xc = torch.einsum("amk,pa->pmk", x4, torch.as_tensor(V8, dtype=x4.dtype, device=x4.device))
+        o8t = torch.as_tensor(O8.T, dtype=dy4.dtype, device=dy4.device)
+        dyc = torch.einsum("bmn,pb->pmn", dy4, o8t)
+        dwc8 = torch.bmm(xc.transpose(1, 2), dyc).float()  # [8, K, N]
+        u8 = torch.as_tensor(U8, dtype=torch.float32, device=x4.device)
+        return torch.einsum("pkn,pa->akn", dwc8, u8)
+    dw_big = torch.einsum("amk,bmn->akbn", x4, dy4).float()  # [4, K, 4, N]
+    e = torch.as_tensor(HAMILTON_E, dtype=torch.float32, device=x4.device)
+    return torch.einsum("akbn,cab->ckn", dw_big, e)
+
+
+class QGemm8Fn(torch.autograd.Function):
+    """``y4 = qgemm8(x4, w)``: kernel B forward, kernel B on the
+    conj-transposed weights for dx, :func:`qgemm8_dw` for dW (in ``w``'s
+    dtype)."""
+
+    @staticmethod
+    def forward(ctx, x4, w):
+        ctx.save_for_backward(x4, w)
+        if not x4.is_cuda:
+            return qgemm8_cl_plain(x4, w)
+        return _qgemm8_padded(x4, w, "fwd")
+
+    @staticmethod
+    def backward(ctx, dy4):
+        x4, w = ctx.saved_tensors
+        dy4 = dy4.contiguous()
+        dx4 = qgemm8_dx(dy4, w) if ctx.needs_input_grad[0] else None
+        return dx4, qgemm8_dw(x4, dy4).to(w.dtype)
+
+
+def qgemm8_cl(x4: torch.Tensor, w: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """Component-leading rank-8 quaternion GEMM: ``x4 [4, M, K]`` with stacked
+    weights ``w [4, K, N]`` -> ``[4, M, N]`` in x's dtype.
+
+    A CPU tensor (or ``plain=True``) takes the plain version under autograd;
+    a CUDA tensor goes through :class:`QGemm8Fn` (kernel B forward and dx) or
+    raises.
+    """
+    if w.ndim != 3 or w.shape[0] != 4 or w.shape[1] != x4.shape[-1]:
+        raise ValueError(f"weights {tuple(w.shape)} incompatible with x4 {tuple(x4.shape)}")
+    if plain or not x4.is_cuda:
+        return qgemm8_cl_plain(x4, w)
+    return QGemm8Fn.apply(x4.contiguous(), w)
+
+
+#: launches of kernel B in its forward role since the last reset (counted
+#: where it launches)
 qgemm8_cl.launches = 0
+#: launches of kernel B in its dx role since the last reset
+qgemm8_dx.launches = 0
 
 
 def qdense_pallas8(x: torch.Tensor, w: torch.Tensor, *, plain: bool = False) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""The two CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``; each test skips without an NVIDIA GPU. The file imports no
 JAX, so it runs on a machine with the card and no JAX:
@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from qasr_torch.ops.kernels import qconv_ft, qgemm8
+from qasr_torch.ops.kernels import qconv_chain, qconv_dx8, qconv_ft, qgemm8
 
 
 def _rand(rng, *shape, scale=1.0):
@@ -69,3 +69,97 @@ def test_qgemm8_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
     assert qgemm8.qgemm8_cl.launches == before + 1
     want = qgemm8.qgemm8_cl_plain(x4.float(), w)
     torch.testing.assert_close(got.float(), want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("kernel,t", [((3, 3), 70), ((3, 5), 33), ((5, 3), 20)])
+def test_qconv_dx8_kernel_matches_plain_on_card(cuda_device, dtype, epilogue, kernel, t):
+    """Kernel C: dx (and with the PReLU backward, dalpha, for signed slopes)
+    against its plain version; 24 -> 16 channels, a ragged time tail."""
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=3e-2, atol=3e-2)
+    rng = np.random.default_rng(3)
+    dz = _t(_rand(rng, 2, 4, 5, t, 24, scale=0.5)).to(cuda_device, dtype)
+    w = _t(_rand(rng, 4, *kernel, 16, 24, scale=0.1)).to(cuda_device)
+    z = _t(_rand(rng, 2, 4, 5, t, 16, scale=0.5)).to(cuda_device, dtype) if epilogue else None
+    alpha = _t(_rand(rng, 64, scale=0.25)).to(cuda_device) if epilogue else None
+    before = qconv_dx8.qconv_dx8.launches
+    dx, dalpha = qconv_dx8.qconv_dx8(dz, w, z, alpha)
+    torch.cuda.synchronize()
+    assert qconv_dx8.qconv_dx8.launches == before + 1
+    want_dx, want_da = qconv_dx8.qconv_dx8_plain(
+        dz.float(), w, None if z is None else z.float(), alpha
+    )
+    torch.testing.assert_close(dx.float(), want_dx, **tol)
+    if epilogue:
+        # a sum over B*F*T: held relative to its largest element
+        scale = want_da.abs().max().item()
+        torch.testing.assert_close(dalpha, want_da, rtol=tol["rtol"], atol=tol["atol"] * scale)
+    else:
+        assert dalpha is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(100, 72, 40), (7, 13, 62)])
+def test_qgemm8_dx_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=3e-2, atol=3e-2)
+    rng = np.random.default_rng(4)
+    dy4 = _t(_rand(rng, 4, m, n, scale=0.5)).to(cuda_device, dtype)
+    w = _t(_rand(rng, 4, k, n, scale=0.2)).to(cuda_device)
+    before = qgemm8.qgemm8_dx.launches
+    got = qgemm8.qgemm8_dx(dy4, w)
+    torch.cuda.synchronize()
+    assert qgemm8.qgemm8_dx.launches == before + 1
+    want = qgemm8.qgemm8_cl_plain(dy4.float(), qgemm8.conj_transpose_dense(w))
+    torch.testing.assert_close(got.float(), want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prologue", [False, True])
+def test_autograd_functions_match_plain_autograd_on_card(cuda_device, prologue):
+    """ChainLayerFn (kernels A and C) and QGemm8Fn (kernel B forward and dx)
+    give the plain path's gradients in f32."""
+    rng = np.random.default_rng(5)
+    args = [_t(_rand(rng, 2, 4, 5, 21, 16, scale=0.5)), _t(_rand(rng, 4, 3, 5, 16, 8, scale=0.2)),
+            _t(_rand(rng, 32, scale=0.1)), _t(_rand(rng, 64, scale=0.25))]
+    dz = _t(_rand(rng, 2, 4, 5, 21, 8)).to(cuda_device)
+    grads = []
+    for plain in (False, True):
+        ts = [a.to(cuda_device).requires_grad_() for a in args]
+        z = qconv_chain.chain_layer(ts[0], ts[1], ts[2], ts[3] if prologue else None, plain=plain)
+        z.backward(dz)
+        grads.append([t.grad for t in ts])
+    for got, want in zip(*grads):
+        if want is None:
+            assert got is None
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    x4, w = _t(_rand(rng, 4, 30, 24, scale=0.5)), _t(_rand(rng, 4, 24, 16, scale=0.2))
+    dy = _t(_rand(rng, 4, 30, 16)).to(cuda_device)
+    grads = []
+    for plain in (False, True):
+        ts = [a.to(cuda_device).requires_grad_() for a in (x4, w)]
+        qgemm8.qgemm8_cl(ts[0], ts[1], plain=plain).backward(dy)
+        grads.append([t.grad for t in ts])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(64, 3328, 256), (16, 1024, 1024)])
+def test_qgemm8_fn_dw_branches_on_card(cuda_device, m, k, n):
+    """Both dW formulations of QGemm8Fn run on the card: block at
+    k*n < 2**20 (the model's 3328 x 256), rank-8 at k*n >= 2**20; each
+    against the plain path's autograd in f32."""
+    rng = np.random.default_rng(6)
+    x4, w = _t(_rand(rng, 4, m, k, scale=0.5)), _t(_rand(rng, 4, k, n, scale=0.02))
+    dy = _t(_rand(rng, 4, m, n)).to(cuda_device)
+    grads = []
+    for plain in (False, True):
+        ts = [a.to(cuda_device).requires_grad_() for a in (x4, w)]
+        qgemm8.qgemm8_cl(ts[0], ts[1], plain=plain).backward(dy)
+        grads.append([t.grad for t in ts])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -28,9 +28,10 @@ from qasr.data.timit import ID_TO_PHONE
 from qasr.decode import ctc_beam_search_decode
 from qasr.features import FrontendConfig as JFrontendConfig
 from qasr.features import featurize_waveform as jfeaturize
-from qasr.native import ctc_beam_decode_native
+from qasr.native import ctc_beam_decode_native, edit_distance_native
 from qasr.ops.ctc import ctc_greedy_decode as jgreedy
 from qasr.train.state import build_model as jbuild_model
+from qasr_torch import native as tnative
 from qasr_torch.bridge import load_params_npz, params_from_jax, save_params_npz
 from qasr_torch.infer import Transcriber
 from qasr_torch.models import build_model
@@ -89,7 +90,7 @@ def _jax_logits(model, params, wavs):
 def test_bridge_maps_every_param_one_to_one(jax_side, tmp_path):
     _, _, tree = jax_side
     sd = params_from_jax(tree)
-    port = build_model(CFG).state_dict()
+    port = build_model(CFG, device="cpu").state_dict()
     assert set(sd) == set(port)
     for k, v in sd.items():
         assert tuple(v.shape) == tuple(port[k].shape), k
@@ -108,7 +109,7 @@ def test_bridge_maps_every_param_one_to_one(jax_side, tmp_path):
 
 def test_encoder_logits_match_jax(jax_side):
     model, params, tree = jax_side
-    port = build_model(CFG)
+    port = build_model(CFG, device="cpu")
     port.load_state_dict(params_from_jax(tree))
     assert port.stacked == [False, True, True]
     x = np.random.default_rng(1).standard_normal((2, 37, CFG.data.n_mels, 4)).astype(np.float32)
@@ -128,7 +129,7 @@ def test_encoder_with_chain_exit_matches_jax():
     x = np.random.default_rng(2).standard_normal((2, 21, cfg.data.n_mels, 4)).astype(np.float32)
     params = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
     want = np.asarray(model.apply({"params": params}, jnp.asarray(x), train=False))
-    port = build_model(cfg)
+    port = build_model(cfg, device="cpu")
     assert port.stacked == [False, True, False]
     port.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     with torch.no_grad():
@@ -215,10 +216,30 @@ def test_beam_native_matches_jax_beam(jax_side):
     assert [len(p) for p in phones] == [int(n) for n in lens]
 
 
+def test_native_copies_match_reference_on_served_logits(jax_side):
+    """The port's native beam and edit distance, built from its own copy of
+    the sources, give the reference library's outputs on the logits of
+    test_beam_native_matches_jax_beam."""
+    _, _, tree = jax_side
+    tr = Transcriber(cfg=CFG, params=tree, beam=True, device="cpu")
+    logits, lengths = tr.logits(_wavs(seed=5))
+    kw = dict(beam_width=CFG.decode.beam_width, max_len=logits.shape[1],
+              prune_logp=CFG.decode.beam_prune_logp)
+    got = tnative.ctc_beam_decode_native(logits.numpy(), lengths.numpy(), **kw)
+    want = ctc_beam_decode_native(logits.numpy(), lengths.numpy(), **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    greedy, glens = ctc_greedy_decode(logits, lengths)
+    seqs, lens = got[0], got[1]
+    for b in range(len(lens)):
+        ref, hyp = seqs[b, : lens[b]].tolist(), greedy[b, : glens[b]].tolist()
+        assert tnative.edit_distance_native(ref, hyp) == edit_distance_native(ref, hyp)
+
+
 def test_build_model_other_archs_not_ported():
     for arch in ("real_cnn", "qlstm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(CFG.override(**{"model.arch": arch}))
+            build_model(CFG.override(**{"model.arch": arch}), device="cpu")
 
 
 class TestInit:
