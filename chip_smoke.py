@@ -4,8 +4,9 @@
 
 Drives the port's serving path and its training path (``qasr_torch``, no
 JAX) at the full width of ``timit_qcnn`` (the paper's QCNN-256, bf16
-compute, random weights from a seeded ``torch.Generator``), through the
-hand-written CUDA kernels, and checks them. Phases, one line each (or a few):
+compute, random weights from a seeded ``torch.Generator``), and the serving
+path of ``librispeech_qlstm``, through the hand-written CUDA kernels, and
+checks them. Phases, one line each (or a few):
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc build of qasr_torch/csrc/*.cu into qasr_torch/_build/
@@ -23,6 +24,16 @@ hand-written CUDA kernels, and checks them. Phases, one line each (or a few):
               path (bf16 and f32); launches per step; twenty steps on one
               batch lower the loss; one ``train()`` call with an eval and a
               checkpoint that a Transcriber then serves; gated
+  7. qlstm    ``librispeech_qlstm`` (config 4: the QCNN-biQLSTM, H=256, bf16)
+              at full width: kernel D (the QLSTM recurrence) against its
+              plain version at B32 x T512 with ragged lengths, and kernels A
+              and B at the shapes of the serving run below against theirs
+              (f32 and bf16, gated); a Transcriber on four synthetic 2-5 s waveforms,
+              greedy and beam, with its launches per forward and its logits
+              gated; then, not gated, the encoder forward at B32 x T512
+              (with a torch.profiler breakdown of one forward), kernel D
+              against its plain version and one cuDNN LSTM layer, and both
+              input-projection arms at M = 16384
 
 then one JSON line with the per-kernel results, the nvidia-smi line and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -109,9 +120,9 @@ def _gate(name: str, err: dict, tol: dict) -> None:
             raise RuntimeError(f"{name}: {k}={err[k]:.3e} exceeds {lim:.1e}")
 
 
-def _report(name: str, err: dict, tol: dict) -> None:
+def _report(name: str, err: dict, tol: dict, phase: int = 3) -> None:
     _gate(name, err, tol)
-    print(f"phase 3 parity {name}: max_abs {err['max_abs_err']:.3e} "
+    print(f"phase {phase} parity {name}: max_abs {err['max_abs_err']:.3e} "
           f"max_rel {err['max_rel']:.3e} rel_norm {err['rel_norm']:.3e} (tol {tol})",
           flush=True)
 
@@ -155,9 +166,10 @@ def _counters():
     from qasr_torch.ops.kernels.qconv_dx8 import qconv_dx8
     from qasr_torch.ops.kernels.qconv_ft import qconv_ft8
     from qasr_torch.ops.kernels.qgemm8 import qgemm8_cl, qgemm8_dx
+    from qasr_torch.ops.kernels.qlstm_scan import qlstm_scan_fast8
 
     return {"qconv_ft8": qconv_ft8, "qgemm8": qgemm8_cl, "qgemm8_dx": qgemm8_dx,
-            "qconv_dx8": qconv_dx8}
+            "qconv_dx8": qconv_dx8, "qlstm_scan8": qlstm_scan_fast8}
 
 
 def _reset_counts() -> None:
@@ -169,6 +181,259 @@ def _reset_counts() -> None:
 def _read_counts() -> dict:
     torch.cuda.synchronize()
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _cudnn_lstm(layer, dtype) -> torch.nn.LSTM:
+    """One ``nn.LSTM`` (bidirectional, hidden 4H real units) computing the
+    QBiLSTM ``layer``: its weights are the Hamilton-expanded quaternion
+    ones, the gate rows taken from the packed lanes ``[q, g, H]`` in cuDNN's
+    order i, f, g, o (the port's gate groups are i, f, o, g), the hidden
+    unit ``q*H + j`` being the port's component-major lane."""
+    from qasr_torch.ops.quaternion import hamilton_expand
+
+    hid, cin = layer.hidden, layer.fwd_cell.wx.shape[1]
+    dev = layer.fwd_cell.wx.device
+    lstm = torch.nn.LSTM(4 * cin, 4 * hid, batch_first=True, bidirectional=True, device=dev)
+    gate = torch.tensor([0, 1, 3, 2], device=dev).view(4, 1, 1)
+    comp = torch.arange(4, device=dev).view(1, 4, 1)
+    unit = torch.arange(hid, device=dev).view(1, 1, hid)
+    idx = (comp * 4 * hid + gate * hid + unit).reshape(-1)  # [cuDNN gate, q, j]
+    with torch.no_grad():
+        for sfx, cell in (("", layer.fwd_cell), ("_reverse", layer.bwd_cell)):
+            getattr(lstm, f"weight_ih_l0{sfx}").copy_(hamilton_expand(cell.wx)[:, idx].T)
+            getattr(lstm, f"weight_hh_l0{sfx}").copy_(hamilton_expand(cell.wh)[:, idx].T)
+            getattr(lstm, f"bias_ih_l0{sfx}").copy_(cell.bias[idx])
+            getattr(lstm, f"bias_hh_l0{sfx}").zero_()
+    return lstm.to(dtype)
+
+
+def phase7_qlstm(dev: torch.device, smi: str) -> dict:
+    """Config 4 serving at full width; returns kernel D's entry of the
+    kernels line."""
+    from qasr_torch.configs import get_config
+    from qasr_torch.infer import Transcriber
+    from qasr_torch.models import build_model
+    from qasr_torch.models.qlstm import QBiLSTM, input_proj_fn
+    from qasr_torch.ops.initializers import quaternion_init
+    from qasr_torch.ops.kernels.qconv_ft import qconv_fast8_stacked_plain, qconv_ft8
+    from qasr_torch.ops.kernels.qgemm8 import qdense_pallas8, qgemm8_cl, qgemm8_cl_plain
+    from qasr_torch.ops.kernels.qlstm_scan import qlstm_scan_fwd, qlstm_scan_fwd_plain
+    from qasr_torch.ops.quaternion import combine_weights
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    bf16 = torch.bfloat16
+    cfg = get_config("librispeech_qlstm")
+    # the preset's batch, its first bucket and its hidden size: B32 x T512, H256
+    T, B, H = cfg.data.bucket_sizes[0], cfg.data.batch_size, cfg.model.lstm_features
+    # kernel D against its plain version at the path's shape, both
+    # directions, ragged lengths; hs, cs and gates all gated.
+    # f32: the products sum in another order (~1e-7 a step) and the
+    # recurrence, its forget gates below 1, damps what was carried: TOL_F32.
+    # bf16: both versions carry h and c in bf16, rounded every step at the
+    # same places, so they differ where a value rounds to the other
+    # neighbouring bf16 number (2^-8 relative), now and then, and that too
+    # is damped (tests/test_torch_qlstm.py holds the plain version so
+    # against _fwd_xla on the CPU): TOL_BF16.
+    lens = torch.randint(T // 4, T + 1, (B,), generator=g, device=dev)
+    lens[0] = T
+    xz32 = rnd(T, 2, B, 16 * H, scale=0.5)
+    wc32 = torch.stack([
+        combine_weights(quaternion_init((4, H, 4 * H), generator=torch.Generator().manual_seed(
+            SEED + d), device=dev)) for d in range(2)])
+    max_err = 0.0
+    for dtype, tol in ((torch.float32, TOL_F32), (bf16, TOL_BF16)):
+        xz, wc = xz32.to(dtype), wc32.to(dtype)
+        got = qlstm_scan_fwd(xz, wc, lens)
+        want = qlstm_scan_fwd_plain(xz, wc, lens)
+        dname = str(dtype)[6:]
+        for name, a, b in zip(("hs", "cs", "gates"), got, want):
+            err = _errors(a, b)
+            _report(f"qlstm_scan8 T{T} B{B} H{H} D2 ragged {name} {dname}", err, tol, 7)
+            if dtype == bf16:
+                max_err = max(max_err, err["max_abs_err"])
+        if dtype == bf16:
+            again = qlstm_scan_fwd(xz, wc, lens)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise RuntimeError("qlstm_scan8 differs between two runs on the same inputs")
+        del got, want, xz
+
+    # kernels A and B at the shapes the serving run below gives them (four
+    # utterances in the 512 bucket, F = 40 mels pooled by 3 = 13), against
+    # their plain versions, gated as in phase 3. A: the tower's three stacked
+    # layers, each with the previous layer's PReLU as prologue and its bias.
+    # B at M = 4 x 512: the input projections (N = 2 directions x 4H; K = F x
+    # the tower's last width for layer 0, 2H after) and qdense_0 (K = 2H).
+    nb, nf, conv = 4, 13, cfg.model.conv_features
+    gemms = ((nb * T, nf * conv[-1], 8 * H), (nb * T, 2 * H, 8 * H),
+             (nb * T, 2 * H, cfg.model.dense_features[0]))
+    for dtype, tol in ((torch.float32, TOL_F32), (bf16, TOL_BF16)):
+        dname = str(dtype)[6:]
+        for cin, cout in zip(conv[:-1], conv[1:]):
+            w = rnd(4, 3, 3, cin, cout, scale=(1.0 / (9 * cin)) ** 0.5)
+            bias, alpha = rnd(4 * cout, scale=0.1), rnd(4 * cin, scale=0.25).abs()
+            x = rnd(nb, 4, nf, T, cin, scale=0.5).to(dtype)
+            err = _errors(qconv_ft8(x, w, bias, alpha),
+                          qconv_fast8_stacked_plain(x.float(), w, bias, alpha))
+            _report(f"qconv_ft8 B{nb} F{nf} T{T} C{cin}->{cout} k3x3 {dname} prologue+bias",
+                    err, tol, 7)
+        for m, k, n in gemms:
+            w = rnd(4, k, n, scale=(1.0 / k) ** 0.5)
+            x4 = rnd(4, m, k, scale=0.5).to(dtype)
+            err = _errors(qgemm8_cl(x4, w), qgemm8_cl_plain(x4.float(), w))
+            _report(f"qgemm8 M{m} K{k} N{n} {dname}", err, tol, 7)
+    del x, x4, w
+    torch.cuda.empty_cache()
+
+    # the serving path: build_model, then a Transcriber, greedy and beam
+    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    if model.recurrent != "pallas8" or sum(model.stacked) != 3 or model.lstm_layers != 3:
+        raise RuntimeError(f"config 4 routing: recurrent {model.recurrent}, stacked "
+                           f"{model.stacked}, {model.lstm_layers} layers")
+    params = model.state_dict()
+    del model
+    greedy = Transcriber(cfg=cfg, params=params, device=dev)
+    beam = Transcriber(cfg=cfg, params=params, device=dev, beam=True)
+    rng = np.random.default_rng(SEED + 7)
+    wavs = []
+    for n_s in rng.uniform(2.0, 5.0, size=4):
+        n = int(n_s * cfg.data.sample_rate)
+        env = np.abs(np.sin(np.linspace(0, 10 * np.pi, n)))
+        wavs.append((0.1 * env * rng.standard_normal(n)).astype(np.float32))
+    _reset_counts()
+    hyp_greedy = greedy.transcribe_batch(wavs)
+    hyp_beam = beam.transcribe_batch(wavs)
+    counts = _read_counts()
+    enc = greedy.model
+    logits, lengths = greedy.logits(wavs)
+    logits_plain, _ = greedy.logits(wavs, plain=True)
+    rows = len(wavs) * logits.shape[1]
+    n_b = enc.n_dense + sum(
+        input_proj_fn(getattr(enc, f"qbilstm_{i}").input_proj, rows) is qdense_pallas8
+        for i in range(enc.lstm_layers))
+    want = {"qconv_ft8": 2 * 3, "qgemm8": 2 * n_b, "qgemm8_dx": 0, "qconv_dx8": 0,
+            "qlstm_scan8": 2 * 3}  # two forwards
+    if counts != want:
+        raise RuntimeError(f"config 4 serving launches {counts}, expected {want}")
+    if not all(isinstance(h, str) for h in hyp_greedy + hyp_beam):
+        raise RuntimeError("config 4 serving did not return character strings")
+    want_shape = (4, T, cfg.model.vocab)
+    if tuple(logits.shape) != want_shape:
+        raise RuntimeError(f"logits shape {tuple(logits.shape)}, expected {want_shape}")
+    # Logits in bf16 against the f32 plain path on the same weights: bf16
+    # rounds at the four conv layers, the three input projections, the
+    # recurrences' carried state (damped, as above), the dense and the
+    # output layer, ~4e-3 each: ~1.3e-2 in all. The two bf16 paths round at
+    # the same places: only their sums differ in order. Same limits as the
+    # QCNN's.
+    cfg32 = cfg.override(**{"model.compute_dtype": "float32"})
+    logits_f32, _ = Transcriber(cfg=cfg32, params=params, device=dev).logits(wavs, plain=True)
+    torch.cuda.synchronize()
+    lerr = _errors(logits, logits_plain)
+    _gate("config 4 logits kernel vs plain", lerr, TOL_LOGITS)
+    kerr32 = _errors(logits, logits_f32)
+    _gate("config 4 logits kernel vs f32 plain", kerr32, TOL_LOGITS_F32)
+    perr32 = _errors(logits_plain, logits_f32)
+    _gate("config 4 logits plain bf16 vs f32 plain", perr32, TOL_LOGITS_F32)
+    print(f"phase 7 serving: librispeech_qlstm bf16, {len(wavs)} utterances "
+          f"({', '.join(f'{len(w) / cfg.data.sample_rate:.2f}' for w in wavs)} s, frames "
+          f"{lengths.tolist()}), logits {tuple(logits.shape)} finite; launches per forward "
+          f"qlstm_scan8 {counts['qlstm_scan8'] // 2} qconv_ft8 {counts['qconv_ft8'] // 2} "
+          f"qgemm8 {counts['qgemm8'] // 2} (input projections at M={rows} on "
+          f"{'kernel B' if n_b > enc.n_dense else 'the block product'}); greedy characters "
+          f"{[len(h) for h in hyp_greedy]}, beam (W={cfg.decode.beam_width}) characters "
+          f"{[len(h) for h in hyp_beam]}; logits kernel vs plain max_abs "
+          f"{lerr['max_abs_err']:.3e} rel_norm {lerr['rel_norm']:.3e} (tol {TOL_LOGITS}); "
+          f"against the f32 plain path: kernel rel_norm {kerr32['rel_norm']:.3e}, bf16 plain "
+          f"rel_norm {perr32['rel_norm']:.3e} (tol {TOL_LOGITS_F32})", flush=True)
+    del beam, logits_plain, logits_f32
+
+    # timing (not gated): B32 x T512, 163.84 s of audio
+    audio_s = B * T * FRAME_S
+    with torch.no_grad():
+        feats = rnd(B, T, cfg.data.n_mels, 4)
+        full = torch.full((B,), T, device=dev)
+        fwd_k, fwd_p = _alternating(lambda: enc(feats, lengths=full),
+                                    lambda: enc(feats, lengths=full, plain=True), 2)
+        # where one kernel-path forward's device time goes (torch.profiler)
+        cuda = torch.autograd.DeviceType.CUDA
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            enc(feats, lengths=full)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.key_averages() if e.device_type == cuda]
+        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        xz, wc = xz32.to(bf16), wc32.to(bf16)
+        del xz32
+        d_k, d_p = _alternating(lambda: qlstm_scan_fwd(xz, wc), lambda: qlstm_scan_fwd_plain(xz, wc), 3)
+        # xz and wc8 in; hs, cs (each [T, D, B, 4H]) and gates (as xz) out
+        bound_d = _bound(2 * 8 * T * 2 * B * H * 4 * H,
+                         2 * _nbytes(xz) + _nbytes(wc) + 2 * (_nbytes(xz) // 4))
+        del xz
+        # one whole QBiLSTM layer (layer 1's shape: 2H channels in) against
+        # one cuDNN LSTM on the expanded weights, checked in f32 first
+        layer = QBiLSTM(2 * H, H, recurrent="pallas8", device=dev,
+                        generator=torch.Generator().manual_seed(SEED + 3))
+        for cell in (layer.fwd_cell, layer.bwd_cell):
+            cell.bias.copy_(rnd(16 * H, scale=0.1))
+        xl = rnd(B, T, 4 * 2 * H, scale=0.5)
+        ref = layer(xl, plain=True)  # f32, no lengths
+        ref = ref.reshape(B, T, 4, 2, H).transpose(2, 3).reshape(B, T, 8 * H)
+        lib = _cudnn_lstm(layer, torch.float32)(xl)[0]
+        _gate("cuDNN LSTM yardstick (f32) vs the plain QBiLSTM", _errors(lib, ref),
+              {"rel_norm": 1e-3})
+        del lib, ref
+        layer.dtype = bf16
+        xl16 = xl.to(bf16)
+        layer_ms = _time_ms(lambda: layer(xl16), 5)
+        lstm_bf16 = _cudnn_lstm(layer, bf16)
+        lib_bf16 = _time_ms(lambda: lstm_bf16(xl16), 5)
+        lstm_fp16, xl_fp16 = _cudnn_lstm(layer, torch.float16), xl.to(torch.float16)
+        lib_fp16 = _time_ms(lambda: lstm_fp16(xl_fp16), 5)
+        cudnn_ok = (torch.backends.cudnn.is_acceptable(xl16),
+                    torch.backends.cudnn.is_acceptable(xl_fp16))
+        del lstm_bf16, lstm_fp16, xl, xl16, xl_fp16
+        # the input projection's two arms at M = B*T, N = 2*4H, for layer 0
+        # (K = F*C of the tower) and layers 1-2 (K = 2H)
+        arms = {}
+        for k in (enc.qbilstm_0.fwd_cell.wx.shape[1], 2 * H):
+            xp = rnd(B * T, 4 * k, scale=0.5).to(bf16)
+            wp = rnd(4, k, 8 * H, scale=k ** -0.5)
+            r8, blk = input_proj_fn("fast8", B * T), input_proj_fn("block", B * T)
+            ref = blk(xp.float(), wp)
+            for name, fn in (("kernel B", r8), ("block", blk)):
+                _gate(f"input projection {name} K{k}", _errors(fn(xp, wp), ref), TOL_BF16)
+            arms[k] = _alternating(lambda: r8(xp, wp), lambda: blk(xp, wp), 5)
+            del xp, ref
+    torch.cuda.empty_cache()
+    print(f"phase 7 timing on {smi}: encoder fwd B{B}xT{T} kernel {fwd_k:.3f} ms "
+          f"({audio_s / fwd_k * 1e3:.1f} audio-s/s), plain {fwd_p:.3f} ms "
+          f"({audio_s / fwd_p * 1e3:.1f} audio-s/s); qlstm_scan8 T{T} B{B} H{H} D2 bf16 kernel "
+          f"{d_k:.3f} ms ({d_k / T * 1e3:.2f} us a step) plain {d_p:.3f} ms bound "
+          f"{bound_d[0]:.4f} ms ({bound_d[1]}); one QBiLSTM layer ({2 * H} in) kernel path "
+          f"{layer_ms:.3f} ms, cuDNN LSTM fp16 {lib_fp16:.3f} ms, nn.LSTM bf16 {lib_bf16:.3f} ms "
+          f"(cuDNN takes bf16, fp16: {cudnn_ok}); input projection M{B * T} N{8 * H}: "
+          + "; ".join(f"K{k} kernel B {a[0]:.3f} ms block {a[1]:.3f} ms" for k, a in arms.items()),
+          flush=True)
+    print(f"phase 7 profile on {smi}: one encoder forward B{B}xT{T} (kernel path, "
+          f"torch.profiler) {wall_ms:.3f} ms on the host clock, kernels busy {busy_ms:.3f} ms "
+          f"(device idle {max(0.0, 1 - busy_ms / wall_ms):.1%}); by self device time: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                      for e in top), flush=True)
+    return {"name": "qlstm_scan8", "route": "cuda", "source": "qasr_torch/csrc/qlstm_scan8.cu",
+            "replaces": "qasr/ops/pallas/qlstm_scan.py:99 (_fwd_kernel)",
+            "launches": counts["qlstm_scan8"], "max_abs_err": max_err, "ms": d_k,
+            "plain_ms": d_p, "bound_ms": bound_d[0], "bound_by": bound_d[1],
+            "library_ms": lib_fp16,
+            "library": "cuDNN nn.LSTM, fp16: the whole bidirectional layer, its input GEMM "
+                       "included (no library call computes the recurrence alone)",
+            "layer_ms": layer_ms}
 
 
 def main() -> int:
@@ -293,7 +558,7 @@ def main() -> int:
     n_fat = sum(greedy.model.stacked)
     n_dense = greedy.model.n_dense
     want = {"qconv_ft8": 2 * n_fat, "qgemm8": 2 * n_dense, "qgemm8_dx": 0,
-            "qconv_dx8": 0}  # two forwards, no backward
+            "qconv_dx8": 0, "qlstm_scan8": 0}  # two forwards, no backward
     if serve_counts != want or n_fat != 9 or n_dense != 3:
         raise RuntimeError(f"serving launches {serve_counts}, expected {want}")
     logits, lengths = greedy.logits(wavs)
@@ -483,7 +748,7 @@ def main() -> int:
     _reset_counts()
     losses = [train_step(state, batch)["loss"].item()]
     step_counts = _read_counts()
-    want = {"qconv_ft8": 9, "qconv_dx8": 9, "qgemm8": 3, "qgemm8_dx": 3}
+    want = {"qconv_ft8": 9, "qconv_dx8": 9, "qgemm8": 3, "qgemm8_dx": 3, "qlstm_scan8": 0}
     if step_counts != want:
         raise RuntimeError(f"launches in one train step {step_counts}, expected {want}")
     for _ in range(19):
@@ -538,6 +803,9 @@ def main() -> int:
     del lstate, served
     shutil.rmtree(ckpt_root, ignore_errors=True)
 
+    # 7. config 4 serving (its own launch counts)
+    scan_entry = phase7_qlstm(dev, smi)
+
     def entry(name, source, replaces, bound, lib_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": train_counts[name], "max_abs_err": results[name],
@@ -555,6 +823,7 @@ def main() -> int:
               bound_b, lib_b),
         entry("qgemm8_dx", "qasr_torch/csrc/qgemm8.cu",
               "qasr/ops/pallas/qgemm8.py:84 (in_kind=dx)", bound_bdx, lib_bdx),
+        scan_entry,
     ])
     print(smi, flush=True)
     _line(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

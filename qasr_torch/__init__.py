@@ -22,6 +22,8 @@ _API = {
     "PReLU": "qasr_torch.models.layers",
     "Dropout": "qasr_torch.models.layers",
     "QCNNEncoder": "qasr_torch.models.qcnn",
+    "QBiLSTM": "qasr_torch.models.qlstm",
+    "QLSTMEncoder": "qasr_torch.models.qlstm",
     "build_model": "qasr_torch.models",
     # functional ops
     "qconv": "qasr_torch.ops.qlinalg",
@@ -36,6 +38,7 @@ _API = {
     "qgemm8_cl": "qasr_torch.ops.kernels.qgemm8",
     "QGemm8Fn": "qasr_torch.ops.kernels.qgemm8",
     "qdense_pallas8": "qasr_torch.ops.kernels.qgemm8",
+    "qlstm_scan_fast8": "qasr_torch.ops.kernels.qlstm_scan",
     # decode / features / inference
     "ctc_greedy_decode": "qasr_torch.ops.ctc",
     "ctc_loss": "qasr_torch.ops.ctc",

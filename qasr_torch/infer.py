@@ -44,7 +44,7 @@ def _next_time_pad(t: int, bucket_sizes: tuple[int, ...]) -> int:
 
 
 class Transcriber:
-    """Transcribe waveforms and audio files with a qcnn model.
+    """Transcribe waveforms and audio files with a qcnn or qlstm model.
 
     Args:
       checkpoint_dir: directory with ``config.json`` and ``params.npz``.
@@ -92,8 +92,10 @@ class Transcriber:
     @torch.no_grad()
     def logits(self, wavs, *, plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         """Waveforms -> (logits ``[B, T_pad, V]`` f32, lengths ``[B]``) on the
-        device; utterances pad to the bucket of the longest. ``plain=True``
-        runs every kernel's plain PyTorch version (the reference path)."""
+        device; utterances pad to the bucket of the longest, and the encoder
+        gets their frame counts (a QLSTM freezes its state on the padding).
+        ``plain=True`` runs every kernel's plain PyTorch version (the
+        reference path)."""
         feats = [featurize_waveform(w, self.fcfg, device=self.device) for w in wavs]
         lengths = torch.tensor([f.shape[0] for f in feats], device=self.device)
         t_pad = _next_time_pad(int(lengths.max()), self.cfg.data.bucket_sizes)
@@ -102,7 +104,7 @@ class Transcriber:
         )
         for i, f in enumerate(feats):
             batch[i, : f.shape[0]] = f
-        return self.model(batch, plain=plain), lengths
+        return self.model(batch, lengths=lengths, plain=plain), lengths
 
     def decode(self, logits: torch.Tensor, lengths: torch.Tensor):
         """Logits -> (sequences ``[B, L]`` padded with -1, lengths ``[B]``) as

@@ -102,7 +102,60 @@ def quaternion_conv_tower(
     return x, in_stacked
 
 
-class QCNNEncoder(nn.Module):
+class ConvTowerEncoder(nn.Module):
+    """Base of the encoders that open with the quaternion conv tower: its
+    layers ``qconv_<i>`` / ``conv_prelu_<i>`` (the JAX names) and the run
+    from packed features to ``[B, T, 4*(F*C)]``."""
+
+    def _build_tower(
+        self,
+        n_feats: int,
+        conv_features: Sequence[int],
+        kernel_size: tuple[int, int],
+        pool_after: int,
+        pool_size: int,
+        **common,
+    ) -> int:
+        """Add the conv layers; returns the quaternion width ``F * C`` that
+        the tower hands on."""
+        self.pool_after = pool_after
+        self.pool_size = pool_size
+        self.stacked = stacked_routing(conv_features, kernel_size, pool_after)
+        device = common["device"]
+        cin, f = 1, n_feats
+        for i, feats in enumerate(conv_features):
+            layout = "stacked_ft" if self.stacked[i] else "btfc"
+            self.add_module(
+                f"qconv_{i}", QConv(cin, feats, kernel_size, layout=layout, **common)
+            )
+            self.add_module(f"conv_prelu_{i}", PReLU(4 * feats, device=device))
+            if i + 1 == pool_after:
+                f = (f - pool_size) // pool_size + 1
+            cin = feats
+        return f * cin
+
+    def _run_tower(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
+        """``x [B, T, F, 4]`` -> ``[B, T, 4*(F*C)]`` in the compute dtype."""
+        if x.ndim != 4:
+            raise ValueError(f"expected [B, T, F, 4*C] input, got {tuple(x.shape)}")
+        n = len(self.stacked)
+        x, in_stacked = quaternion_conv_tower(
+            x.to(self.dtype),
+            [getattr(self, f"qconv_{i}") for i in range(n)],
+            [getattr(self, f"conv_prelu_{i}") for i in range(n)],
+            self.stacked,
+            pool_after=self.pool_after,
+            pool_size=self.pool_size,
+            plain=plain,
+        )
+        if in_stacked:
+            # the single exit transpose: [B,4,F,T,C] -> [B,T,4*(F*C)]
+            b, _, f, t, c = x.shape
+            return x.permute(0, 3, 1, 2, 4).reshape(b, t, 4 * f * c)
+        return flatten_quaternion(x)
+
+
+class QCNNEncoder(ConvTowerEncoder):
     """Quaternion CNN encoder -> framewise CTC logits ``[B, T, vocab]``.
 
     Submodules are named as the JAX parameter tree (``qconv_<i>``,
@@ -126,22 +179,9 @@ class QCNNEncoder(nn.Module):
         device: torch.device | str = "cuda",
     ):
         super().__init__()
-        self.pool_after = pool_after
-        self.pool_size = pool_size
         self.dtype = dtype
-        self.stacked = stacked_routing(conv_features, kernel_size, pool_after)
         common = dict(dtype=dtype, generator=generator, device=device)
-        cin, f = 1, n_feats
-        for i, feats in enumerate(conv_features):
-            layout = "stacked_ft" if self.stacked[i] else "btfc"
-            self.add_module(
-                f"qconv_{i}", QConv(cin, feats, kernel_size, layout=layout, **common)
-            )
-            self.add_module(f"conv_prelu_{i}", PReLU(4 * feats, device=device))
-            if i + 1 == pool_after:
-                f = (f - pool_size) // pool_size + 1
-            cin = feats
-        k = f * cin
+        k = self._build_tower(n_feats, conv_features, kernel_size, pool_after, pool_size, **common)
         self.n_dense = len(dense_features)
         for i, feats in enumerate(dense_features):
             self.add_module(f"qdense_{i}", QDense(k, feats, **common))
@@ -154,30 +194,17 @@ class QCNNEncoder(nn.Module):
         self,
         x: torch.Tensor,
         *,
+        lengths: torch.Tensor | None = None,
         plain: bool = False,
         generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         """``x [B, T, F, 4]`` -> logits ``[B, T, vocab]`` f32. ``plain=True``
         runs every kernel's plain PyTorch version, on any device. In train
-        mode the dropout masks come from ``generator`` (on x's device)."""
-        if x.ndim != 4:
-            raise ValueError(f"expected [B, T, F, 4*C] input, got {tuple(x.shape)}")
-        n = len(self.stacked)
-        x, in_stacked = quaternion_conv_tower(
-            x.to(self.dtype),
-            [getattr(self, f"qconv_{i}") for i in range(n)],
-            [getattr(self, f"conv_prelu_{i}") for i in range(n)],
-            self.stacked,
-            pool_after=self.pool_after,
-            pool_size=self.pool_size,
-            plain=plain,
-        )
-        if in_stacked:
-            # the single exit transpose: [B,4,F,T,C] -> [B,T,4*(F*C)]
-            b, _, f, t, c = x.shape
-            x = x.permute(0, 3, 1, 2, 4).reshape(b, t, 4 * f * c)
-        else:
-            x = flatten_quaternion(x)
+        mode the dropout masks come from ``generator`` (on x's device).
+        ``lengths`` is accepted and unused: the model is frame-local, as the
+        JAX encoder's (``qasr/models/qcnn.py:222``)."""
+        del lengths
+        x = self._run_tower(x, plain)
         for i in range(self.n_dense):
             x = getattr(self, f"dense_prelu_{i}")(getattr(self, f"qdense_{i}")(x, plain=plain))
             x = getattr(self, f"dense_dropout_{i}")(x, generator)

@@ -47,6 +47,8 @@ _ENTRIES = {
     "qasr_qconv_dx8": [_P] * 7 + [_I] * 8 + [_P, _P, _P],
     # B, F, T
     "qasr_qconv_dx8_partial_rows": [_I] * 3,
+    # xz, wc8, lengths, hs, cs, gates, T, D, B, H, dtype, v8, o8, stream
+    "qasr_qlstm_scan8": [_P] * 6 + [_I] * 5 + [_P] * 3,
 }
 
 
@@ -64,7 +66,8 @@ def _nvcc() -> str:
     )
 
 
-def _sources() -> tuple[list[str], list[str]]:
+def sources() -> tuple[list[str], list[str]]:
+    """The ``.cu`` sources under ``csrc``, and those with the headers."""
     cu = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     deps = cu + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     return cu, deps
@@ -90,52 +93,61 @@ def _run(procs: list[tuple[str, subprocess.Popen]]) -> str:
     return "\n".join(log)
 
 
-def _compile(cu: list[str]) -> None:
-    global build_log, build_seconds
-    os.makedirs(BUILD_DIR, exist_ok=True)
+def compile_library(cu: list[str], lib_path: str) -> str:
+    """``nvcc -c`` every source in ``cu`` (all started together; headers
+    from ``csrc``), link the objects into ``lib_path`` and return what nvcc
+    printed. Raises when any step fails."""
+    out_dir = os.path.dirname(lib_path)
+    os.makedirs(out_dir, exist_ok=True)
     tag = os.getpid()
-    t0 = time.perf_counter()
     nvcc = _nvcc()
-    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(c)}.{tag}.o") for c in cu]
+    objs = [os.path.join(out_dir, f"{os.path.basename(c)}.{tag}.o") for c in cu]
     log = _run([
         (os.path.basename(c), subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", o, c],
+            [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-c", "-o", o, c],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
         for c, o in zip(cu, objs)
     ])
-    tmp = f"{LIB_PATH}.{tag}.tmp"
+    tmp = f"{lib_path}.{tag}.tmp"
     log += _run([("link", subprocess.Popen(
         [nvcc, *ARCH, "-shared", "-o", tmp, *objs],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     ))])
     for o in objs:
         os.remove(o)
-    os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new
-    build_seconds = time.perf_counter() - t0
-    build_log = log
+    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees old or new
+    return log
+
+
+def open_library(lib_path: str) -> ctypes.CDLL:
+    """Load a library that :func:`compile_library` built from the sources
+    of ``csrc`` (or from copies of them) and declare its C entries."""
+    lib = ctypes.CDLL(lib_path)
+    for name, argtypes in _ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.qasr_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.qasr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def load_library() -> ctypes.CDLL:
     """Build (if stale) and load the kernel library; raises on any failure."""
-    global _lib
+    global _lib, build_log, build_seconds
     with _lock:
         if _lib is not None:
             return _lib
-        cu, deps = _sources()
+        cu, deps = sources()
         if not cu:
             raise RuntimeError(f"no CUDA sources under {CSRC}")
         if _stale(deps):
-            _compile(cu)
-        lib = ctypes.CDLL(LIB_PATH)
-        for name, argtypes in _ENTRIES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.qasr_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.qasr_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+            t0 = time.perf_counter()
+            build_log = compile_library(cu, LIB_PATH)
+            build_seconds = time.perf_counter() - t0
+        _lib = open_library(LIB_PATH)
+        return _lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

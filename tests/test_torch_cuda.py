@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from qasr_torch.ops.kernels import qconv_chain, qconv_dx8, qconv_ft, qgemm8
+from qasr_torch.ops.kernels import qconv_chain, qconv_dx8, qconv_ft, qgemm8, qlstm_scan
 
 
 def _rand(rng, *shape, scale=1.0):
@@ -163,3 +163,55 @@ def test_qgemm8_fn_dw_branches_on_card(cuda_device, m, k, n):
         grads.append([t.grad for t in ts])
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# ragged B and T; B=40 spans several row tiles; H=256 is config 4's full grid
+@pytest.mark.parametrize("b,t,hid,use_lengths",
+                         [(3, 17, 32, True), (3, 17, 32, False), (40, 9, 48, True), (2, 5, 256, True)])
+def test_qlstm_scan_kernel_matches_plain_on_card(cuda_device, dtype, b, t, hid, use_lengths):
+    """Kernel D: hs, cs and gates against its plain version on signed inputs,
+    in the same dtype (both carry h and c in it); two runs give the same
+    bits."""
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=3e-2, atol=3e-2)
+    rng = np.random.default_rng(7)
+    xz = _t(_rand(rng, t, 2, b, 16 * hid, scale=0.5)).to(cuda_device, dtype)
+    wc8 = _t(_rand(rng, 2, 8, hid, 4 * hid, scale=hid ** -0.5)).to(cuda_device, dtype)
+    lengths = None
+    if use_lengths:
+        lengths = torch.from_numpy(rng.integers(1, t + 1, size=b)).to(cuda_device)
+        lengths[0] = t
+    before = qlstm_scan.qlstm_scan_fast8.launches
+    got = qlstm_scan.qlstm_scan_fwd(xz, wc8, lengths)
+    again = qlstm_scan.qlstm_scan_fwd(xz, wc8, lengths)
+    torch.cuda.synchronize()
+    assert qlstm_scan.qlstm_scan_fast8.launches == before + 2
+    want = qlstm_scan.qlstm_scan_fwd_plain(xz, wc8, lengths)
+    for name, g, a, w in zip(("hs", "cs", "gates"), got, again, want):
+        assert torch.equal(g, a), name
+        torch.testing.assert_close(g.float(), w.float(), msg=name, **tol)
+    # the public wrapper: component-major xz in, hs out
+    hs = qlstm_scan.qlstm_scan_fast8(qlstm_scan.to_gate_major(xz), wc8, lengths)
+    # to_gate_major is its own inverse (a 4x4 transpose of [q, g])
+    assert torch.equal(hs, got[0])
+
+
+@pytest.mark.cuda
+def test_qlstm_scan_kernel_refuses_on_card(cuda_device):
+    """Past supported()'s bound, and with grad required, kernel D raises
+    instead of running the plain version."""
+    bf16 = torch.bfloat16
+    before = qlstm_scan.qlstm_scan_fast8.launches
+    xz = torch.zeros((2, 2, 1, 16 * 272), dtype=bf16, device=cuda_device)
+    wc8 = torch.zeros((2, 8, 272, 4 * 272), dtype=bf16, device=cuda_device)
+    with pytest.raises(ValueError, match="does not support hidden=272"):
+        qlstm_scan.qlstm_scan_fwd(xz, wc8)
+    xz = torch.zeros((2, 2, 1, 16 * 256), dtype=bf16, device=cuda_device)
+    wc8 = torch.zeros((2, 8, 256, 4 * 256), dtype=bf16, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        qlstm_scan.qlstm_scan_fwd(xz, wc8)
+    with torch.no_grad():
+        qlstm_scan.qlstm_scan_fwd(xz, wc8)
+    torch.cuda.synchronize()
+    assert qlstm_scan.qlstm_scan_fast8.launches == before + 1

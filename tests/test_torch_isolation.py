@@ -2,9 +2,10 @@
 the GPU has no JAX, and the port keeps its own copies of what it needs.
 
 A subprocess blocks jax/flax/optax/orbax and ``qasr`` itself in
-``sys.modules`` before importing the port, then serves a small model on the
-CPU end to end and trains ``tiny_synthetic`` for two steps; a source scan
-checks that no file of the port (or chip_smoke.py) imports any of them.
+``sys.modules`` before importing the port, then serves a small qcnn and a
+small qlstm on the CPU end to end (greedy and beam) and trains
+``tiny_synthetic`` for two steps; a source scan checks that no file of the
+port (or chip_smoke.py) imports any of them.
 """
 
 import os
@@ -44,6 +45,16 @@ wavs = [np.random.default_rng(i).standard_normal(4000 + 999 * i).astype(np.float
 for beam in (False, True):
     out = Transcriber(cfg=cfg, params=params, beam=beam, device="cpu").transcribe_batch(wavs)
     assert len(out) == 2 and all(isinstance(p, str) for seq in out for p in seq), out
+
+qcfg = get_config("librispeech_qlstm").override(**{
+    "model.conv_features": (8, 8), "model.lstm_features": 16, "model.lstm_layers": 1,
+    "model.dense_features": (8,), "model.vocab": 12, "model.compute_dtype": "float32",
+    "data.n_mels": 8, "data.bucket_sizes": (64,), "decode.beam_width": 4,
+})
+qparams = build_model(qcfg, generator=torch.Generator().manual_seed(0), device="cpu").state_dict()
+for beam in (False, True):
+    out = Transcriber(cfg=qcfg, params=qparams, beam=beam, device="cpu").transcribe_batch(wavs)
+    assert len(out) == 2 and all(isinstance(s, str) for s in out), out
 
 tcfg = get_config("tiny_synthetic")
 data = SyntheticDataset(vocab=tcfg.model.vocab, n_mels=tcfg.data.n_mels,

@@ -237,9 +237,15 @@ def test_native_copies_match_reference_on_served_logits(jax_side):
 
 
 def test_build_model_other_archs_not_ported():
-    for arch in ("real_cnn", "qlstm"):
+    for arch in ("real_cnn", "real_lstm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(CFG.override(**{"model.arch": arch}), device="cpu")
+    # qlstm serves; its block recurrence and its training are not ported yet
+    for over in ({"model.op_variant": "block"}, {"model.op_variant": "fast8"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(CFG.override(**{"model.arch": "qlstm", **over}), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(CFG.override(**{"model.arch": "qlstm"}), device="cpu", train=True)
 
 
 class TestInit:
