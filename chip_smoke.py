@@ -5,8 +5,8 @@
 Drives the port's serving path and its training path (``qasr_torch``, no
 JAX) at the full width of ``timit_qcnn`` (the paper's QCNN-256, bf16
 compute, random weights from a seeded ``torch.Generator``), and the serving
-path of ``librispeech_qlstm``, through the hand-written CUDA kernels, and
-checks them. Phases, one line each (or a few):
+and training paths of ``librispeech_qlstm``, through the hand-written CUDA
+kernels, and checks them. Phases, one line each (or a few):
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc build of qasr_torch/csrc/*.cu into qasr_torch/_build/
@@ -34,6 +34,19 @@ checks them. Phases, one line each (or a few):
               (with a torch.profiler breakdown of one forward), kernel D
               against its plain version and one cuDNN LSTM layer, and both
               input-projection arms at M = 16384
+  8. qlstm    config 4's training at full width: kernel E (the recurrence's
+     train    backward) against its plain version at B32 x T512 with ragged
+              lengths, twice for the same bits, kernels A and C at the
+              tower's three stacked shapes and kernel B (forward and dx) at
+              qdense_0's M = 16384 (f32 and bf16, gated); gradient parity of
+              one train step, kernel path against plain path (bf16 and f32);
+              launches per step; twenty steps on one batch lower the loss;
+              one ``train()`` call whose checkpoint a Transcriber serves
+              (gated); then, not gated, the train step kernel and plain
+              (with a torch.profiler breakdown), kernel E against its plain
+              version, its bound and the dW einsums, one QBiLSTM layer
+              forward + backward against one cuDNN LSTM's, and both
+              input-projection arms at M 2048-16384
 
 then one JSON line with the per-kernel results, the nvidia-smi line and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -127,8 +140,8 @@ def _report(name: str, err: dict, tol: dict, phase: int = 3) -> None:
           flush=True)
 
 
-def _time_ms(fn, n: int) -> float:
-    for _ in range(2):
+def _time_ms(fn, n: int, warm: int = 2) -> float:
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -141,12 +154,15 @@ def _time_ms(fn, n: int) -> float:
     return e0.elapsed_time(e1) / n
 
 
-def _alternating(kernel_fn, plain_fn, n: int) -> tuple[float, float]:
-    """plain, kernel, kernel, plain; the mean of each pair."""
-    p1 = _time_ms(plain_fn, n)
-    k1 = _time_ms(kernel_fn, n)
-    k2 = _time_ms(kernel_fn, n)
-    p2 = _time_ms(plain_fn, n)
+def _alternating(kernel_fn, plain_fn, n: int, n_plain: int | None = None,
+                 warm: int = 2) -> tuple[float, float]:
+    """plain, kernel, kernel, plain; the mean of each pair (the plain runs
+    ``n_plain`` times each, default ``n``)."""
+    n_plain = n if n_plain is None else n_plain
+    p1 = _time_ms(plain_fn, n_plain, warm)
+    k1 = _time_ms(kernel_fn, n, warm)
+    k2 = _time_ms(kernel_fn, n, warm)
+    p2 = _time_ms(plain_fn, n_plain, warm)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -166,10 +182,11 @@ def _counters():
     from qasr_torch.ops.kernels.qconv_dx8 import qconv_dx8
     from qasr_torch.ops.kernels.qconv_ft import qconv_ft8
     from qasr_torch.ops.kernels.qgemm8 import qgemm8_cl, qgemm8_dx
-    from qasr_torch.ops.kernels.qlstm_scan import qlstm_scan_fast8
+    from qasr_torch.ops.kernels.qlstm_scan import qlstm_scan_bwd, qlstm_scan_fast8
 
     return {"qconv_ft8": qconv_ft8, "qgemm8": qgemm8_cl, "qgemm8_dx": qgemm8_dx,
-            "qconv_dx8": qconv_dx8, "qlstm_scan8": qlstm_scan_fast8}
+            "qconv_dx8": qconv_dx8, "qlstm_scan8": qlstm_scan_fast8,
+            "qlstm_scan8_bwd": qlstm_scan_bwd}
 
 
 def _reset_counts() -> None:
@@ -204,7 +221,94 @@ def _cudnn_lstm(layer, dtype) -> torch.nn.LSTM:
             getattr(lstm, f"weight_hh_l0{sfx}").copy_(hamilton_expand(cell.wh)[:, idx].T)
             getattr(lstm, f"bias_ih_l0{sfx}").copy_(cell.bias[idx])
             getattr(lstm, f"bias_hh_l0{sfx}").zero_()
-    return lstm.to(dtype)
+    lstm = lstm.to(dtype)
+    lstm.flatten_parameters()  # one weight buffer, as cuDNN wants it: no compaction a call
+    return lstm
+
+
+def _grad_parity(tcfg, batch: dict, dev: torch.device, phase: int, what: str = "") -> None:
+    """One train step's gradients and loss, kernel path against plain path
+    on the same weights and batch, dropout off: bf16 with the slopes as
+    drawn and f32 with every PReLU slope 1 (no kink), each parameter's
+    gradient and the loss gated (the error model is beside TOL_GRAD_BF16)."""
+    from qasr_torch.models.layers import PReLU
+    from qasr_torch.train.state import create_train_state
+    from qasr_torch.train.step import batch_to_device, loss_fn
+
+    def grads(cfg_, plain, unit_slopes):
+        st = create_train_state(cfg_, device=dev)
+        if unit_slopes:
+            with torch.no_grad():
+                for m in st.model.modules():
+                    if isinstance(m, PReLU):
+                        m.alpha.fill_(1.0)
+        b = batch_to_device(batch, dev)
+        logits = st.model(b["features"], lengths=b["feature_lengths"], plain=plain,
+                          generator=st.generator)
+        loss = loss_fn(cfg_, logits, b)
+        loss.backward()
+        return loss.detach().float(), {k: p.grad.float() for k, p in st.model.named_parameters()}
+
+    for dtype, tol, tol_loss, unit in (("bfloat16", TOL_GRAD_BF16, TOL_LOSS_BF16, False),
+                                       ("float32", TOL_GRAD_F32, TOL_LOSS_F32, True)):
+        pcfg = tcfg.override(**{"model.dropout_rate": 0.0, "model.compute_dtype": dtype})
+        loss_k, g_k = grads(pcfg, False, unit)
+        loss_p, g_p = grads(pcfg, True, unit)
+        torch.cuda.synchronize()
+        dl = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        if not (math.isfinite(loss_k.item()) and dl <= tol_loss):
+            raise RuntimeError(f"{what}train loss {dtype}: kernel {loss_k.item()} plain "
+                               f"{loss_p.item()} (rel {dl:.3e} > {tol_loss:.1e})")
+        worst = ("", 0.0)
+        for k in g_p:
+            err = _errors(g_k[k], g_p[k])
+            _gate(f"{what}train grad {dtype} {k}", err, tol)
+            worst = max(worst, (k, err["rel_norm"]), key=lambda v: v[1])
+        print(f"phase {phase} train parity {dtype}{' (PReLU slopes 1)' if unit else ''}: "
+              f"{what}loss kernel {loss_k.item():.6f} plain {loss_p.item():.6f} (rel {dl:.3e}, "
+              f"tol {tol_loss:.0e}); {len(g_p)} gradients, worst rel_norm {worst[1]:.3e} "
+              f"({worst[0]}) (tol {tol})", flush=True)
+        del g_k, g_p
+        torch.cuda.empty_cache()
+
+
+def _train_and_serve(lcfg, dev: torch.device, name: str, wavs: list, per_step: dict):
+    """The main path of a training slice: one ``train()`` call (its steps,
+    an eval over the synthetic set, a checkpoint under
+    ``qasr_torch/_build/<name>``) and a Transcriber serving that checkpoint.
+    Gated: the steps taken, a finite loss, the eval, ``per_step`` launches a
+    step of each kernel named there, finite served logits and the served
+    params equal to the trained ones. Returns the last log, the launches,
+    the hypotheses and the seconds ``train()`` took."""
+    from qasr_torch.infer import Transcriber
+    from qasr_torch.train.loop import train
+
+    ckpt_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "qasr_torch",
+                             "_build", name)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    n = lcfg.train.num_steps
+    _reset_counts()
+    t0 = time.perf_counter()
+    lstate, last = train(lcfg, device=dev, checkpoint_dir=ckpt_root)
+    train_s = time.perf_counter() - t0
+    counts = _read_counts()
+    if lstate.step != n or not math.isfinite(last["loss"]) or "dev_per" not in last:
+        raise RuntimeError(f"{name}: train() ended at step {lstate.step} with {last}")
+    if any(counts[k] != v * n for k, v in per_step.items()):
+        raise RuntimeError(f"{name}: train() launches {counts}, expected {per_step} a step")
+    served = Transcriber(last["checkpoint"], device=dev)
+    hyp = served.transcribe_batch(wavs)
+    ck_logits, _ = served.logits(wavs)
+    if not torch.isfinite(ck_logits).all() or len(hyp) != len(wavs):
+        raise RuntimeError(f"{name}: the trained checkpoint did not serve")
+    sd = lstate.model.state_dict()
+    for k, v in served.model.state_dict().items():
+        if not torch.equal(v, sd[k]):
+            raise RuntimeError(f"{name}: checkpoint param {k} differs from the trained one")
+    del lstate, served
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return last, counts, hyp, train_s
 
 
 def phase7_qlstm(dev: torch.device, smi: str) -> dict:
@@ -315,7 +419,7 @@ def phase7_qlstm(dev: torch.device, smi: str) -> dict:
         input_proj_fn(getattr(enc, f"qbilstm_{i}").input_proj, rows) is qdense_pallas8
         for i in range(enc.lstm_layers))
     want = {"qconv_ft8": 2 * 3, "qgemm8": 2 * n_b, "qgemm8_dx": 0, "qconv_dx8": 0,
-            "qlstm_scan8": 2 * 3}  # two forwards
+            "qlstm_scan8": 2 * 3, "qlstm_scan8_bwd": 0}  # two forwards
     if counts != want:
         raise RuntimeError(f"config 4 serving launches {counts}, expected {want}")
     if not all(isinstance(h, str) for h in hyp_greedy + hyp_beam):
@@ -436,6 +540,340 @@ def phase7_qlstm(dev: torch.device, smi: str) -> dict:
             "layer_ms": layer_ms}
 
 
+def phase8_qlstm_train(dev: torch.device, smi: str) -> dict:
+    """Config 4 training at full width; returns kernel E's entry of the
+    kernels line."""
+    from qasr_torch.configs import get_config
+    from qasr_torch.models.qlstm import QBiLSTM, input_proj_fn
+    from qasr_torch.ops.initializers import quaternion_init
+    from qasr_torch.ops.kernels.qconv_dx8 import qconv_dx8, qconv_dx8_plain
+    from qasr_torch.ops.kernels.qconv_ft import qconv_fast8_stacked_plain, qconv_ft8
+    from qasr_torch.ops.kernels.qgemm8 import (
+        conj_transpose_dense,
+        qdense_pallas8,
+        qgemm8_cl,
+        qgemm8_cl_plain,
+        qgemm8_dx,
+    )
+    from qasr_torch.ops.kernels.qlstm_scan import (
+        qlstm_scan_bwd,
+        qlstm_scan_bwd_plain,
+        qlstm_scan_dw,
+        qlstm_scan_fwd,
+    )
+    from qasr_torch.ops.quaternion import combine_weights
+    from qasr_torch.train.state import create_train_state
+    from qasr_torch.train.step import train_step
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    bf16 = torch.bfloat16
+    cfg = get_config("librispeech_qlstm")
+    T, B, H = cfg.data.bucket_sizes[0], cfg.data.batch_size, cfg.model.lstm_features
+    # Kernel E against its plain version at the path's shape, both
+    # directions, ragged lengths, on the residuals of a kernel D forward and
+    # signed upstream gradients. f32: the products sum in another order
+    # (~1e-7 a step), carried in f32 and damped by the forget gates: TOL_F32.
+    # bf16: both carry dh and dc in f32 and round dz and dprods (formed from
+    # the f32 dz) at the same places (tests/test_torch_qlstm_train.py holds
+    # the plain version so against _bwd_xla on the CPU), so they differ where
+    # the f32 sum order moves a value across a bf16 rounding boundary (2^-8
+    # relative), now and then, and the f32 carry damps that too: TOL_BF16.
+    lens = torch.randint(T // 4, T + 1, (B,), generator=g, device=dev)
+    lens[0] = T
+    xz32 = rnd(T, 2, B, 16 * H, scale=0.5)
+    wc32 = torch.stack([
+        combine_weights(quaternion_init((4, H, 4 * H), generator=torch.Generator().manual_seed(
+            SEED + 10 + d), device=dev)) for d in range(2)])
+    dhs32 = rnd(T, 2, B, 4 * H)
+    e_err = 0.0
+    for dtype, tol in ((torch.float32, TOL_F32), (bf16, TOL_BF16)):
+        xz, wc, dhs = xz32.to(dtype), wc32.to(dtype), dhs32.to(dtype)
+        with torch.no_grad():
+            hs, cs, gates = qlstm_scan_fwd(xz, wc, lens)
+        got = qlstm_scan_bwd(wc, gates, cs, dhs, lens)
+        again = qlstm_scan_bwd(wc, gates, cs, dhs, lens)
+        want = qlstm_scan_bwd_plain(wc, gates, cs, dhs, lens)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise RuntimeError("qlstm_scan8_bwd differs between two runs on the same inputs")
+        err = _errors(got, want)
+        _report(f"qlstm_scan8_bwd T{T} B{B} H{H} D2 ragged dz {str(dtype)[6:]}", err, tol, 8)
+        if dtype == bf16:
+            e_err = err["max_abs_err"]
+        del got, again, want
+    del xz32, dhs32
+
+    # kernel C at the tower's three stacked shapes (B32 F13 T512: 64->64,
+    # 64->128, 128->128), with the previous layer's PReLU backward (signed
+    # slopes) and without, gated as in phase 3
+    conv, nf = cfg.model.conv_features, 13
+    for dtype, tol in ((torch.float32, TOL_F32), (bf16, TOL_BF16)):
+        dname = str(dtype)[6:]
+        for cin, cout in zip(conv[:-1], conv[1:]):
+            w = rnd(4, 3, 3, cin, cout, scale=(1.0 / (9 * cin)) ** 0.5)
+            dz = rnd(B, 4, nf, T, cout).to(dtype)
+            z = rnd(B, 4, nf, T, cin, scale=0.5).to(dtype)
+            slopes = rnd(4 * cin, scale=0.25)
+            for epi in (False, True):
+                zz, sl = (z, slopes) if epi else (None, None)
+                dx, da = qconv_dx8(dz, w, zz, sl)
+                ref, ref_da = qconv_dx8_plain(dz.float(), w, None if zz is None else zz.float(), sl)
+                shape = f"B{B} F{nf} T{T} C{cout}->{cin} k3x3 {dname} epilogue={epi}"
+                _report(f"qconv_dx8 {shape} dx", _errors(dx, ref), tol, 8)
+                if epi:
+                    _report(f"qconv_dx8 {shape} dalpha", _errors(da, ref_da), tol, 8)
+            del dz, z, dx, ref
+    torch.cuda.empty_cache()
+
+    # kernels A and B at the train step's shapes, which phases 3 and 7 do
+    # not reach, against their plain versions, gated as in phase 3. A: the
+    # tower's three stacked layers at B32 F13 T512, with the previous
+    # layer's PReLU as prologue and its bias, and without (the first stacked
+    # layer has no prologue). B: qdense_0 at M = B*T = 16384, K = 2H, N 256,
+    # forward and its dx role.
+    m, k, n = B * T, 2 * H, cfg.model.dense_features[0]
+    for dtype, tol in ((torch.float32, TOL_F32), (bf16, TOL_BF16)):
+        dname = str(dtype)[6:]
+        for cin, cout in zip(conv[:-1], conv[1:]):
+            w = rnd(4, 3, 3, cin, cout, scale=(1.0 / (9 * cin)) ** 0.5)
+            bias, alpha = rnd(4 * cout, scale=0.1), rnd(4 * cin, scale=0.25).abs()
+            x = rnd(B, 4, nf, T, cin, scale=0.5).to(dtype)
+            for bb, aa in ((None, None), (bias, alpha)):
+                err = _errors(qconv_ft8(x, w, bb, aa),
+                              qconv_fast8_stacked_plain(x.float(), w, bb, aa))
+                _report(f"qconv_ft8 B{B} F{nf} T{T} C{cin}->{cout} k3x3 {dname} "
+                        f"prologue+bias={bb is not None}", err, tol, 8)
+            del x
+        w = rnd(4, k, n, scale=(1.0 / k) ** 0.5)
+        x4, dy4 = rnd(4, m, k, scale=0.5).to(dtype), rnd(4, m, n).to(dtype)
+        _report(f"qgemm8 M{m} K{k} N{n} {dname}",
+                _errors(qgemm8_cl(x4, w), qgemm8_cl_plain(x4.float(), w)), tol, 8)
+        _report(f"qgemm8_dx M{m} N{n} -> K{k} {dname}",
+                _errors(qgemm8_dx(dy4, w), qgemm8_cl_plain(dy4.float(), conj_transpose_dense(w))),
+                tol, 8)
+        del x4, dy4
+    torch.cuda.empty_cache()
+
+    # The training configuration: librispeech_qlstm at full width on
+    # synthetic data (the corpus does not ship with the repo), one 512-frame
+    # bucket, a 2-step warmup and the 1e-4 peak rate of phase 6. The fixed
+    # batch: the preset's 32 utterances, ragged, 128-512 frames (zero past
+    # each length, as batching pads), one character label per 8 frames.
+    tcfg = cfg.override(**{"data.dataset": "synthetic", "data.bucket_sizes": (T,),
+                           "data.max_label_len": T // 8, "train.warmup_steps": 2,
+                           "train.learning_rate": 1e-4})
+    brng = np.random.default_rng(SEED + 8)
+    flen = brng.integers(T // 4, T + 1, size=B).astype(np.int32)
+    flen[0] = T
+    feats = brng.standard_normal((B, T, tcfg.data.n_mels, 4)).astype(np.float32)
+    feats[np.arange(T)[None, :] >= flen[:, None]] = 0.0
+    batch = {
+        "features": feats, "feature_lengths": flen,
+        "labels": brng.integers(1, tcfg.model.vocab, size=(B, T // 8)).astype(np.int32),
+        "label_lengths": (flen // 8).astype(np.int32), "real_rows": np.ones(B, bool),
+    }
+    audio_s = B * T * FRAME_S
+
+    # Error model: phase 6's (rounding at each layer boundary, forward and
+    # backward, and the PReLU kink in bf16; summation order in f32), over
+    # fewer boundaries (four convs, three input projections, the dense and
+    # the output layer: 9 forward, 9 backward, against config 2's 26), plus
+    # three recurrences of 512 steps forward (kernel D) and backward (kernel
+    # E). Each recurrence's two paths carry their state at the same
+    # precision and round at the same places; they differ by ~1.3e-3 after
+    # 512 steps in bf16 and ~1e-7 in f32 (the parity above and phase 7),
+    # damped by the forget gates rather than compounded. So phase 6's limits
+    # hold: bf16 1.5e-1 a gradient, loss 1e-2; f32 with slopes 1, 1e-4.
+    _grad_parity(tcfg, batch, dev, 8, f"config 4 B{B}xT{T} ragged: ")
+
+    # the main path: launches of one train step, then twenty steps on the
+    # fixed batch
+    state = create_train_state(tcfg, device=dev)
+    enc = state.model
+    if enc.recurrent != "pallas8" or sum(enc.stacked) != 3 or not enc.training:
+        raise RuntimeError(f"config 4 train routing: recurrent {enc.recurrent}, stacked "
+                           f"{enc.stacked}, training {enc.training}")
+    n_b = enc.n_dense + sum(
+        input_proj_fn(getattr(enc, f"qbilstm_{i}").input_proj, B * T) is qdense_pallas8
+        for i in range(enc.lstm_layers))
+    _reset_counts()
+    losses = [train_step(state, batch)["loss"].item()]
+    step_counts = _read_counts()
+    want = {"qconv_ft8": 3, "qconv_dx8": 3, "qgemm8": n_b, "qgemm8_dx": n_b, "qlstm_scan8": 3,
+            "qlstm_scan8_bwd": 3}
+    if step_counts != want or n_b != 1:
+        raise RuntimeError(f"config 4 launches in one train step {step_counts}, expected {want}")
+    for _ in range(19):
+        losses.append(train_step(state, batch)["loss"].item())
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"config 4: twenty steps on one batch did not lower the loss: {losses}")
+    print(f"phase 8 train steps: config 4 B{B}xT{T} bf16, launches per step {step_counts} "
+          f"(input projections at M={B * T} on the block product); loss over 20 steps on one "
+          f"batch (dropout {tcfg.model.dropout_rate}) {losses[0]:.4f} -> {losses[-1]:.4f}",
+          flush=True)
+    del state, enc
+    torch.cuda.empty_cache()
+
+    # the main path's end to end: one train() call (4 steps, an eval over
+    # the synthetic set, a checkpoint) and a Transcriber serving it
+    rng = np.random.default_rng(SEED + 8)
+    wavs = [(0.1 * rng.standard_normal(int(n_s * cfg.data.sample_rate))).astype(np.float32)
+            for n_s in (2.2, 4.1)]
+    lcfg = tcfg.override(**{"train.num_steps": 4, "train.log_every": 2, "train.eval_every": 4,
+                            "train.checkpoint_every": 4})
+    last, train_counts, hyp, train_s = _train_and_serve(
+        lcfg, dev, "smoke_train_qlstm", wavs, {"qlstm_scan8_bwd": 3, "qconv_dx8": 3})
+    print(f"phase 8 train(): librispeech_qlstm full width, {lcfg.train.num_steps} steps in "
+          f"{train_s:.2f} s, last log {json.dumps({k: last[k] for k in sorted(last)})}; "
+          f"launches {train_counts}; checkpoint served {len(hyp)} utterances "
+          f"(symbols {[len(h) for h in hyp]})", flush=True)
+
+    # timing (not gated): the train step, kernel path and plain path
+    st_k = create_train_state(tcfg, device=dev)
+    st_p = create_train_state(tcfg, device=dev)
+    step_k, step_p = _alternating(lambda: train_step(st_k, batch),
+                                  lambda: train_step(st_p, batch, plain=True), 3, 1, warm=1)
+    del st_p
+    # where one kernel-path train step's device time goes (torch.profiler)
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(st_k, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    del st_k
+    torch.cuda.empty_cache()
+
+    # kernel E against its plain version and its bound (bf16), f32 too;
+    # the dW einsums
+    wc = wc32.to(bf16)
+    xz = rnd(T, 2, B, 16 * H, scale=0.5).to(bf16)
+    dhs = rnd(T, 2, B, 4 * H).to(bf16)
+    with torch.no_grad():
+        hs, cs, gates = qlstm_scan_fwd(xz, wc, lens)
+    del xz
+    e_k, e_p = _alternating(lambda: qlstm_scan_bwd(wc, gates, cs, dhs, lens),
+                            lambda: qlstm_scan_bwd_plain(wc, gates, cs, dhs, lens), 5, 1, warm=1)
+    # gates, cs and dhs in, dz (as gates) out, wc8 once
+    bound_e = _bound(2 * 8 * T * 2 * B * H * 4 * H,
+                     2 * _nbytes(gates) + _nbytes(cs, dhs) + _nbytes(wc))
+    dz = qlstm_scan_bwd(wc, gates, cs, dhs, lens)
+    dw_ms = _time_ms(lambda: qlstm_scan_dw(hs, dz), 5)
+    g32 = [v.float() for v in (wc, gates, cs, dhs)]
+    e32 = _time_ms(lambda: qlstm_scan_bwd(*g32, lens), 3, 1)
+    del hs, cs, gates, dhs, dz, g32
+    torch.cuda.empty_cache()
+
+    # the library yardstick: one QBiLSTM layer (layer 1's shape: 2H in)
+    # forward and backward on the kernel path, against one cuDNN nn.LSTM
+    # (bidirectional, hidden 4H, the expanded weights) forward and backward
+    # in fp16; neither is gated, the port never calls nn.LSTM
+    layer = QBiLSTM(2 * H, H, dtype=bf16, recurrent="pallas8", device=dev,
+                    generator=torch.Generator().manual_seed(SEED + 3))
+    xl = rnd(B, T, 8 * H, scale=0.5).to(bf16).requires_grad_()
+    dy = rnd(B, T, 8 * H).to(bf16)
+
+    def layer_step():
+        layer.zero_grad(set_to_none=True)
+        xl.grad = None
+        layer(xl).backward(dy)
+
+    layer_ms = _time_ms(layer_step, 3)
+    lstm = _cudnn_lstm(layer, torch.float16)
+    xf = xl.detach().to(torch.float16).requires_grad_()
+    dyf = dy.to(torch.float16)
+
+    def lib_step():
+        lstm.zero_grad(set_to_none=True)
+        xf.grad = None
+        lstm(xf)[0].backward(dyf)
+
+    lib_ms = _time_ms(lib_step, 3)
+    del layer, lstm, xl, xf, dy, dyf
+    torch.cuda.empty_cache()
+
+    # kernel C at the tower's three stacked shapes, as the train step runs
+    # them (the first stacked layer without the PReLU backward), bf16
+    c_times = []
+    for i, (cin, cout) in enumerate(zip(conv[:-1], conv[1:])):
+        w = rnd(4, 3, 3, cin, cout, scale=(1.0 / (9 * cin)) ** 0.5)
+        dz = rnd(B, 4, nf, T, cout).to(bf16)
+        zz, sl = (rnd(B, 4, nf, T, cin, scale=0.5).to(bf16), rnd(4 * cin, scale=0.25)) if i else (
+            None, None)
+        ck, cp = _alternating(lambda: qconv_dx8(dz, w, zz, sl),
+                              lambda: qconv_dx8_plain(dz, w, zz, sl), 5)
+        # dz (and z_prev) in, dx out, the weight combos (and slopes, dalpha)
+        nbytes = _nbytes(dz) + (2 if i else 1) * _nbytes(dz) * cin // cout + 8 * 9 * cin * cout * 2
+        bound = _bound(2 * 8 * B * nf * T * cin * cout * 9, nbytes)
+        c_times.append((cin, cout, i > 0, ck, cp, bound[0]))
+        del w, dz, zz
+    torch.cuda.empty_cache()
+
+    # the input projection's two arms, forward alone and forward plus
+    # backward (dx and dW), at M = B*T rows, N = 2 directions x 4H, K = the
+    # tower's F*C (layer 0) and 2H (layers 1-2), bf16 compute on f32 weights
+    cross = []
+    for k in (nf * conv[-1], 2 * H):
+        for m in (2048, 4096, 8192, 16384):
+            xp = rnd(m, 4 * k, scale=0.5).to(bf16).requires_grad_()
+            wp = rnd(4, k, 8 * H, scale=k ** -0.5).requires_grad_()
+            dyp = rnd(m, 4 * 8 * H).to(bf16)
+            row = {"K": k, "M": m}
+            for name in ("fast8", "block"):
+                fn = input_proj_fn(name, m)
+                with torch.no_grad():
+                    row[f"{name}_fwd"] = _time_ms(lambda: fn(xp, wp.to(bf16)), 5)
+
+                def fwd_bwd():
+                    xp.grad = None
+                    wp.grad = None
+                    fn(xp, wp.to(bf16)).backward(dyp)
+
+                row[f"{name}_fwd_bwd"] = _time_ms(fwd_bwd, 5)
+            cross.append(row)
+            del xp, wp, dyp
+    torch.cuda.empty_cache()
+
+    print(f"phase 8 timing on {smi}: config 4 train step B{B}xT{T} bf16 kernel path "
+          f"{step_k:.3f} ms ({audio_s / step_k * 1e3:.1f} audio-s/s), plain path {step_p:.3f} ms "
+          f"({audio_s / step_p * 1e3:.1f} audio-s/s); qlstm_scan8_bwd T{T} B{B} H{H} D2 bf16 "
+          f"kernel {e_k:.3f} ms ({e_k / T * 1e3:.2f} us a step) plain {e_p:.3f} ms bound "
+          f"{bound_e[0]:.4f} ms ({bound_e[1]}); f32 kernel {e32:.3f} ms ({e32 / T * 1e3:.2f} us "
+          f"a step); dW einsums {dw_ms:.3f} ms; one QBiLSTM layer ({2 * H} in) forward + "
+          f"backward on the kernel path {layer_ms:.3f} ms, cuDNN nn.LSTM fp16 forward + "
+          f"backward {lib_ms:.3f} ms; qconv_dx8 B{B} F{nf} T{T} bf16: " + "; ".join(
+              f"C{co}->{ci} epilogue={e} kernel {k:.3f} ms plain {p:.3f} ms bound {bd:.3f} ms"
+              for ci, co, e, k, p, bd in c_times), flush=True)
+    print(f"phase 8 crossover on {smi} (input projection, N{8 * H} bf16, ms; kernel B = "
+          "fast8, block = the expanded matmul): " + "; ".join(
+              f"K{r['K']} M{r['M']}: fwd kernel B {r['fast8_fwd']:.3f} block "
+              f"{r['block_fwd']:.3f}, fwd+bwd kernel B {r['fast8_fwd_bwd']:.3f} block "
+              f"{r['block_fwd_bwd']:.3f}" for r in cross), flush=True)
+    print(f"phase 8 profile on {smi}: one config 4 train step B{B}xT{T} (kernel path, "
+          f"torch.profiler) {wall_ms:.3f} ms on the host clock, kernels busy {busy_ms:.3f} ms "
+          f"(device idle {max(0.0, 1 - busy_ms / wall_ms):.1%}); by self device time: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                      for e in top), flush=True)
+    return {"name": "qlstm_scan8_bwd", "route": "cuda",
+            "source": "qasr_torch/csrc/qlstm_scan8_bwd.cu",
+            "replaces": "qasr/ops/pallas/qlstm_scan.py:264 (_bwd_kernel)",
+            "launches": step_counts["qlstm_scan8_bwd"], "max_abs_err": e_err, "ms": e_k,
+            "plain_ms": e_p, "bound_ms": bound_e[0], "bound_by": bound_e[1],
+            "library_ms": lib_ms,
+            "library": "cuDNN nn.LSTM, fp16, forward + backward: the whole bidirectional "
+                       "layer, its input GEMM included (no library call computes the "
+                       "recurrence's backward alone)",
+            "layer_ms": layer_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -447,7 +885,6 @@ def main() -> int:
     from qasr_torch.configs import get_config
     from qasr_torch.infer import Transcriber, _next_time_pad
     from qasr_torch.models import build_model
-    from qasr_torch.models.layers import PReLU
     from qasr_torch.ops.kernels import _build
     from qasr_torch.ops.kernels.qconv_chain import qconv_dw8
     from qasr_torch.ops.kernels.qconv_dx8 import conj_transpose_w, qconv_dx8, qconv_dx8_plain
@@ -459,9 +896,8 @@ def main() -> int:
         qgemm8_dx,
     )
     from qasr_torch.ops.quaternion import hamilton_expand
-    from qasr_torch.train.loop import train
     from qasr_torch.train.state import create_train_state
-    from qasr_torch.train.step import batch_to_device, loss_fn, train_step
+    from qasr_torch.train.step import train_step
 
     # 1. device
     smi = subprocess.run(
@@ -558,7 +994,7 @@ def main() -> int:
     n_fat = sum(greedy.model.stacked)
     n_dense = greedy.model.n_dense
     want = {"qconv_ft8": 2 * n_fat, "qgemm8": 2 * n_dense, "qgemm8_dx": 0,
-            "qconv_dx8": 0, "qlstm_scan8": 0}  # two forwards, no backward
+            "qconv_dx8": 0, "qlstm_scan8": 0, "qlstm_scan8_bwd": 0}  # two forwards
     if serve_counts != want or n_fat != 9 or n_dense != 3:
         raise RuntimeError(f"serving launches {serve_counts}, expected {want}")
     logits, lengths = greedy.logits(wavs)
@@ -708,47 +1144,15 @@ def main() -> int:
 
     # 6. training: the port's training path, full width
     # gradient parity, kernel path against plain path, dropout off
-    def grads(cfg_, plain, unit_slopes):
-        st = create_train_state(cfg_, device=dev)
-        if unit_slopes:
-            with torch.no_grad():
-                for m in st.model.modules():
-                    if isinstance(m, PReLU):
-                        m.alpha.fill_(1.0)
-        b = batch_to_device(batch, dev)
-        loss = loss_fn(cfg_, st.model(b["features"], plain=plain, generator=st.generator), b)
-        loss.backward()
-        out = {k: p.grad.float() for k, p in st.model.named_parameters()}
-        return loss.detach().float(), out
-
-    for dtype, tol, tol_loss, unit in (("bfloat16", TOL_GRAD_BF16, TOL_LOSS_BF16, False),
-                                       ("float32", TOL_GRAD_F32, TOL_LOSS_F32, True)):
-        pcfg = tcfg.override(**{"model.dropout_rate": 0.0, "model.compute_dtype": dtype})
-        loss_k, g_k = grads(pcfg, False, unit)
-        loss_p, g_p = grads(pcfg, True, unit)
-        torch.cuda.synchronize()
-        dl = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-        if not (math.isfinite(loss_k.item()) and dl <= tol_loss):
-            raise RuntimeError(f"train loss {dtype}: kernel {loss_k.item()} plain "
-                               f"{loss_p.item()} (rel {dl:.3e} > {tol_loss:.1e})")
-        worst = ("", 0.0)
-        for k in g_p:
-            err = _errors(g_k[k], g_p[k])
-            _gate(f"train grad {dtype} {k}", err, tol)
-            worst = max(worst, (k, err["rel_norm"]), key=lambda v: v[1])
-        print(f"phase 6 train parity {dtype}{' (PReLU slopes 1)' if unit else ''}: loss kernel "
-              f"{loss_k.item():.6f} plain "
-              f"{loss_p.item():.6f} (rel {dl:.3e}, tol {tol_loss:.0e}); {len(g_p)} gradients, "
-              f"worst rel_norm {worst[1]:.3e} ({worst[0]}) (tol {tol})", flush=True)
-        del g_k, g_p
-        torch.cuda.empty_cache()
+    _grad_parity(tcfg, batch, dev, 6)
 
     # launches of one train step, and twenty steps on the fixed batch
     state = create_train_state(tcfg, device=dev)
     _reset_counts()
     losses = [train_step(state, batch)["loss"].item()]
     step_counts = _read_counts()
-    want = {"qconv_ft8": 9, "qconv_dx8": 9, "qgemm8": 3, "qgemm8_dx": 3, "qlstm_scan8": 0}
+    want = {"qconv_ft8": 9, "qconv_dx8": 9, "qgemm8": 3, "qgemm8_dx": 3, "qlstm_scan8": 0,
+            "qlstm_scan8_bwd": 0}
     if step_counts != want:
         raise RuntimeError(f"launches in one train step {step_counts}, expected {want}")
     for _ in range(19):
@@ -773,38 +1177,19 @@ def main() -> int:
 
     # the main path: one train() call (4 steps, an eval over the synthetic
     # set, a checkpoint) and a Transcriber serving that checkpoint
-    ckpt_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "qasr_torch",
-                             "_build", "smoke_train")
-    shutil.rmtree(ckpt_root, ignore_errors=True)
     lcfg = tcfg.override(**{"train.num_steps": 4, "train.log_every": 2,
                             "train.eval_every": 4, "train.checkpoint_every": 4})
-    _reset_counts()
-    t0 = time.perf_counter()
-    lstate, last = train(lcfg, device=dev, checkpoint_dir=ckpt_root)
-    train_s = time.perf_counter() - t0
-    train_counts = _read_counts()
-    if lstate.step != 4 or not math.isfinite(last["loss"]) or "dev_per" not in last:
-        raise RuntimeError(f"train() ended at step {lstate.step} with {last}")
-    if train_counts["qconv_dx8"] != 9 * 4 or train_counts["qgemm8_dx"] != 3 * 4:
-        raise RuntimeError(f"train() launches {train_counts}: expected 9 and 3 a step backward")
-    served = Transcriber(last["checkpoint"], device=dev)
-    hyp = served.transcribe_batch(wavs)
-    ck_logits, _ = served.logits(wavs)
-    if not torch.isfinite(ck_logits).all() or len(hyp) != len(wavs):
-        raise RuntimeError("the trained checkpoint did not serve")
-    sd = lstate.model.state_dict()
-    for k, v in served.model.state_dict().items():
-        if not torch.equal(v, sd[k]):
-            raise RuntimeError(f"checkpoint param {k} differs from the trained one")
-    print(f"phase 6 train(): {lcfg.model.conv_features[0]}-wide qcnn, {lstate.step} steps in "
-          f"{train_s:.2f} s, last log {json.dumps({k: last[k] for k in sorted(last)})}; "
+    last, train_counts, hyp, train_s = _train_and_serve(
+        lcfg, dev, "smoke_train", wavs, {"qconv_dx8": 9, "qgemm8_dx": 3})
+    print(f"phase 6 train(): {lcfg.model.conv_features[0]}-wide qcnn, {lcfg.train.num_steps} "
+          f"steps in {train_s:.2f} s, last log {json.dumps({k: last[k] for k in sorted(last)})}; "
           f"launches {train_counts}; checkpoint served {len(hyp)} utterances "
           f"(phones {[len(h) for h in hyp]})", flush=True)
-    del lstate, served
-    shutil.rmtree(ckpt_root, ignore_errors=True)
 
     # 7. config 4 serving (its own launch counts)
     scan_entry = phase7_qlstm(dev, smi)
+    # 8. config 4 training (its own launch counts)
+    scan_bwd_entry = phase8_qlstm_train(dev, smi)
 
     def entry(name, source, replaces, bound, lib_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -824,6 +1209,7 @@ def main() -> int:
         entry("qgemm8_dx", "qasr_torch/csrc/qgemm8.cu",
               "qasr/ops/pallas/qgemm8.py:84 (in_kind=dx)", bound_bdx, lib_bdx),
         scan_entry,
+        scan_bwd_entry,
     ])
     print(smi, flush=True)
     _line(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,8 +57,8 @@ def build_model(
     port's init) on ``device`` (the GPU unless the caller asks for the CPU),
     in train mode (dropout at ``cfg.model.dropout_rate``) or eval mode.
 
-    ``arch="qcnn"`` serves and trains; ``arch="qlstm"`` serves only (kernel D
-    has no backward yet).
+    ``arch="qcnn"`` and ``arch="qlstm"`` serve and train; a qlstm model
+    routes as :func:`qlstm_routing` says in both modes.
     """
     m = cfg.model
     dtype = _DTYPES[m.compute_dtype]
@@ -77,11 +77,6 @@ def build_model(
             device=device,
         ).train(train)
     if m.arch == "qlstm":
-        if train:
-            raise NotImplementedError(
-                "training arch='qlstm' is not ported yet: kernel D has no backward "
-                "(ROADMAP.md Queue 2, qlstm_scan._bwd_kernel)"
-            )
         input_proj, recurrent = qlstm_routing(m, device)
         # the JAX build_model gives QLSTMEncoder no kernel_size: it is (3, 3)
         return QLSTMEncoder(
@@ -99,7 +94,7 @@ def build_model(
             recurrent=recurrent,
             generator=generator,
             device=device,
-        ).eval()
+        ).train(train)
     raise NotImplementedError(
         f"arch={m.arch!r} is not ported yet (ROADMAP.md Queue 1: real_cnn is item 6, "
         "real_lstm is item 13)"

@@ -1,5 +1,5 @@
 """The QCNN-LSTM hybrid encoder (counterpart of ``qasr/models/qlstm.py``),
-bidirectional, eval mode.
+bidirectional, in eval and train mode.
 
 The quaternion conv tower (shared with the QCNN), then ``lstm_layers``
 bidirectional quaternion LSTM layers, quaternion dense layers with their
@@ -15,9 +15,15 @@ un-flipped). Recurrences:
 - ``"pallas8"``: :func:`qasr_torch.ops.kernels.qlstm_scan.qlstm_scan_fast8`,
   kernel D on a CUDA tensor (its plain version on the CPU or with
   ``plain=True``), with ``_fwd_xla``'s arithmetic: f32 within a step, the
-  state carried in the compute dtype;
+  state carried in the compute dtype. Under grad it goes through
+  ``QLstmScanFn``, whose backward is kernel E (or its plain version, with
+  ``_bwd_xla``'s arithmetic) and the dW einsums;
 - ``"fast8"``: the plain in-scan rank-8 loop of the JAX ``recurrent="fast8"``
-  branch, which the model takes where kernel D does not apply.
+  branch, which the model takes where kernel D does not apply; autograd
+  differentiates it, as JAX differentiates its scan.
+
+The input projections' backward is the block product's autograd (at
+``B * T >= BLOCK_ROWS``) or ``QGemm8Fn`` (kernel B forward and dx) below.
 
 Parameters keep the JAX names and shapes (``docs/checkpoint_layout.md``):
 ``qbilstm_<i>.fwd_cell.{wx [4, In, 4H], wh [4, H, 4H], bias [16H]}`` and the
@@ -40,8 +46,10 @@ from qasr_torch.ops.qlinalg import qdense
 from qasr_torch.ops.quaternion import O8, V8, combine_weights
 
 # M = B * T from which the input projection takes the block product
-# (``qlstm.py:62-63``, measured on the TPU; the H100 crossover is not
-# measured yet, ROADMAP.md Queue 1 item 13)
+# (``qlstm.py:62-63``, measured on the TPU). On the H100 the block product is
+# the faster arm at every M from 2048 to 16384, forward and backward
+# (PERF.md); the threshold stays the TPU's until a change measured end to
+# end moves it.
 BLOCK_ROWS = 8192
 
 
@@ -203,8 +211,9 @@ class QLSTMEncoder(ConvTowerEncoder):
     Submodules carry the JAX names (``qconv_<i>``, ``conv_prelu_<i>``,
     ``qbilstm_<i>``, ``qdense_<i>``, ``dense_prelu_<i>``, ``output``), so a
     JAX ``QLSTMEncoder`` tree bridges by name. Dropout follows each QBiLSTM
-    and each dense PReLU; it is the identity in eval mode, and kernel D has
-    no backward yet, so the encoder serves only.
+    and each dense PReLU; in train mode its masks come from the generator
+    the caller passes (the train state's), and in eval mode it is the
+    identity.
     """
 
     def __init__(

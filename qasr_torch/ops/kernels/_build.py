@@ -49,6 +49,9 @@ _ENTRIES = {
     "qasr_qconv_dx8_partial_rows": [_I] * 3,
     # xz, wc8, lengths, hs, cs, gates, T, D, B, H, dtype, v8, o8, stream
     "qasr_qlstm_scan8": [_P] * 6 + [_I] * 5 + [_P] * 3,
+    # gates, cs, dhs, wc8, lengths, dz, xbuf, dh, dc, T, D, B, H, dtype, v8, o8,
+    # stream
+    "qasr_qlstm_scan8_bwd": [_P] * 9 + [_I] * 5 + [_P] * 3,
 }
 
 

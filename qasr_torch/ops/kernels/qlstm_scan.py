@@ -1,29 +1,32 @@
 """The scan-resident rank-8 QLSTM recurrence: kernel D
-(``qasr_torch/csrc/qlstm_scan8.cu``) and its plain PyTorch version, forward
-only.
+(``qasr_torch/csrc/qlstm_scan8.cu``, the forward), kernel E
+(``qasr_torch/csrc/qlstm_scan8_bwd.cu``, the reverse-time backward), their
+plain PyTorch versions, and the autograd Function that joins them.
 
-Counterpart of ``qasr/ops/pallas/qlstm_scan.py``: the TPU kernel
-``_fwd_kernel`` runs the whole T-step bidirectional recurrence in one call
-with the rank-8 recurrent weights resident in VMEM. On Hopper no SM holds
-those weights (8.4 MB in bf16 at H=256), so kernel D is a persistent
-cooperative kernel: each block keeps the weight columns of ``kJ = 4`` hidden
-indices of one direction in shared memory for the whole scan, and one grid
-barrier a step exchanges the hidden state through ``hs`` in device memory.
-:func:`qlstm_scan_fwd_plain` is ``_fwd_xla`` step by step: the same math
-(f32 within a step, h and c carried in the storage dtype) and the same
-layouts and outputs ``(hs, cs, gates)``.
+Counterpart of ``qasr/ops/pallas/qlstm_scan.py``: the TPU kernels
+``_fwd_kernel`` and ``_bwd_kernel`` each run the whole T-step bidirectional
+recurrence in one call with the rank-8 recurrent weights resident in VMEM.
+On Hopper no SM holds those weights (8.4 MB in bf16 at H=256), so both
+kernels are persistent and cooperative: each block keeps the weights of a
+few hidden indices of one direction in shared memory for the whole scan,
+and one grid barrier a step exchanges what every block needs. The plain
+versions are ``_fwd_xla`` and ``_bwd_xla`` step by step: the same math
+(f32 within a step; h and c carried in the storage dtype forward, dh and dc
+in f32 backward) and the same layouts and outputs.
 
 Layouts (as the JAX package's): ``xz [T, D, B, 16H]`` arrives packed
 component-major ``[q, g, H]`` and is relaid gate-major ``[g, q, H]`` once;
 ``wc8 [D, 8, H, 4H]`` holds the U8-combined recurrent weights with columns
-``[g, H]``; ``hs``, ``cs`` ``[T, D, B, 4H]`` are component-major; ``gates
-[T, D, B, 16H]`` gate-major ``[sigma(i, f, o) | tanh(g)]``. Direction 1 runs
-on the time-flipped stream and freezes its first ``T - len`` steps; the
-kernel computes that mask from ``lengths [B]`` itself.
+``[g, H]``; ``hs``, ``cs`` ``[T, D, B, 4H]`` are component-major; ``gates``
+and ``dz`` ``[T, D, B, 16H]`` gate-major (``gates = [sigma(i, f, o) |
+tanh(g)]``). Direction 1 runs on the time-flipped stream and freezes its
+first ``T - len`` steps; the kernels compute that mask from ``lengths [B]``
+themselves.
 
-Kernel D has no backward yet: the TPU's ``_bwd_kernel`` is the next slice
-(ROADMAP.md Queue 2). A CUDA call with grad enabled on an input that
-requires grad raises instead of running the plain version.
+With grad enabled on an input that requires grad, :func:`qlstm_scan_fwd`
+goes through :class:`QLstmScanFn` on both paths (the counterpart of the
+``_scan_core`` custom VJP): kernels D and E on a CUDA tensor, the plain
+versions on the CPU or with ``plain=True``, then :func:`qlstm_scan_dw`.
 """
 
 from __future__ import annotations
@@ -43,6 +46,12 @@ _V8_TERMS = tuple(
     tuple((a, float(np.float32(V8[p, a]))) for a in range(4) if V8[p, a] != 0.0)
     for p in range(8)
 )
+# V8 columns as ((product, coefficient), ...) for the backward's dh_a =
+# sum_p V8[p, a] dhc_p, in the order _bwd_xla sums them (qlstm_scan.py:61)
+_V8_COLS = tuple(
+    tuple((p, float(np.float32(V8[p, a]))) for p in range(8) if V8[p, a] != 0.0)
+    for a in range(4)
+)
 
 # hidden indices a kernel D block owns (kJ in csrc/qlstm_scan8.cu)
 _J = 4
@@ -59,15 +68,18 @@ def device_sms(device: torch.device | str) -> int:
 
 
 def supported(hidden: int, dtype=torch.bfloat16, sms: int = H100_SMS) -> bool:
-    """Whether kernel D runs a bidirectional recurrence of ``hidden``
+    """Whether kernels D and E run a bidirectional recurrence of ``hidden``
     quaternion units on a card with ``sms`` SMs.
 
     The bound is Hopper's, not the TPU's 128-lane rule: bf16 or f32,
     ``hidden`` a multiple of 16 (the mma k-step), and the ``2 * hidden / 4``
-    blocks of the cooperative grid co-resident at one block an SM (the
-    kernel's launch bound). On an H100 SXM that admits hidden sizes 16..256;
-    272 is the first refused (136 blocks). A block's shared memory admits
-    more than the grid does at both dtypes; the launcher checks it exactly.
+    blocks of kernel D's cooperative grid co-resident at one block an SM
+    (the kernel's launch bound). On an H100 SXM that admits hidden sizes
+    16..256; 272 is the first refused (136 blocks). Kernel E's grid is half
+    of D's in bf16 (8 hidden indices a block) and the same in f32, so D's
+    bound holds for both. A block's shared memory admits more than the grid
+    does at both dtypes and in both kernels (E's: H <= 276 in bf16, 294 in
+    f32, past any Hopper card's 132 SMs); the launchers check it exactly.
     """
     return dtype in _DTYPE_CODE and hidden >= 16 and hidden % 16 == 0 and 2 * hidden // _J <= sms
 
@@ -195,6 +207,196 @@ def qlstm_scan_cuda(
     return hs, cs, gates
 
 
+def qlstm_scan_bwd_plain(
+    wc8: torch.Tensor,
+    gates: torch.Tensor,
+    cs: torch.Tensor,
+    dhs: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain version of kernel E: ``_bwd_xla`` (``qlstm_scan.py:498-578``) one
+    step at a time, t from T-1 down to 0. ``wc8 [D, 8, H, 4H]``, the forward's
+    ``gates [T, D, B, 16H]`` and ``cs [T, D, B, 4H]``, and the upstream
+    ``dhs [T, D, B, 4H]``, all in the storage dtype; returns ``dz [T, D, B,
+    16H]`` gate-major in the storage dtype. dh and dc are carried in f32;
+    ``c_prev`` is ``cs[t-1]`` (zero at t = 0). The recurrent part forms
+    ``dprods_p = sum_q O8[q, p] dz_q`` from the f32 ``dz`` and rounds it once
+    to the storage dtype; its products with the weights sum in f32."""
+    t, d, b, c16 = gates.shape
+    hid = c16 // 16
+    h4 = 4 * hid
+    dt = gates.dtype
+    if t == 0:
+        return torch.zeros_like(gates)
+    wt = wc8.to(dt).float().transpose(-1, -2)  # [D, 8, 4H, H]
+    o8 = torch.as_tensor(O8, dtype=torch.float32, device=gates.device).view(4, 1, 8, 1, 1, 1)
+    mask = activity_mask(t, d, lengths, b, gates.device)[..., None]  # [T, D, B, 1]
+    dh = torch.zeros((d, b, h4), device=gates.device)
+    dc = torch.zeros_like(dh)
+    dzs = [None] * t
+    for s in range(t - 1, -1, -1):
+        i_t, f_t, o_t, g_t = gates[s].float().split(h4, dim=-1)
+        cpf = cs[s - 1].float() if s > 0 else torch.zeros_like(dh)
+        c_cand = f_t * cpf + i_t * g_t
+        th = torch.tanh(c_cand)
+        m = mask[s]
+        dh_tot = dhs[s].float() + dh
+        dh_cand = m * dh_tot
+        dc_cand = m * dc + dh_cand * o_t * (1.0 - th * th)
+        do = dh_cand * th
+        df = dc_cand * cpf
+        di = dc_cand * g_t
+        dg = dc_cand * i_t
+        dc = (1.0 - m) * dc + dc_cand * f_t
+        dz = torch.cat([di * i_t * (1.0 - i_t), df * f_t * (1.0 - f_t),
+                        do * o_t * (1.0 - o_t), dg * (1.0 - g_t * g_t)], dim=-1)
+        dzs[s] = dz.to(dt)
+        # dprods_p = sum_q O8[q, p] dz[g, q], summed over q in order
+        dzq = dz.reshape(d, 1, b, 4, 4, hid).movedim(4, 0)  # [q][D, 1, B, g, H]
+        dprods = dzq[0] * o8[0]
+        for q in range(1, 4):
+            dprods = dprods + dzq[q] * o8[q]  # [D, 8, B, g, H]
+        dprods = dprods.reshape(d, 8, b, h4).to(dt).float()
+        dhc = torch.matmul(dprods, wt)  # [D, 8, B, H]
+        dh_rec = []
+        for terms in _V8_COLS:
+            (p0, c0), *rest = terms
+            acc = dhc[:, p0] * c0
+            for p, coef in rest:
+                acc = acc + dhc[:, p] * coef
+            dh_rec.append(acc)
+        dh = (1.0 - m) * dh_tot + torch.cat(dh_rec, dim=-1)
+    return torch.stack(dzs)
+
+
+def qlstm_scan_bwd_cuda(
+    wc8: torch.Tensor,
+    gates: torch.Tensor,
+    cs: torch.Tensor,
+    dhs: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    *,
+    lib=None,
+) -> torch.Tensor:
+    """Launch kernel E: ``gates [T, 2, B, 16H]``, ``cs`` and ``dhs [T, 2, B,
+    4H]``, ``wc8 [2, 8, H, 4H]`` on one CUDA device, contiguous, all f32 or
+    all bf16; ``lengths [B]`` or None. Returns ``dz`` like ``gates``. The
+    wrapper allocates the exchange buffer ``[2, D, 8, B, 4H]`` (ping-pong by
+    the parity of t) and the f32 carry ``[2, D, B, 4H]`` as scratch. Raises
+    on anything the kernel does not take, when the cooperative grid cannot
+    be co-resident, or when it fails to build or launch."""
+    if gates.ndim != 4 or gates.shape[-1] % 16:
+        raise ValueError(f"expected gates [T, D, B, 16H], got {tuple(gates.shape)}")
+    t, d, b, c16 = gates.shape
+    hid = c16 // 16
+    dt = gates.dtype
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"kernel E takes float32 or bfloat16, got {dt}")
+    if d != 2:
+        raise ValueError(f"kernel E runs both directions in one launch, got D={d}")
+    sms = device_sms(gates.device)
+    if not supported(hid, dt, sms):
+        raise ValueError(f"kernel E does not support hidden={hid} in {dt} on {sms} SMs")
+    _check_cuda_tensor("gates", gates, dt, gates.shape)
+    for name, v in (("cs", cs), ("dhs", dhs)):
+        _check_cuda_tensor(name, v, dt, (t, d, b, 4 * hid))
+    _check_cuda_tensor("wc8", wc8, dt, (d, 8, hid, 4 * hid))
+    for name, v in (("cs", cs), ("dhs", dhs), ("wc8", wc8)):
+        if v.device != gates.device:
+            raise ValueError(f"{name} is on {v.device}, gates on {gates.device}")
+    lens = None
+    if lengths is not None:
+        if tuple(lengths.shape) != (b,):
+            raise ValueError(f"lengths must have shape {(b,)}, got {tuple(lengths.shape)}")
+        lens = lengths.to(device=gates.device, dtype=torch.int32).contiguous()
+    lib = _build.load_library() if lib is None else lib
+    dz = torch.empty_like(gates)
+    if dz.numel() == 0:
+        return dz
+    xbuf = torch.empty((2, d, 8, b, 4 * hid), dtype=dt, device=gates.device)
+    carry = torch.empty((2, d, b, 4 * hid), dtype=torch.float32, device=gates.device)
+    with torch.cuda.device(gates.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.qasr_qlstm_scan8_bwd(
+            gates.data_ptr(), cs.data_ptr(), dhs.data_ptr(), wc8.data_ptr(),
+            None if lens is None else lens.data_ptr(), dz.data_ptr(), xbuf.data_ptr(),
+            carry[0].data_ptr(), carry[1].data_ptr(), t, d, b, hid, _DTYPE_CODE[dt],
+            _V8_F32.ctypes.data_as(ctypes.c_void_p),
+            _O8_F32.ctypes.data_as(ctypes.c_void_p),
+            stream,
+        )
+    _build.check(lib, err, "qlstm_scan8_bwd launch")
+    qlstm_scan_bwd.launches += 1
+    return dz
+
+
+def qlstm_scan_bwd(
+    wc8: torch.Tensor,
+    gates: torch.Tensor,
+    cs: torch.Tensor,
+    dhs: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    *,
+    plain: bool = False,
+) -> torch.Tensor:
+    """``dz`` of the recurrence (see :func:`qlstm_scan_bwd_plain`). A CPU
+    tensor (or ``plain=True``) takes the plain version; a CUDA tensor
+    launches kernel E or raises."""
+    if plain or not gates.is_cuda:
+        return qlstm_scan_bwd_plain(wc8, gates, cs, dhs, lengths)
+    return qlstm_scan_bwd_cuda(wc8.contiguous(), gates.contiguous(), cs.contiguous(),
+                               dhs.contiguous(), lengths)
+
+
+def qlstm_scan_dw(hs: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
+    """``dwc8 [D, 8, H, 4H]`` from the forward's ``hs [T, D, B, 4H]`` and
+    ``dz [T, D, B, 16H]`` (gate-major): the two dW einsums of
+    ``_scan_core_bwd`` (``qlstm_scan.py:711-727``), batched GEMMs over the
+    ``T * B`` rows. ``h_prev`` is ``hs`` one step back in scan order (zero
+    at t = 0; direction 1 on its flipped stream). The V8 combos of ``h_prev``
+    and the O8 combos of ``dz`` are formed in the storage dtype, as the JAX
+    einsums form them; their products accumulate in f32 (the matmul's
+    accumulator) and come back in the storage dtype."""
+    t, d, b, h4 = hs.shape
+    hid = h4 // 4
+    h_prev = torch.cat([hs.new_zeros((1, d, b, h4)), hs[:-1]])
+    v8 = torch.as_tensor(V8, dtype=hs.dtype, device=hs.device)
+    o8 = torch.as_tensor(O8, dtype=dz.dtype, device=dz.device)
+    hcp = torch.einsum("tdbak,pa->dptbk", h_prev.reshape(t, d, b, 4, hid), v8)
+    dpr = torch.einsum("tdbgqh,qp->dptbgh", dz.reshape(t, d, b, 4, 4, hid), o8)
+    hcp = hcp.reshape(d, 8, t * b, hid)
+    return torch.matmul(hcp.transpose(-1, -2), dpr.reshape(d, 8, t * b, h4))
+
+
+class QLstmScanFn(torch.autograd.Function):
+    """``(hs, cs, gates)`` of the recurrence with its backward: the
+    counterpart of the ``_scan_core`` custom VJP (``qlstm_scan.py:693-731``).
+    Forward: kernel D, or the plain version on the CPU or with ``plain``;
+    it saves ``wc8, lengths, hs, cs, gates``. Backward: kernel E or the
+    plain version for ``dz``, then :func:`qlstm_scan_dw`; it returns ``dxz =
+    dz``, ``dwc8`` in wc8's dtype, and no gradient for the lengths. ``cs``
+    and ``gates`` are residuals, not differentiable outputs."""
+
+    @staticmethod
+    def forward(ctx, xz_gm, wc8, lengths, plain):
+        if plain or not xz_gm.is_cuda:
+            hs, cs, gates = qlstm_scan_fwd_plain(xz_gm, wc8, lengths)
+        else:
+            hs, cs, gates = qlstm_scan_cuda(xz_gm.contiguous(), wc8.contiguous(), lengths)
+        ctx.plain = plain
+        ctx.save_for_backward(wc8, lengths, hs, cs, gates)
+        ctx.mark_non_differentiable(cs, gates)
+        return hs, cs, gates
+
+    @staticmethod
+    def backward(ctx, dhs, _dcs, _dgates):
+        wc8, lengths, hs, cs, gates = ctx.saved_tensors
+        dhs = torch.zeros_like(hs) if dhs is None else dhs.to(gates.dtype)
+        dz = qlstm_scan_bwd(wc8, gates, cs, dhs, lengths, plain=ctx.plain)
+        dwc8 = qlstm_scan_dw(hs, dz).to(wc8.dtype) if ctx.needs_input_grad[1] else None
+        return dz, dwc8, None, None
+
+
 def qlstm_scan_fwd(
     xz_gm: torch.Tensor,
     wc8: torch.Tensor,
@@ -204,16 +406,13 @@ def qlstm_scan_fwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(hs, cs, gates)`` of the recurrence on gate-major ``xz_gm``. A CPU
     tensor (or ``plain=True``) takes the plain version; a CUDA tensor
-    launches kernel D or raises. Kernel D has no backward yet: with grad
-    enabled on an input that requires grad, a CUDA call raises."""
+    launches kernel D or raises. With grad enabled on an input that requires
+    grad, both paths go through :class:`QLstmScanFn`, whose backward is
+    kernel E on the kernel path and the plain backward on the plain path."""
+    if torch.is_grad_enabled() and (xz_gm.requires_grad or wc8.requires_grad):
+        return QLstmScanFn.apply(xz_gm, wc8, lengths, plain)
     if plain or not xz_gm.is_cuda:
         return qlstm_scan_fwd_plain(xz_gm, wc8, lengths)
-    if torch.is_grad_enabled() and (xz_gm.requires_grad or wc8.requires_grad):
-        raise RuntimeError(
-            "kernel D (qlstm_scan8) has no backward yet: it comes with config 4's "
-            "training (ROADMAP.md Queue 2, qlstm_scan._bwd_kernel); run under "
-            "torch.no_grad() or pass plain=True"
-        )
     return qlstm_scan_cuda(xz_gm.contiguous(), wc8.contiguous(), lengths)
 
 
@@ -250,3 +449,5 @@ def qlstm_scan_fast8(
 
 #: launches of kernel D since the last reset (counted where it launches)
 qlstm_scan_fast8.launches = 0
+#: launches of kernel E since the last reset (counted where it launches)
+qlstm_scan_bwd.launches = 0

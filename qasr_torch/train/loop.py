@@ -3,8 +3,10 @@ without its mesh, prefetch thread and resume).
 
 A step loop over bucketed batches: every ``log_every`` steps a metrics line
 (loss, grad norm, audio-seconds per second), every ``eval_every`` steps the
-greedy PER over the eval set, and at eval and ``checkpoint_every`` steps a
-checkpoint directory that ``qasr_torch.infer.Transcriber`` reads as it is.
+greedy error rate over the eval set, and at eval and ``checkpoint_every``
+steps a checkpoint directory that ``qasr_torch.infer.Transcriber`` reads as
+it is. Any model ``build_model`` builds trains here (the QCNN and the
+QCNN-LSTM); only the ``synthetic`` dataset is ported.
 """
 
 from __future__ import annotations
@@ -69,7 +71,9 @@ def save_checkpoint(state: TrainState, directory: str) -> str:
 
 
 def evaluate(cfg: Config, model: torch.nn.Module, dataset) -> dict:
-    """Greedy PER and per-token loss over one pass of ``dataset``; remainder
+    """Greedy error rate (``per``) and per-token loss over one pass of
+    ``dataset``: the PER on the 39-phone fold for TIMIT, the raw symbol
+    error rate otherwise (for LibriSpeech characters, the CER). Remainder
     pad rows are scored once, never twice."""
     errs = total = 0
     losses = []

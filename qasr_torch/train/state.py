@@ -22,10 +22,10 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+from torch import nn
 
 from qasr_torch.configs import Config
 from qasr_torch.models import build_model
-from qasr_torch.models.qcnn import QCNNEncoder
 
 
 def warmup_cosine_schedule(cfg: Config) -> Callable[[int], float]:
@@ -57,11 +57,11 @@ def build_optimizer(cfg: Config, params) -> torch.optim.AdamW:
 @dataclass
 class TrainState:
     """What a train step reads and advances: the step count (the optimizer
-    updates taken), the model (f32 master params), its optimizer, and the
-    generator the dropout masks come from."""
+    updates taken), the model (any encoder of ``build_model``: f32 master
+    params), its optimizer, and the generator the dropout masks come from."""
 
     cfg: Config
-    model: QCNNEncoder
+    model: nn.Module
     optimizer: torch.optim.AdamW
     generator: torch.Generator
     schedule: Callable[[int], float]

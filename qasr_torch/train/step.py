@@ -86,7 +86,8 @@ def train_step(state: TrainState, batch: dict, *, plain: bool = False) -> dict:
     device = next(model.parameters()).device
     batch = batch_to_device(batch, device)
     model.train()
-    logits = model(batch["features"], plain=plain, generator=state.generator)
+    logits = model(batch["features"], lengths=batch["feature_lengths"], plain=plain,
+                   generator=state.generator)
     loss = loss_fn(state.cfg, logits, batch)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -107,7 +108,7 @@ def eval_step(cfg: Config, model: torch.nn.Module, batch: dict) -> dict:
     was_training = model.training
     model.eval()
     try:
-        logits = model(batch["features"])
+        logits = model(batch["features"], lengths=batch["feature_lengths"])
     finally:
         model.train(was_training)
     decoded, lengths = ctc_greedy_decode(

@@ -199,19 +199,105 @@ def test_qlstm_scan_kernel_matches_plain_on_card(cuda_device, dtype, b, t, hid, 
 
 @pytest.mark.cuda
 def test_qlstm_scan_kernel_refuses_on_card(cuda_device):
-    """Past supported()'s bound, and with grad required, kernel D raises
-    instead of running the plain version."""
+    """Past supported()'s bound kernels D and E raise instead of running the
+    plain version. With grad required, kernel D runs through QLstmScanFn
+    and kernel E launches once on its backward."""
     bf16 = torch.bfloat16
-    before = qlstm_scan.qlstm_scan_fast8.launches
+    before = qlstm_scan.qlstm_scan_fast8.launches, qlstm_scan.qlstm_scan_bwd.launches
     xz = torch.zeros((2, 2, 1, 16 * 272), dtype=bf16, device=cuda_device)
     wc8 = torch.zeros((2, 8, 272, 4 * 272), dtype=bf16, device=cuda_device)
     with pytest.raises(ValueError, match="does not support hidden=272"):
         qlstm_scan.qlstm_scan_fwd(xz, wc8)
+    h4 = torch.zeros((2, 2, 1, 4 * 272), dtype=bf16, device=cuda_device)
+    with pytest.raises(ValueError, match="does not support hidden=272"):
+        qlstm_scan.qlstm_scan_bwd(wc8, xz, h4, h4)
     xz = torch.zeros((2, 2, 1, 16 * 256), dtype=bf16, device=cuda_device)
     wc8 = torch.zeros((2, 8, 256, 4 * 256), dtype=bf16, device=cuda_device, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        qlstm_scan.qlstm_scan_fwd(xz, wc8)
+    hs, _, _ = qlstm_scan.qlstm_scan_fwd(xz, wc8)
+    assert type(hs.grad_fn).__name__ == "QLstmScanFnBackward"
+    hs.float().sum().backward()
+    torch.cuda.synchronize()
+    assert wc8.grad is not None and wc8.grad.dtype == bf16
     with torch.no_grad():
         qlstm_scan.qlstm_scan_fwd(xz, wc8)
     torch.cuda.synchronize()
-    assert qlstm_scan.qlstm_scan_fast8.launches == before + 1
+    assert (qlstm_scan.qlstm_scan_fast8.launches - before[0],
+            qlstm_scan.qlstm_scan_bwd.launches - before[1]) == (2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# ragged B and T; B=40 spans two row tiles; H=256 is config 4's full grid
+@pytest.mark.parametrize("b,t,hid,use_lengths",
+                         [(3, 17, 32, True), (3, 17, 32, False), (40, 9, 48, True), (2, 5, 256, True)])
+def test_qlstm_scan_bwd_kernel_matches_plain_on_card(cuda_device, dtype, b, t, hid, use_lengths):
+    """Kernel E: dz against its plain version on the residuals of a forward,
+    signed dhs, in the same dtype (both carry dh and dc in f32 and round
+    dprods and dz at the same places); two runs give the same bits."""
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=3e-2, atol=3e-2)
+    rng = np.random.default_rng(8)
+    xz = _t(_rand(rng, t, 2, b, 16 * hid, scale=0.5)).to(cuda_device, dtype)
+    wc8 = _t(_rand(rng, 2, 8, hid, 4 * hid, scale=hid ** -0.5)).to(cuda_device, dtype)
+    dhs = _t(_rand(rng, t, 2, b, 4 * hid)).to(cuda_device, dtype)
+    lengths = None
+    if use_lengths:
+        lengths = torch.from_numpy(rng.integers(1, t + 1, size=b)).to(cuda_device)
+        lengths[0] = t
+    with torch.no_grad():
+        _, cs, gates = qlstm_scan.qlstm_scan_fwd(xz, wc8, lengths)
+    before = qlstm_scan.qlstm_scan_bwd.launches
+    got = qlstm_scan.qlstm_scan_bwd(wc8, gates, cs, dhs, lengths)
+    again = qlstm_scan.qlstm_scan_bwd(wc8, gates, cs, dhs, lengths)
+    torch.cuda.synchronize()
+    assert qlstm_scan.qlstm_scan_bwd.launches == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    want = qlstm_scan.qlstm_scan_bwd_plain(wc8, gates, cs, dhs, lengths)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_qlstm_scan_bwd_refusal_edge_on_card(cuda_device):
+    """supported()'s edge on this card: the largest admitted hidden size runs
+    kernel E in both dtypes; the next multiple of 16 raises."""
+    sms = qlstm_scan.device_sms(cuda_device)
+    top = max(h for h in range(16, 1024, 16) if qlstm_scan.supported(h, torch.bfloat16, sms))
+    for dtype in (torch.float32, torch.bfloat16):
+        for hid, ok in ((top, True), (top + 16, False)):
+            z16 = torch.zeros((2, 2, 1, 16 * hid), dtype=dtype, device=cuda_device)
+            z4 = torch.zeros((2, 2, 1, 4 * hid), dtype=dtype, device=cuda_device)
+            wc8 = torch.zeros((2, 8, hid, 4 * hid), dtype=dtype, device=cuda_device)
+            if ok:
+                dz = qlstm_scan.qlstm_scan_bwd(wc8, z16, z4, z4)
+                torch.cuda.synchronize()
+                assert not dz.any()
+            else:
+                with pytest.raises(ValueError, match=f"does not support hidden={hid}"):
+                    qlstm_scan.qlstm_scan_bwd(wc8, z16, z4, z4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qlstm_scan_fn_kernel_path_matches_plain_path_on_card(cuda_device, dtype):
+    """QLstmScanFn on the kernel path (D forward, E backward, the dW einsums)
+    against the same Function on the plain path: hs, dxz and dwc8, ragged
+    lengths. bf16: both round at the same places (3e-2, as the kernels)."""
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=3e-2, atol=3e-2)
+    b, t, hid = 5, 13, 32
+    rng = np.random.default_rng(9)
+    xz = _t(_rand(rng, t, 2, b, 16 * hid, scale=0.5)).to(cuda_device, dtype)
+    wc8 = _t(_rand(rng, 2, 8, hid, 4 * hid, scale=hid ** -0.5)).to(cuda_device, dtype)
+    cot = _t(_rand(rng, t, 2, b, 4 * hid)).to(cuda_device, dtype)
+    lengths = torch.tensor([13, 2, 9, 13, 5], device=cuda_device)
+    outs = []
+    for plain in (False, True):
+        x, w = xz.clone().requires_grad_(), wc8.clone().requires_grad_()
+        hs = qlstm_scan.qlstm_scan_fast8(x, w, lengths, plain=plain)
+        hs.backward(cot)
+        outs.append((hs.detach(), x.grad, w.grad))
+    torch.cuda.synchronize()
+    for name, got, want in zip(("hs", "dxz", "dwc8"), *outs):
+        assert got.dtype == dtype, name
+        # dW sums over T*B rows: held relative to its largest element
+        scale = want.abs().max().item() if name == "dwc8" else 1.0
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol["rtol"],
+                                   atol=tol["atol"] * scale, msg=name)

@@ -4,8 +4,8 @@ the GPU has no JAX, and the port keeps its own copies of what it needs.
 A subprocess blocks jax/flax/optax/orbax and ``qasr`` itself in
 ``sys.modules`` before importing the port, then serves a small qcnn and a
 small qlstm on the CPU end to end (greedy and beam) and trains
-``tiny_synthetic`` for two steps; a source scan checks that no file of the
-port (or chip_smoke.py) imports any of them.
+``tiny_synthetic`` and the small qlstm for two steps each; a source scan
+checks that no file of the port (or chip_smoke.py) imports any of them.
 """
 
 import os
@@ -65,6 +65,17 @@ for _ in range(2):
     m = train_step(state, next(stream))
     assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"])), m
 assert state.step == 2
+
+qtcfg = qcfg.override(**{"data.dataset": "synthetic", "data.batch_size": 2,
+                         "data.max_label_len": 16, "train.warmup_steps": 1})
+qdata = SyntheticDataset(vocab=qtcfg.model.vocab, n_mels=qtcfg.data.n_mels,
+                         num_examples=8, seed=0)
+qstream = BatchStream(qdata, qtcfg.data, seed=0)
+qstate = create_train_state(qtcfg, device="cpu")
+for _ in range(2):
+    m = train_step(qstate, next(qstream))
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"])), m
+assert qstate.step == 2
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "qasr")
                 and sys.modules[m] is not None)
 print("OK", loaded)

@@ -240,12 +240,14 @@ def test_build_model_other_archs_not_ported():
     for arch in ("real_cnn", "real_lstm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(CFG.override(**{"model.arch": arch}), device="cpu")
-    # qlstm serves; its block recurrence and its training are not ported yet
+    # qlstm serves and trains; its block recurrence is not ported yet
     for over in ({"model.op_variant": "block"}, {"model.op_variant": "fast8"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(CFG.override(**{"model.arch": "qlstm", **over}), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(CFG.override(**{"model.arch": "qlstm"}), device="cpu", train=True)
+        for train in (False, True):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                build_model(CFG.override(**{"model.arch": "qlstm", **over}), device="cpu",
+                            train=train)
+    model = build_model(CFG.override(**{"model.arch": "qlstm"}), device="cpu", train=True)
+    assert model.training and model.recurrent == "fast8"
 
 
 class TestInit:

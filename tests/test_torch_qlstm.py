@@ -311,8 +311,10 @@ def test_qlstm_routing(monkeypatch):
     with pytest.raises(ValueError, match="not valid for arch='qlstm'"):
         qlstm_routing(get_config("librispeech_qlstm").override(
             **{"model.op_variant": "fast10"}).model, "cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(CFG, device="cpu", train=True)
+    # qlstm trains, with the serving routing: off the card, the fast8 loop
+    trained = build_model(CFG, device="cpu", train=True)
+    assert trained.training and trained.recurrent == "fast8"
+    assert trained.qbilstm_0.input_proj == "auto"
 
 
 def test_input_projection_arms_agree():
