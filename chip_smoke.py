@@ -47,6 +47,21 @@ kernels, and checks them. Phases, one line each (or a few):
               version, its bound and the dW einsums, one QBiLSTM layer
               forward + backward against one cuDNN LSTM's, and both
               input-projection arms at M 2048-16384
+  9. fast10   ``timit_qcnn`` in the 10-product scheme (``op_variant=fused``,
+              ``dense_variant=pallas``) at full width: kernels F and G (the
+              conv and the transposed conv), H (the GEMM, forward and dx)
+              and I (its dW) against their plain versions at the path's
+              shapes, f32 and bf16, gated; serving through ``python -m
+              qasr_torch.cli transcribe`` and ``transcribe_main``, greedy
+              and beam, with launches per forward and logits gates;
+              gradient parity, launches per step, twenty steps, and a
+              4-step ``main`` run of the command line whose checkpoint
+              serves; ``use_pallas`` (im2col convs on H), one forward and
+              one step with their launches and gradient parity; then, not
+              gated, the encoder forward and the train step against the
+              rank-8 model (with a torch.profiler breakdown of one step),
+              and each new kernel against its plain version, its bound and
+              one library call
 
 then one JSON line with the per-kernel results, the nvidia-smi line and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -178,15 +193,50 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _profile(fn, what: str, phase: int, smi: str, n_top: int, named: dict | None = None) -> str:
+    """One call of ``fn`` under torch.profiler; returns the line that says
+    where its device time goes: host-clock time, kernels busy, the device's
+    idle share, the top ``n_top`` kernels by self device time and, for each
+    ``label: name part`` of ``named``, the kernels whose name holds that part
+    (their time, calls and share of busy, in or out of the top)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)[:n_top]
+    rows = [f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top]
+    for label, part in (named or {}).items():
+        hits = [e for e in kern if part in e.key]
+        ms = sum(e.self_device_time_total for e in hits) / 1e3
+        rows.append(f"{label} ({part}) {ms:.3f} ms x{sum(e.count for e in hits)} "
+                    f"({ms / busy_ms:.1%} of busy)")
+    return (f"phase {phase} profile on {smi}: {what} (kernel path, torch.profiler) "
+            f"{wall_ms:.3f} ms on the host clock, kernels busy {busy_ms:.3f} ms (device idle "
+            f"{max(0.0, 1 - busy_ms / wall_ms):.1%}); by self device time: " + "; ".join(rows))
+
+
 def _counters():
-    from qasr_torch.ops.kernels.qconv_dx8 import qconv_dx8
-    from qasr_torch.ops.kernels.qconv_ft import qconv_ft8
+    from qasr_torch.ops.kernels.qconv_dx import qconv_dx8, qconv_dx10
+    from qasr_torch.ops.kernels.qconv_ft import qconv_ft8, qconv_ft10
+    from qasr_torch.ops.kernels.qgemm import qgemm10, qgemm10_dw, qgemm10_dx
     from qasr_torch.ops.kernels.qgemm8 import qgemm8_cl, qgemm8_dx
     from qasr_torch.ops.kernels.qlstm_scan import qlstm_scan_bwd, qlstm_scan_fast8
 
     return {"qconv_ft8": qconv_ft8, "qgemm8": qgemm8_cl, "qgemm8_dx": qgemm8_dx,
             "qconv_dx8": qconv_dx8, "qlstm_scan8": qlstm_scan_fast8,
-            "qlstm_scan8_bwd": qlstm_scan_bwd}
+            "qlstm_scan8_bwd": qlstm_scan_bwd, "qconv_ft10": qconv_ft10,
+            "qconv_dx10": qconv_dx10, "qgemm10": qgemm10, "qgemm10_dx": qgemm10_dx,
+            "qgemm10_dw": qgemm10_dw}
+
+
+def _want(**launches) -> dict:
+    """Every kernel's count 0 but those given."""
+    return {**{name: 0 for name in _counters()}, **launches}
 
 
 def _reset_counts() -> None:
@@ -319,7 +369,7 @@ def phase7_qlstm(dev: torch.device, smi: str) -> dict:
     from qasr_torch.models import build_model
     from qasr_torch.models.qlstm import QBiLSTM, input_proj_fn
     from qasr_torch.ops.initializers import quaternion_init
-    from qasr_torch.ops.kernels.qconv_ft import qconv_fast8_stacked_plain, qconv_ft8
+    from qasr_torch.ops.kernels.qconv_ft import qconv_ft8, qconv_stacked_plain
     from qasr_torch.ops.kernels.qgemm8 import qdense_pallas8, qgemm8_cl, qgemm8_cl_plain
     from qasr_torch.ops.kernels.qlstm_scan import qlstm_scan_fwd, qlstm_scan_fwd_plain
     from qasr_torch.ops.quaternion import combine_weights
@@ -381,7 +431,7 @@ def phase7_qlstm(dev: torch.device, smi: str) -> dict:
             bias, alpha = rnd(4 * cout, scale=0.1), rnd(4 * cin, scale=0.25).abs()
             x = rnd(nb, 4, nf, T, cin, scale=0.5).to(dtype)
             err = _errors(qconv_ft8(x, w, bias, alpha),
-                          qconv_fast8_stacked_plain(x.float(), w, bias, alpha))
+                          qconv_stacked_plain(x.float(), w, bias, alpha))
             _report(f"qconv_ft8 B{nb} F{nf} T{T} C{cin}->{cout} k3x3 {dname} prologue+bias",
                     err, tol, 7)
         for m, k, n in gemms:
@@ -418,8 +468,7 @@ def phase7_qlstm(dev: torch.device, smi: str) -> dict:
     n_b = enc.n_dense + sum(
         input_proj_fn(getattr(enc, f"qbilstm_{i}").input_proj, rows) is qdense_pallas8
         for i in range(enc.lstm_layers))
-    want = {"qconv_ft8": 2 * 3, "qgemm8": 2 * n_b, "qgemm8_dx": 0, "qconv_dx8": 0,
-            "qlstm_scan8": 2 * 3, "qlstm_scan8_bwd": 0}  # two forwards
+    want = _want(qconv_ft8=2 * 3, qgemm8=2 * n_b, qlstm_scan8=2 * 3)  # two forwards
     if counts != want:
         raise RuntimeError(f"config 4 serving launches {counts}, expected {want}")
     if not all(isinstance(h, str) for h in hyp_greedy + hyp_beam):
@@ -462,17 +511,8 @@ def phase7_qlstm(dev: torch.device, smi: str) -> dict:
         full = torch.full((B,), T, device=dev)
         fwd_k, fwd_p = _alternating(lambda: enc(feats, lengths=full),
                                     lambda: enc(feats, lengths=full, plain=True), 2)
-        # where one kernel-path forward's device time goes (torch.profiler)
-        cuda = torch.autograd.DeviceType.CUDA
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            enc(feats, lengths=full)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kern = [e for e in prof.key_averages() if e.device_type == cuda]
-        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-        top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        prof_line = _profile(lambda: enc(feats, lengths=full),
+                             f"one encoder forward B{B}xT{T}", 7, smi, 8)
         xz, wc = xz32.to(bf16), wc32.to(bf16)
         del xz32
         d_k, d_p = _alternating(lambda: qlstm_scan_fwd(xz, wc), lambda: qlstm_scan_fwd_plain(xz, wc), 3)
@@ -525,11 +565,7 @@ def phase7_qlstm(dev: torch.device, smi: str) -> dict:
           f"(cuDNN takes bf16, fp16: {cudnn_ok}); input projection M{B * T} N{8 * H}: "
           + "; ".join(f"K{k} kernel B {a[0]:.3f} ms block {a[1]:.3f} ms" for k, a in arms.items()),
           flush=True)
-    print(f"phase 7 profile on {smi}: one encoder forward B{B}xT{T} (kernel path, "
-          f"torch.profiler) {wall_ms:.3f} ms on the host clock, kernels busy {busy_ms:.3f} ms "
-          f"(device idle {max(0.0, 1 - busy_ms / wall_ms):.1%}); by self device time: "
-          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
-                      for e in top), flush=True)
+    print(prof_line, flush=True)
     return {"name": "qlstm_scan8", "route": "cuda", "source": "qasr_torch/csrc/qlstm_scan8.cu",
             "replaces": "qasr/ops/pallas/qlstm_scan.py:99 (_fwd_kernel)",
             "launches": counts["qlstm_scan8"], "max_abs_err": max_err, "ms": d_k,
@@ -546,8 +582,8 @@ def phase8_qlstm_train(dev: torch.device, smi: str) -> dict:
     from qasr_torch.configs import get_config
     from qasr_torch.models.qlstm import QBiLSTM, input_proj_fn
     from qasr_torch.ops.initializers import quaternion_init
-    from qasr_torch.ops.kernels.qconv_dx8 import qconv_dx8, qconv_dx8_plain
-    from qasr_torch.ops.kernels.qconv_ft import qconv_fast8_stacked_plain, qconv_ft8
+    from qasr_torch.ops.kernels.qconv_dx import qconv_dx8, qconv_dx_plain
+    from qasr_torch.ops.kernels.qconv_ft import qconv_ft8, qconv_stacked_plain
     from qasr_torch.ops.kernels.qgemm8 import (
         conj_transpose_dense,
         qdense_pallas8,
@@ -621,7 +657,7 @@ def phase8_qlstm_train(dev: torch.device, smi: str) -> dict:
             for epi in (False, True):
                 zz, sl = (z, slopes) if epi else (None, None)
                 dx, da = qconv_dx8(dz, w, zz, sl)
-                ref, ref_da = qconv_dx8_plain(dz.float(), w, None if zz is None else zz.float(), sl)
+                ref, ref_da = qconv_dx_plain(dz.float(), w, None if zz is None else zz.float(), sl)
                 shape = f"B{B} F{nf} T{T} C{cout}->{cin} k3x3 {dname} epilogue={epi}"
                 _report(f"qconv_dx8 {shape} dx", _errors(dx, ref), tol, 8)
                 if epi:
@@ -644,7 +680,7 @@ def phase8_qlstm_train(dev: torch.device, smi: str) -> dict:
             x = rnd(B, 4, nf, T, cin, scale=0.5).to(dtype)
             for bb, aa in ((None, None), (bias, alpha)):
                 err = _errors(qconv_ft8(x, w, bb, aa),
-                              qconv_fast8_stacked_plain(x.float(), w, bb, aa))
+                              qconv_stacked_plain(x.float(), w, bb, aa))
                 _report(f"qconv_ft8 B{B} F{nf} T{T} C{cin}->{cout} k3x3 {dname} "
                         f"prologue+bias={bb is not None}", err, tol, 8)
             del x
@@ -703,8 +739,8 @@ def phase8_qlstm_train(dev: torch.device, smi: str) -> dict:
     _reset_counts()
     losses = [train_step(state, batch)["loss"].item()]
     step_counts = _read_counts()
-    want = {"qconv_ft8": 3, "qconv_dx8": 3, "qgemm8": n_b, "qgemm8_dx": n_b, "qlstm_scan8": 3,
-            "qlstm_scan8_bwd": 3}
+    want = _want(qconv_ft8=3, qconv_dx8=3, qgemm8=n_b, qgemm8_dx=n_b, qlstm_scan8=3,
+                 qlstm_scan8_bwd=3)
     if step_counts != want or n_b != 1:
         raise RuntimeError(f"config 4 launches in one train step {step_counts}, expected {want}")
     for _ in range(19):
@@ -738,17 +774,8 @@ def phase8_qlstm_train(dev: torch.device, smi: str) -> dict:
     step_k, step_p = _alternating(lambda: train_step(st_k, batch),
                                   lambda: train_step(st_p, batch, plain=True), 3, 1, warm=1)
     del st_p
-    # where one kernel-path train step's device time goes (torch.profiler)
-    cuda = torch.autograd.DeviceType.CUDA
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(st_k, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages() if e.device_type == cuda]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    prof_line = _profile(lambda: train_step(st_k, batch),
+                         f"one config 4 train step B{B}xT{T}", 8, smi, 10)
     del st_k
     torch.cuda.empty_cache()
 
@@ -809,7 +836,7 @@ def phase8_qlstm_train(dev: torch.device, smi: str) -> dict:
         zz, sl = (rnd(B, 4, nf, T, cin, scale=0.5).to(bf16), rnd(4 * cin, scale=0.25)) if i else (
             None, None)
         ck, cp = _alternating(lambda: qconv_dx8(dz, w, zz, sl),
-                              lambda: qconv_dx8_plain(dz, w, zz, sl), 5)
+                              lambda: qconv_dx_plain(dz, w, zz, sl), 5)
         # dz (and z_prev) in, dx out, the weight combos (and slopes, dalpha)
         nbytes = _nbytes(dz) + (2 if i else 1) * _nbytes(dz) * cin // cout + 8 * 9 * cin * cout * 2
         bound = _bound(2 * 8 * B * nf * T * cin * cout * 9, nbytes)
@@ -857,11 +884,7 @@ def phase8_qlstm_train(dev: torch.device, smi: str) -> dict:
               f"K{r['K']} M{r['M']}: fwd kernel B {r['fast8_fwd']:.3f} block "
               f"{r['block_fwd']:.3f}, fwd+bwd kernel B {r['fast8_fwd_bwd']:.3f} block "
               f"{r['block_fwd_bwd']:.3f}" for r in cross), flush=True)
-    print(f"phase 8 profile on {smi}: one config 4 train step B{B}xT{T} (kernel path, "
-          f"torch.profiler) {wall_ms:.3f} ms on the host clock, kernels busy {busy_ms:.3f} ms "
-          f"(device idle {max(0.0, 1 - busy_ms / wall_ms):.1%}); by self device time: "
-          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
-                      for e in top), flush=True)
+    print(prof_line, flush=True)
     return {"name": "qlstm_scan8_bwd", "route": "cuda",
             "source": "qasr_torch/csrc/qlstm_scan8_bwd.cu",
             "replaces": "qasr/ops/pallas/qlstm_scan.py:264 (_bwd_kernel)",
@@ -872,6 +895,460 @@ def phase8_qlstm_train(dev: torch.device, smi: str) -> dict:
                        "layer, its input GEMM included (no library call computes the "
                        "recurrence's backward alone)",
             "layer_ms": layer_ms}
+
+
+def _write_wavs(wavs: list, directory: str, rate: int) -> list[str]:
+    """Each waveform as a 16-bit mono RIFF wav file; returns the paths."""
+    import wave
+
+    paths = []
+    for i, w in enumerate(wavs):
+        path = os.path.join(directory, f"utt{i}.wav")
+        pcm = np.clip(np.round(w * 32768.0), -32768, 32767).astype(np.int16)
+        with wave.open(path, "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(rate)
+            f.writeframes(pcm.tobytes())
+        paths.append(path)
+    return paths
+
+
+def phase9_fast10(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: list) -> list[dict]:
+    """``timit_qcnn`` in the 10-product scheme (``op_variant=fused``,
+    ``dense_variant=pallas``) at full width, served and trained through the
+    command line; ``use_pallas`` too. Returns the kernels line's entries of
+    kernels F, G, H (both roles) and I."""
+    import contextlib
+    import io
+
+    from qasr_torch import cli
+    from qasr_torch.bridge import save_params_npz
+    from qasr_torch.configs import get_config
+    from qasr_torch.infer import Transcriber
+    from qasr_torch.models import build_model
+    from qasr_torch.ops.kernels.qconv_dx import (
+        conj_transpose_w,
+        qconv_dx10,
+        qconv_dx10_rotated_plain,
+        qconv_dx_cuda,
+        qconv_dx_plain,
+    )
+    from qasr_torch.ops.kernels.qconv_ft import (
+        SCHEME10,
+        qconv_ft10,
+        qconv_ft_cuda,
+        qconv_stacked_plain,
+    )
+    from qasr_torch.ops.kernels.qgemm import (
+        qgemm10,
+        qgemm10_cuda,
+        qgemm10_dw,
+        qgemm10_dw_cuda,
+        qgemm10_dx,
+        qgemm_dw_plain,
+        qgemm_stacked_plain,
+    )
+    from qasr_torch.ops.kernels.qgemm8 import conj_transpose_dense
+    from qasr_torch.ops.quaternion import W_COMBO, combine_weights, hamilton_expand
+    from qasr_torch.train.state import create_train_state
+    from qasr_torch.train.step import train_step
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    bf16 = torch.bfloat16
+    over = {"model.op_variant": "fused", "model.dense_variant": "pallas"}
+    cfg = get_config("timit_qcnn").override(**over)
+    tcfg = tcfg8.override(**over)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "qasr_torch", "_build",
+                        "smoke_fast10")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    # kernels F and G at the path's shape (B16 F13 T256, 256 -> 256, 3x3);
+    # H forward and dx, and I, at the dense layers' M4096 (K3328 and K256,
+    # N256) and at the im2col convs' M53248 K2304 N256 (use_pallas: nine of
+    # its twelve launches of each); f32 and bf16 against the plain versions,
+    # gated as in phase 3: f32 differs in the summation order only; bf16
+    # rounds the combos (X_COMBO x, W_COMBO w, OUT_COMBO dy) to bf16 before
+    # the f32-accumulated products, as the TPU kernels do. I twice at each
+    # shape: the same bits.
+    B, NF, T, C = 16, 13, 256, 256
+    w = rnd(4, 3, 3, C, C, scale=(1.0 / (9 * C)) ** 0.5)
+    bias, alpha = rnd(4 * C, scale=0.1), rnd(4 * C, scale=0.25).abs()
+    slopes = rnd(4 * C, scale=0.25)  # signed, so alpha < 0 is covered
+    x32, dz32 = rnd(B, 4, NF, T, C, scale=0.5), rnd(B, 4, NF, T, C)
+    err = {}
+    for dtype, tol in ((torch.float32, TOL_F32), (bf16, TOL_BF16)):
+        dname, x, dz = str(dtype)[6:], x32.to(dtype), dz32.to(dtype)
+        shape = f"B{B} F{NF} T{T} C{C} k3x3 {dname}"
+        for bb, aa in ((None, None), (bias, alpha)):
+            e = _errors(qconv_ft10(x, w, bb, aa),
+                        qconv_stacked_plain(x.float(), w, bb, aa, scheme=SCHEME10))
+            _report(f"qconv_ft10 {shape} prologue+bias={bb is not None}", e, tol, 9)
+            if dtype == bf16:
+                err["qconv_ft10"] = max(err.get("qconv_ft10", 0.0), e["max_abs_err"])
+        for epi in (False, True):
+            zz, sl = (x, slopes) if epi else (None, None)
+            dx, da = qconv_dx10(dz, w, zz, sl)
+            ref, ref_da = qconv_dx_plain(dz.float(), w, None if zz is None else zz.float(), sl,
+                                         scheme=SCHEME10)
+            e = _errors(dx, ref)
+            _report(f"qconv_dx10 {shape} epilogue={epi} dx", e, tol, 9)
+            if epi:
+                e_da = _errors(da, ref_da)
+                _report(f"qconv_dx10 {shape} epilogue=True dalpha", e_da, tol, 9)
+                again, again_da = qconv_dx10(dz, w, zz, sl)
+                if not (torch.equal(again, dx) and torch.equal(again_da, da)):
+                    raise RuntimeError("qconv_dx10 differs between two runs on the same inputs")
+                e = {k: max(e[k], e_da[k]) for k in e}
+            else:
+                # the TPU's own dx formulation (rotated roles), the same function
+                _report(f"qconv_dx10 {shape} dx vs the TPU's rotated roles",
+                        _errors(dx, qconv_dx10_rotated_plain(dz.float(), w)), tol, 9)
+            if dtype == bf16:
+                err["qconv_dx10"] = max(err.get("qconv_dx10", 0.0), e["max_abs_err"])
+            del dx, ref
+        del x, dz
+    del x32, dz32
+    torch.cuda.empty_cache()
+    for m, k, n in ((4096, 3328, 256), (4096, 256, 256), (53248, 2304, 256)):
+        wg = rnd(4, k, n, scale=(1.0 / k) ** 0.5)
+        xg32 = rnd(4, m, k, scale=0.5)
+        dyg32 = rnd(4, m, n)
+        for dtype, tol in ((torch.float32, TOL_F32), (bf16, TOL_BF16)):
+            dname, x4, dy4 = str(dtype)[6:], xg32.to(dtype), dyg32.to(dtype)
+            e = _errors(qgemm10(x4, wg), qgemm_stacked_plain(x4.float(), wg))
+            _report(f"qgemm10 M{m} K{k} N{n} {dname}", e, tol, 9)
+            if (k, dtype) == (3328, bf16):
+                err["qgemm10"] = e["max_abs_err"]
+            e = _errors(qgemm10_dx(dy4, wg),
+                        qgemm_stacked_plain(dy4.float(), conj_transpose_dense(wg)))
+            _report(f"qgemm10_dx M{m} N{n} -> K{k} {dname}", e, tol, 9)
+            if (k, dtype) == (3328, bf16):
+                err["qgemm10_dx"] = e["max_abs_err"]
+            got = qgemm10_dw(x4, dy4)
+            if not torch.equal(got, qgemm10_dw(x4, dy4)):
+                raise RuntimeError(f"qgemm10_dw M{m} K{k} {dname} differs between two runs on "
+                                   f"the same inputs")
+            e = _errors(got, qgemm_dw_plain(x4, dy4))
+            _report(f"qgemm10_dw M{m} K{k} N{n} {dname}", e, tol, 9)
+            if (k, dtype) == (3328, bf16):
+                err["qgemm10_dw"] = e["max_abs_err"]
+            del x4, dy4, got
+            torch.cuda.empty_cache()
+        del xg32, dyg32
+    torch.cuda.empty_cache()
+
+    # the serving path through the command line: a checkpoint whose
+    # config.json names the 10-product routing, four written wav files,
+    # `python -m qasr_torch.cli transcribe` in a fresh process, then
+    # transcribe_main in this one, greedy and beam, with its launches
+    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    if (model.conv_scheme, sum(model.stacked), model.dense_scheme) != ("fast10", 9, "fast10"):
+        raise RuntimeError(f"10-product routing: {model.conv_scheme} {model.stacked} "
+                           f"{model.dense_scheme}")
+    ckpt = os.path.join(root, "serve")
+    os.makedirs(ckpt)
+    save_params_npz(model.state_dict(), os.path.join(ckpt, "params.npz"))
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    del model
+    paths = _write_wavs(wavs, root, cfg.data.sample_rate)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "qasr_torch.cli", "transcribe", "--ckpt", ckpt, *paths],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    cli_s = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or [ln.split("\t")[0] for ln in lines] != paths:
+        raise RuntimeError(f"python -m qasr_torch.cli transcribe: rc {proc.returncode}\n"
+                           f"{proc.stdout}\n{proc.stderr[-3000:]}")
+    _reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        hyp_greedy = cli.transcribe_main(["--ckpt", ckpt, *paths])
+        hyp_beam = cli.transcribe_main(["--ckpt", ckpt, "--beam", *paths])
+    counts = _read_counts()
+    n_fwd = 2 * len(paths)  # one forward a file, greedy and beam
+    if counts != _want(qconv_ft10=9 * n_fwd, qgemm10=3 * n_fwd):
+        raise RuntimeError(f"10-product serving launches {counts}, expected F 9 and H 3 a "
+                           f"forward over {n_fwd} forwards")
+    if not all(isinstance(p, str) for h in hyp_greedy + hyp_beam for p in h):
+        raise RuntimeError("10-product serving did not return phone strings")
+    served = Transcriber(ckpt, device=dev)
+    logits, lengths = served.logits(wavs)
+    logits_plain, _ = served.logits(wavs, plain=True)
+    cfg32 = cfg.override(**{"model.compute_dtype": "float32"})
+    logits_f32, _ = Transcriber(ckpt, cfg=cfg32, device=dev).logits(wavs, plain=True)
+    torch.cuda.synchronize()
+    # the error model of phase 4's limits: 13 layer boundaries rounding to
+    # bf16, the schemes' combos rounding alike
+    lerr = _errors(logits, logits_plain)
+    _gate("10-product serving logits kernel vs plain", lerr, TOL_LOGITS)
+    kerr32 = _errors(logits, logits_f32)
+    _gate("10-product serving logits kernel vs f32 plain", kerr32, TOL_LOGITS_F32)
+    perr32 = _errors(logits_plain, logits_f32)
+    _gate("10-product serving logits plain bf16 vs f32 plain", perr32, TOL_LOGITS_F32)
+    print(f"phase 9 serving: timit_qcnn op_variant=fused dense_variant=pallas bf16 through "
+          f"the CLI; `python -m qasr_torch.cli transcribe` rc 0 in {cli_s:.1f} s, {len(lines)} "
+          f"lines; transcribe_main greedy and beam: launches per forward qconv_ft10 "
+          f"{counts['qconv_ft10'] // n_fwd} qgemm10 {counts['qgemm10'] // n_fwd}; greedy phones "
+          f"{[len(h) for h in hyp_greedy]}, beam phones {[len(h) for h in hyp_beam]}; logits "
+          f"{tuple(logits.shape)} kernel vs plain rel_norm {lerr['rel_norm']:.3e} (tol "
+          f"{TOL_LOGITS}); against the f32 plain path: kernel {kerr32['rel_norm']:.3e}, bf16 "
+          f"plain {perr32['rel_norm']:.3e} (tol {TOL_LOGITS_F32})", flush=True)
+    del served, logits, logits_plain, logits_f32
+    torch.cuda.empty_cache()
+
+    # training: gradient parity (phase 6's error model and limits: the
+    # schemes round at the same boundaries), launches of one step, twenty
+    # steps on the fixed batch
+    _grad_parity(tcfg, batch, dev, 9, "fast10: ")
+    state = create_train_state(tcfg, device=dev)
+    _reset_counts()
+    losses = [train_step(state, batch)["loss"].item()]
+    step_counts = _read_counts()
+    want = _want(qconv_ft10=9, qconv_dx10=9, qgemm10=3, qgemm10_dx=3, qgemm10_dw=3)
+    if step_counts != want:
+        raise RuntimeError(f"10-product launches in one train step {step_counts}, expected {want}")
+    for _ in range(19):
+        losses.append(train_step(state, batch)["loss"].item())
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"fast10: twenty steps on one batch did not lower the loss: {losses}")
+    del state
+    torch.cuda.empty_cache()
+    print(f"phase 9 train steps: launches per step F {step_counts['qconv_ft10']} G "
+          f"{step_counts['qconv_dx10']} H {step_counts['qgemm10']} + "
+          f"{step_counts['qgemm10_dx']} I {step_counts['qgemm10_dw']}; loss over 20 steps on "
+          f"one batch {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+
+    # the main path: `main` of the CLI trains 4 steps (an eval over the
+    # synthetic set, a checkpoint), transcribe_main serves its checkpoint
+    n_steps = 4
+    sets = [f"{k}={v}" for k, v in {
+        "data.dataset": "synthetic", "data.n_mels": 40, "model.vocab": 62,
+        "data.bucket_sizes": "256", "train.warmup_steps": 2, "train.learning_rate": 1e-4,
+        "train.num_steps": n_steps, "train.log_every": 2, "train.eval_every": n_steps,
+        "train.checkpoint_every": n_steps, "train.checkpoint_dir": os.path.join(root, "train"),
+        **over}.items()]
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        last = cli.main(["--preset", "timit_qcnn", "--set", *sets])
+    train_s = time.perf_counter() - t0
+    train_counts = _read_counts()
+    n_eval = train_counts["qconv_ft10"] // 9 - n_steps
+    want = _want(qconv_ft10=9 * (n_steps + n_eval), qconv_dx10=9 * n_steps,
+                 qgemm10=3 * (n_steps + n_eval), qgemm10_dx=3 * n_steps, qgemm10_dw=3 * n_steps)
+    if train_counts != want or n_eval < 1 or not math.isfinite(last["loss"]):
+        raise RuntimeError(f"the CLI's train run: launches {train_counts}, expected {want} "
+                           f"({n_eval} eval forwards); last log {last}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        hyp = cli.transcribe_main(["--ckpt", os.path.join(root, "train"), *paths[:2]])
+    if len(hyp) != 2:
+        raise RuntimeError("the CLI's checkpoint did not serve")
+    print(f"phase 9 train (CLI): timit_qcnn 10-product full width, {n_steps} steps and "
+          f"{n_eval} eval forwards in {train_s:.2f} s, last log "
+          f"{json.dumps({k: last[k] for k in sorted(last)})}; launches {train_counts}; "
+          f"transcribe_main served its checkpoint (phones {[len(h) for h in hyp]})", flush=True)
+
+    # use_pallas: every conv packed (conv 1 -> 256 on the block path, the
+    # nine 256 -> 256 on slice-im2col and kernel H), every dense layer on H;
+    # launches of one forward and one train step; gradient parity on four
+    # of the batch's utterances (the plain path's f32 im2col products at
+    # B16 would hold ~60 GB)
+    pcfg = tcfg.override(**{"model.use_pallas": True})
+    pmodel = build_model(pcfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    if pmodel.conv_scheme is not None or sum(getattr(pmodel, f"qconv_{i}").im2col
+                                             for i in range(10)) != 9:
+        raise RuntimeError("use_pallas routing")
+    feats = torch.as_tensor(batch["features"], device=dev)
+    _reset_counts()
+    with torch.no_grad():
+        pmodel(feats)
+    p_fwd = _read_counts()
+    del pmodel
+    pstate = create_train_state(pcfg, device=dev)
+    _reset_counts()
+    p_loss = train_step(pstate, batch)["loss"].item()
+    p_step = _read_counts()
+    del pstate
+    torch.cuda.empty_cache()
+    if p_fwd != _want(qgemm10=12) or p_step != _want(qgemm10=12, qgemm10_dx=12, qgemm10_dw=12):
+        raise RuntimeError(f"use_pallas launches: forward {p_fwd}, step {p_step}")
+    small = {k: v[:4] for k, v in batch.items()}
+    _grad_parity(pcfg, small, dev, 9, "use_pallas B4: ")
+    print(f"phase 9 use_pallas: launches per forward H {p_fwd['qgemm10']}, per train step H "
+          f"{p_step['qgemm10']} + {p_step['qgemm10_dx']} I {p_step['qgemm10_dw']} (9 im2col "
+          f"convs at M {B * T * NF} K {9 * C}, 3 dense layers); step loss {p_loss:.4f}",
+          flush=True)
+
+    # timing (not gated): the encoder forward and the train step in the
+    # 10-product scheme against the rank-8 one on the same weights
+    m10 = build_model(cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    m8 = build_model(get_config("timit_qcnn"), device=dev)
+    m8.load_state_dict(m10.state_dict())
+    audio_s = B * T * FRAME_S
+    with torch.no_grad():
+        fwd10, fwd8 = _alternating(lambda: m10(feats), lambda: m8(feats), 3)
+    del m10, m8
+    st10 = create_train_state(tcfg, device=dev)
+    st8 = create_train_state(tcfg8, device=dev)
+    step10, step8 = _alternating(lambda: train_step(st10, batch), lambda: train_step(st8, batch), 3)
+    prof_line = _profile(lambda: train_step(st10, batch),
+                         f"one 10-product config 2 train step B{B}xT{T}", 9, smi, 10,
+                         {"kernel H": "qgemm_kernel<", "kernel I": "qgemm10_dw_kernel<"})
+    del st10, st8
+    torch.cuda.empty_cache()
+
+    # each kernel at its path shape (bf16), on CUDA events: the wrapper's
+    # call (its weight combos and casts included, as the step runs it) and
+    # the launcher alone on inputs made ready beforehand, against its plain
+    # version, its bound and one library call
+    t = {}
+    with torch.no_grad():
+        xa = rnd(B, 4, NF, T, C, scale=0.5).to(bf16)
+        dza = rnd(B, 4, NF, T, C).to(bf16)
+        wa = rnd(4, 3, 3, C, C, scale=0.02)
+        # the library calls: one F.conv2d on the Hamilton-expanded (adjoint)
+        # weight over the packed NCHW input
+        xa_lib = xa.permute(0, 1, 4, 2, 3).reshape(B, 4 * C, NF, T).contiguous()
+        dza_lib = dza.permute(0, 1, 4, 2, 3).reshape(B, 4 * C, NF, T).contiguous()
+        wf_lib = hamilton_expand(wa).permute(3, 2, 1, 0).contiguous().to(bf16)
+        wg_lib = hamilton_expand(conj_transpose_w(wa)).permute(3, 2, 1, 0).contiguous().to(bf16)
+        wc_f = combine_weights(wa, bf16, SCHEME10.u).contiguous()
+        wc_g = combine_weights(conj_transpose_w(wa), bf16, SCHEME10.u).contiguous()
+        fl_conv = 2 * 10 * B * NF * T * 9 * C * C
+        t["qconv_ft10"] = (
+            *_alternating(lambda: qconv_ft10(xa, wa, bias, alpha),
+                          lambda: qconv_stacked_plain(xa, wa, bias, alpha, scheme=SCHEME10), 5),
+            _time_ms(lambda: F.conv2d(xa_lib, wf_lib, padding=1), 5),
+            _bound(fl_conv, 2 * _nbytes(xa) + 10 * 9 * C * C * 2 + _nbytes(bias, alpha)),
+            _time_ms(lambda: qconv_ft_cuda(xa, wc_f, bias, alpha, scheme=SCHEME10), 5))
+        t["qconv_dx10"] = (
+            *_alternating(lambda: qconv_dx10(dza, wa, xa, slopes),
+                          lambda: qconv_dx_plain(dza, wa, xa, slopes, scheme=SCHEME10), 5),
+            _time_ms(lambda: F.conv2d(dza_lib, wg_lib, padding=1), 5),
+            _bound(fl_conv, 3 * _nbytes(dza) + 10 * 9 * C * C * 2 + 2 * _nbytes(slopes)),
+            _time_ms(lambda: qconv_dx_cuda(dza, wc_g, xa, slopes, scheme=SCHEME10), 5))
+        del xa, dza, xa_lib, dza_lib, wc_f, wc_g
+        torch.cuda.empty_cache()
+        gemm_rows = []
+        for m, k, n in ((4096, 3328, 256), (4096, 256, 256), (53248, 2304, 256)):
+            xg = rnd(4, m, k, scale=0.5).to(bf16)
+            wg = rnd(4, k, n, scale=k ** -0.5)
+            dyg = rnd(4, m, n).to(bf16)
+            wt = conj_transpose_dense(wg)
+            reps = 3 if m > 4096 else 10
+            fl = 2 * 10 * m * k * n
+            xg_lib = xg.permute(1, 0, 2).reshape(m, 4 * k).contiguous()
+            dy_lib = dyg.permute(1, 0, 2).reshape(m, 4 * n).contiguous()
+            w_lib = hamilton_expand(wg).to(bf16)
+            wt_lib = hamilton_expand(wt).to(bf16)
+            xt_lib = xg_lib.t()
+            wc_h = combine_weights(wg, bf16, W_COMBO).contiguous()
+            wc_ht = combine_weights(wt, bf16, W_COMBO).contiguous()
+            row = {"m": m, "k": k, "n": n}
+            for key, call, plain, lib_call, nbytes, launch in (
+                ("fwd", lambda: qgemm10(xg, wg), lambda: qgemm_stacked_plain(xg, wg),
+                 lambda: torch.matmul(xg_lib, w_lib),
+                 _nbytes(xg) + 10 * k * n * 2 + _nbytes(dyg), lambda: qgemm10_cuda(xg, wc_h)),
+                ("dx", lambda: qgemm10_dx(dyg, wg), lambda: qgemm_stacked_plain(dyg, wt),
+                 lambda: torch.matmul(dy_lib, wt_lib),
+                 _nbytes(dyg) + 10 * k * n * 2 + _nbytes(xg),
+                 lambda: qgemm10_cuda(dyg, wc_ht, role="dx")),
+                ("dw", lambda: qgemm10_dw(xg, dyg), lambda: qgemm_dw_plain(xg, dyg),
+                 lambda: torch.matmul(xt_lib, dy_lib),
+                 _nbytes(xg, dyg) + 4 * k * n * 4, lambda: qgemm10_dw_cuda(xg, dyg)),
+            ):
+                row[key] = (*_alternating(call, plain, reps), _time_ms(lib_call, reps),
+                            _bound(fl, nbytes), _time_ms(launch, reps))
+            gemm_rows.append(row)
+            del xg, dyg, xg_lib, dy_lib, xt_lib
+            torch.cuda.empty_cache()
+    train_audio_s = float(np.sum(batch["feature_lengths"])) * FRAME_S
+    print(f"phase 9 timing on {smi}: encoder fwd B{B}xT{T} 10-product {fwd10:.3f} ms "
+          f"({audio_s / fwd10 * 1e3:.1f} audio-s/s), rank-8 {fwd8:.3f} ms; train step 10-product "
+          f"{step10:.3f} ms ({train_audio_s / step10 * 1e3:.1f} audio-s/s), rank-8 {step8:.3f} ms "
+          f"({train_audio_s / step8 * 1e3:.1f} audio-s/s)", flush=True)
+
+    def fmt(name, v):
+        return (f"{name} call {v[0]:.4f} ms (the launcher alone {v[4]:.4f} ms) "
+                f"plain {v[1]:.4f} ms library {v[2]:.4f} ms bound {v[3][0]:.4f} ms ({v[3][1]})")
+
+    print(f"phase 9 timing on {smi}: " + "; ".join(
+        [fmt(f"{name} B{B} F{NF} T{T} C{C}", t[name]) for name in ("qconv_ft10", "qconv_dx10")]
+        + [fmt(f"{role} M{r['m']} K{r['k']} N{r['n']}", r[key])
+           for r in gemm_rows for key, role in (("fwd", "qgemm10"), ("dx", "qgemm10_dx"),
+                                                ("dw", "qgemm10_dw"))]),
+          flush=True)
+    print(prof_line, flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+    dense = gemm_rows[0]
+    timed = {**t, "qgemm10": dense["fwd"], "qgemm10_dx": dense["dx"], "qgemm10_dw": dense["dw"]}
+    replaces = {
+        "qconv_ft10": ("qasr_torch/csrc/qconv_ft10.cu",
+                       "qasr/ops/pallas/qconv_ft.py:120 (_ft_kernel, SCHEME10, fwd); "
+                       "qasr/ops/pallas/qconv_chain.py:118 (fast10)"),
+        "qconv_dx10": ("qasr_torch/csrc/qconv_dx10.cu",
+                       "qasr/ops/pallas/qconv_ft.py:120 (_ft_kernel, SCHEME10, dx role); "
+                       "qasr/ops/pallas/qconv_chain.py:254 (fast10)"),
+        "qgemm10": ("qasr_torch/csrc/qgemm10.cu", "qasr/ops/pallas/qgemm.py:67 (_qgemm_kernel)"),
+        "qgemm10_dx": ("qasr_torch/csrc/qgemm10.cu",
+                       "qasr/ops/pallas/qgemm.py:67 (_qgemm_kernel on _conj_transpose_w, dx)"),
+        "qgemm10_dw": ("qasr_torch/csrc/qgemm10_dw.cu",
+                       "qasr/ops/pallas/qgemm.py:164 (_qgemm_dw_kernel)"),
+    }
+    return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+             "launches": train_counts[name], "max_abs_err": err[name], "ms": timed[name][0],
+             "plain_ms": timed[name][1], "bound_ms": timed[name][3][0],
+             "bound_by": timed[name][3][1], "library_ms": timed[name][2]}
+            for name, (src, rep) in replaces.items()]
+
+
+def time_rank8(tree: str) -> int:
+    """``--time-rank8 TREE``: the rank-8 kernels A, C (with its epilogue), B
+    and B's dx role of the ``qasr_torch`` under ``TREE``, at phase 5's shapes,
+    bf16, on CUDA events; one JSON line. Run for two trees in turns (parent,
+    change, change, parent) in one call on the card, it compares two commits'
+    kernels; each tree builds its own at first use."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import qasr_torch
+    from qasr_torch import qconv_dx8, qconv_ft8
+    from qasr_torch.ops.kernels.qgemm8 import qgemm8_cl, qgemm8_dx
+
+    if not os.path.abspath(qasr_torch.__file__).startswith(tree + os.sep):
+        raise RuntimeError(f"imported {qasr_torch.__file__}, not the tree {tree}")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    bf16 = torch.bfloat16
+    x = rnd(16, 4, 13, 256, 256, scale=0.5).to(bf16)
+    dz = rnd(16, 4, 13, 256, 256).to(bf16)
+    w = rnd(4, 3, 3, 256, 256, scale=0.02)
+    bias, alpha, slopes = rnd(1024, scale=0.1), rnd(1024, scale=0.25).abs(), rnd(1024, scale=0.25)
+    xb, wb = rnd(4, 4096, 3328, scale=0.5).to(bf16), rnd(4, 3328, 256, scale=0.02)
+    dyb = rnd(4, 4096, 256).to(bf16)
+    _line(tree=tree, **{
+        "qconv_ft8 B16 F13 T256 C256": _time_ms(lambda: qconv_ft8(x, w, bias, alpha), 20, 3),
+        "qconv_dx8 B16 F13 T256 C256 epilogue": _time_ms(lambda: qconv_dx8(dz, w, x, slopes),
+                                                         20, 3),
+        "qgemm8 M4096 K3328 N256": _time_ms(lambda: qgemm8_cl(xb, wb), 20, 3),
+        "qgemm8_dx M4096 N256 -> K3328": _time_ms(lambda: qgemm8_dx(dyb, wb), 20, 3),
+    })
+    return 0
 
 
 def main() -> int:
@@ -886,9 +1363,9 @@ def main() -> int:
     from qasr_torch.infer import Transcriber, _next_time_pad
     from qasr_torch.models import build_model
     from qasr_torch.ops.kernels import _build
-    from qasr_torch.ops.kernels.qconv_chain import qconv_dw8
-    from qasr_torch.ops.kernels.qconv_dx8 import conj_transpose_w, qconv_dx8, qconv_dx8_plain
-    from qasr_torch.ops.kernels.qconv_ft import qconv_fast8_stacked_plain, qconv_ft8
+    from qasr_torch.ops.kernels.qconv_chain import qconv_dw
+    from qasr_torch.ops.kernels.qconv_dx import conj_transpose_w, qconv_dx8, qconv_dx_plain
+    from qasr_torch.ops.kernels.qconv_ft import qconv_ft8, qconv_stacked_plain
     from qasr_torch.ops.kernels.qgemm8 import (
         conj_transpose_dense,
         qgemm8_cl,
@@ -936,7 +1413,7 @@ def main() -> int:
             dname = str(dtype)[6:]
             for bb, aa in ((None, None), (bias, alpha)):
                 got = qconv_ft8(x, w, bb, aa)
-                ref = qconv_fast8_stacked_plain(x.float(), w, bb, aa)
+                ref = qconv_stacked_plain(x.float(), w, bb, aa)
                 err = _errors(got, ref)
                 _report(f"qconv_ft8 {shape} {dname} prologue+bias={bb is not None}", err, tol)
                 if (t, dtype, bb is not None) == (256, torch.bfloat16, True):
@@ -944,7 +1421,7 @@ def main() -> int:
             for epi in (False, True):
                 zz, sl = (x, slopes) if epi else (None, None)
                 got, got_da = qconv_dx8(dz, w, zz, sl)
-                ref, ref_da = qconv_dx8_plain(dz.float(), w, None if zz is None else zz.float(), sl)
+                ref, ref_da = qconv_dx_plain(dz.float(), w, None if zz is None else zz.float(), sl)
                 err = _errors(got, ref)
                 _report(f"qconv_dx8 {shape} {dname} epilogue={epi} dx", err, tol)
                 if epi:
@@ -993,8 +1470,7 @@ def main() -> int:
     serve_counts = _read_counts()
     n_fat = sum(greedy.model.stacked)
     n_dense = greedy.model.n_dense
-    want = {"qconv_ft8": 2 * n_fat, "qgemm8": 2 * n_dense, "qgemm8_dx": 0,
-            "qconv_dx8": 0, "qlstm_scan8": 0, "qlstm_scan8_bwd": 0}  # two forwards
+    want = _want(qconv_ft8=2 * n_fat, qgemm8=2 * n_dense)  # two forwards
     if serve_counts != want or n_fat != 9 or n_dense != 3:
         raise RuntimeError(f"serving launches {serve_counts}, expected {want}")
     logits, lengths = greedy.logits(wavs)
@@ -1056,11 +1532,11 @@ def main() -> int:
         wa = rnd(4, 3, 3, 256, 256, scale=0.02)
         ba, aa = rnd(1024, scale=0.1), rnd(1024, scale=0.25).abs()
         timing["qconv_ft8"] = _alternating(lambda: qconv_ft8(xa, wa, ba, aa),
-                                           lambda: qconv_fast8_stacked_plain(xa, wa, ba, aa), 10)
+                                           lambda: qconv_stacked_plain(xa, wa, ba, aa), 10)
         xa_lib = xa.permute(0, 1, 4, 2, 3).reshape(16, 1024, 13, 256).contiguous()
         wa_lib = hamilton_expand(wa).permute(3, 2, 1, 0).contiguous().to(torch.bfloat16)
         lib = F.conv2d(xa_lib, wa_lib, padding=1)
-        ref = qconv_fast8_stacked_plain(xa.float(), wa).permute(0, 1, 4, 2, 3)
+        ref = qconv_stacked_plain(xa.float(), wa).permute(0, 1, 4, 2, 3)
         ref = ref.reshape(16, 1024, 13, 256)
         _gate("library conv2d for kernel A", _errors(lib, ref), TOL_BF16)
         lib_a = _time_ms(lambda: F.conv2d(xa_lib, wa_lib, padding=1), 10)
@@ -1071,21 +1547,21 @@ def main() -> int:
         dza = rnd(16, 4, 13, 256, 256).to(torch.bfloat16)
         sa = rnd(1024, scale=0.25)
         timing["qconv_dx8"] = _alternating(lambda: qconv_dx8(dza, wa, xa, sa),
-                                           lambda: qconv_dx8_plain(dza, wa, xa, sa), 10)
+                                           lambda: qconv_dx_plain(dza, wa, xa, sa), 10)
         dza_lib = dza.permute(0, 1, 4, 2, 3).reshape(16, 1024, 13, 256).contiguous()
         wc_lib = hamilton_expand(conj_transpose_w(wa)).permute(3, 2, 1, 0).contiguous()
         wc_lib = wc_lib.to(torch.bfloat16)
         lib = F.conv2d(dza_lib, wc_lib, padding=1)
-        ref = qconv_dx8_plain(dza.float(), wa)[0].permute(0, 1, 4, 2, 3)
+        ref = qconv_dx_plain(dza.float(), wa)[0].permute(0, 1, 4, 2, 3)
         ref = ref.reshape(16, 1024, 13, 256)
         _gate("library conv2d for kernel C", _errors(lib, ref), TOL_BF16)
         lib_c = _time_ms(lambda: F.conv2d(dza_lib, wc_lib, padding=1), 10)
         # dz and z_prev in, dx out, the combos, slopes in and dalpha out
         bound_c = _bound(fl_a, 3 * _nbytes(dza) + 8 * 9 * 256 * 256 * 2 + 2 * _nbytes(sa))
         # kernel C without its epilogue (the first stacked layer's dx)
-        c0_k, c0_p = _alternating(lambda: qconv_dx8(dza, wa), lambda: qconv_dx8_plain(dza, wa), 10)
+        c0_k, c0_p = _alternating(lambda: qconv_dx8(dza, wa), lambda: qconv_dx_plain(dza, wa), 10)
         # the layer's dW (plain PyTorch: eight cuDNN weight-gradient convs)
-        dw_ms = _time_ms(lambda: qconv_dw8(xa, dza, (3, 3)), 5)
+        dw_ms = _time_ms(lambda: qconv_dw(xa, dza, (3, 3)), 5)
         # kernel B, forward and dx role, and their library calls: one matmul
         # on the Hamilton-expanded weight
         xb = rnd(4, 4096, 3328, scale=0.5).to(torch.bfloat16)
@@ -1151,8 +1627,7 @@ def main() -> int:
     _reset_counts()
     losses = [train_step(state, batch)["loss"].item()]
     step_counts = _read_counts()
-    want = {"qconv_ft8": 9, "qconv_dx8": 9, "qgemm8": 3, "qgemm8_dx": 3, "qlstm_scan8": 0,
-            "qlstm_scan8_bwd": 0}
+    want = _want(qconv_ft8=9, qconv_dx8=9, qgemm8=3, qgemm8_dx=3)
     if step_counts != want:
         raise RuntimeError(f"launches in one train step {step_counts}, expected {want}")
     for _ in range(19):
@@ -1190,6 +1665,9 @@ def main() -> int:
     scan_entry = phase7_qlstm(dev, smi)
     # 8. config 4 training (its own launch counts)
     scan_bwd_entry = phase8_qlstm_train(dev, smi)
+    # 9. timit_qcnn in the 10-product scheme, served and trained through the
+    # CLI (its own launch counts)
+    fast10_entries = phase9_fast10(dev, smi, tcfg, batch, wavs)
 
     def entry(name, source, replaces, bound, lib_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1210,6 +1688,7 @@ def main() -> int:
               "qasr/ops/pallas/qgemm8.py:84 (in_kind=dx)", bound_bdx, lib_bdx),
         scan_entry,
         scan_bwd_entry,
+        *fast10_entries,
     ])
     print(smi, flush=True)
     _line(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1218,4 +1697,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of qasr_torch on one CUDA card.")
+    ap.add_argument("--time-rank8", metavar="TREE",
+                    help="only time kernels A, B and C of the qasr_torch under TREE")
+    args = ap.parse_args()
+    sys.exit(main() if args.time_rank8 is None else time_rank8(args.time_rank8))

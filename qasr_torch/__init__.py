@@ -33,7 +33,7 @@ _API = {
     "quaternion_init": "qasr_torch.ops.initializers",
     "qconv_ft8": "qasr_torch.ops.kernels.qconv_ft",
     "chain_layer": "qasr_torch.ops.kernels.qconv_chain",
-    "qconv_dx8": "qasr_torch.ops.kernels.qconv_dx8",
+    "qconv_dx8": "qasr_torch.ops.kernels.qconv_dx",
     "ChainLayerFn": "qasr_torch.ops.kernels.qconv_chain",
     "qgemm8_cl": "qasr_torch.ops.kernels.qgemm8",
     "QGemm8Fn": "qasr_torch.ops.kernels.qgemm8",

@@ -30,9 +30,8 @@ class ModelConfig:
     bidirectional: bool = True
     compute_dtype: str = "float32"  # float32 | bfloat16
     use_pallas: bool = False
-    # the JAX package's conv and dense path switches; the port routes by
-    # shape (qasr_torch.models.qcnn.stacked_routing) and keeps them only so
-    # that configs round-trip between the packages
+    # the conv and dense path switches; qasr_torch.models.build_model routes
+    # every value the JAX package takes, or refuses it (its docstring's table)
     op_variant: str = "auto"
     dense_variant: str = "auto"
 

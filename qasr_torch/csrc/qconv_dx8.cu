@@ -9,7 +9,7 @@
 // conjugate, so the transposed SAME conv is a plain quaternion conv with
 // conj(w), Cin and Cout swapped and both tap axes flipped
 // (qasr/ops/pallas/qconv_ft.py:_conj_transpose_w). The Python wrapper forms
-// those weights' U8 combos; the main loop is kernel A's (qconv8.cuh):
+// those weights' U8 combos; the main loop and the epilogue are in qconv.cuh:
 //
 //   g[b,:,f,t,c] = convT(dz)  on dz [B,4,F,T,Cout] -> [B,4,F,T,Cin]
 //
@@ -30,106 +30,15 @@
 // QCNN-256 layer at B16 F13 T256 C256 3x3, ~2,000 FLOP/byte): the tensor
 // cores. The epilogue reads z_prev once and writes dx once (~0.14 GB in
 // bf16 at that shape), and the partials are 3.4 MB.
-#include "qconv8.cuh"
-
-using namespace qtile8;
-
-namespace {
-
-constexpr int kRedLd = BN + 1;                          // padded row of the reduction tile
-constexpr int kRedBytes = BM * kRedLd * (int)sizeof(float);
-
-template <typename T>
-struct PreluBwdStore {
-  const T* z;          // [B,4,F,T,N] or null (then no gate, no dalpha)
-  const float* alpha;  // [4*N]
-  T* out;              // dx [B,4,F,T,N]
-  float* partials;     // [B*F*ceil(T/BM), 4*N]
-
-  template <typename Prod>
-  __device__ void store(float (&y)[4][kPerThread], unsigned char* smem,
-                        const qconv8::Tile& tl) const {
-    const int N = tl.Cout;
-    if (z == nullptr) {
-#pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        const int t = tl.t0 + Prod::row(j), n = tl.n0 + Prod::col(j);
-        if (t >= tl.T_len || n >= N) continue;
-#pragma unroll
-        for (int bo = 0; bo < 4; ++bo)
-          out[((((size_t)tl.b * 4 + bo) * tl.F + tl.f) * tl.T_len + t) * N + n] =
-              Elem<T>::from_f(y[bo][j]);
-      }
-      return;
-    }
-    // The reduction tile lies over the staging buffers: wait until every
-    // thread has finished the last step's products.
-    float* red = reinterpret_cast<float*>(smem);
-    const size_t row_block = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
-    __syncthreads();
-#pragma unroll
-    for (int bo = 0; bo < 4; ++bo) {
-#pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        const int r = Prod::row(j), c = Prod::col(j);
-        const int t = tl.t0 + r, n = tl.n0 + c;
-        float part = 0.0f;
-        if (t < tl.T_len && n < N) {
-          const size_t idx = ((((size_t)tl.b * 4 + bo) * tl.F + tl.f) * tl.T_len + t) * N + n;
-          float g = y[bo][j];
-          const float zv = Elem<T>::to_f(z[idx]);
-          if (zv < 0.0f) {
-            part = g * zv;
-            g *= alpha[bo * N + n];
-          }
-          out[idx] = Elem<T>::from_f(g);
-        }
-        red[r * kRedLd + c] = part;
-      }
-      __syncthreads();
-      if (threadIdx.x < BN) {
-        float s = 0.0f;
-        for (int r = 0; r < BM; ++r) s += red[r * kRedLd + threadIdx.x];
-        const int n = tl.n0 + threadIdx.x;
-        if (n < N) partials[(row_block * 4 + bo) * N + n] = s;
-      }
-      __syncthreads();  // red is free for the next component
-    }
-  }
-};
-
-// dalpha[i] = sum over partial rows r, in order, of partials[r, i]
-__global__ void dalpha_reduce_kernel(const float* __restrict__ partials,
-                                     float* __restrict__ dalpha, int rows, int n4) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n4) return;
-  float s = 0.0f;
-  for (int r = 0; r < rows; ++r) s += partials[(size_t)r * n4 + i];
-  dalpha[i] = s;
-}
-
-int partial_rows(int B, int F, int T_len) { return B * F * ((T_len + BM - 1) / BM); }
-
-template <typename T>
-int launch(const void* dz, const void* wc, const void* z, const float* alpha, void* dx,
-           float* partials, float* dalpha, int B, int F, int T_len, int Cin, int Cout,
-           int kh, int kw, const Scheme8& s, cudaStream_t stream) {
-  const PreluBwdStore<T> epi{static_cast<const T*>(z), alpha, static_cast<T*>(dx), partials};
-  int err = qconv8::launch<T>(dz, wc, nullptr, B, F, T_len, Cin, Cout, kh, kw, s, epi,
-                              z != nullptr ? kRedBytes : 0, stream);
-  if (err != 0 || z == nullptr) return err;
-  const int n4 = 4 * Cout;
-  dalpha_reduce_kernel<<<(n4 + 255) / 256, 256, 0, stream>>>(
-      partials, dalpha, partial_rows(B, F, T_len), n4);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "qconv.cuh"
 
 extern "C" {
 
-// Rows of the dalpha partials buffer the caller allocates ([rows, 4*Cout] f32).
-int qasr_qconv_dx8_partial_rows(int B, int F, int T_len) { return partial_rows(B, F, T_len); }
+// Rows of the dalpha partials buffer the caller allocates ([rows, 4*Cout] f32),
+// for kernels C and G alike.
+int qasr_qconv_dx8_partial_rows(int B, int F, int T_len) {
+  return qconv::partial_rows(B, F, T_len);
+}
 
 // dz [B,4,F,T,Cin] and wc [8,kh*kw,Cin,Cout] (the U8 combos of the
 // conj-transposed, flipped weights: Cin here is the forward's Cout) in the
@@ -142,21 +51,8 @@ int qasr_qconv_dx8(const void* dz, const void* wc, const void* z, const void* al
                    void* dx, void* partials, void* dalpha, int B, int F, int T_len,
                    int Cin, int Cout, int kh, int kw, int dtype, const float* v8,
                    const float* o8, void* stream) {
-  Scheme8 s;
-  if (make_scheme(v8, o8, &s) != 0) return (int)cudaErrorInvalidValue;
-  if (!qconv8::shape_ok(B, F, Cin, Cout, kh, kw)) return (int)cudaErrorInvalidValue;
-  if (z != nullptr && (alpha == nullptr || partials == nullptr || dalpha == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* a = static_cast<const float*>(alpha);
-  float* p = static_cast<float*>(partials);
-  float* da = static_cast<float*>(dalpha);
-  if (dtype == 0)
-    return launch<float>(dz, wc, z, a, dx, p, da, B, F, T_len, Cin, Cout, kh, kw, s, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(dz, wc, z, a, dx, p, da, B, F, T_len, Cin, Cout, kh, kw,
-                                 s, st);
-  return (int)cudaErrorInvalidValue;
+  return qconv::dx_entry<8>(dz, wc, z, alpha, dx, partials, dalpha, B, F, T_len, Cin, Cout,
+                            kh, kw, dtype, v8, o8, stream);
 }
 
 }  // extern "C"

@@ -17,50 +17,13 @@
 // What bounds it on an H100: at the QCNN-256 layer (B16 F13 T256 C256, 3x3)
 // one layer is 5.0e11 FLOP against ~0.23 GB moved, about 2,000 FLOP/byte, far
 // above the bf16 ridge of ~295: the tensor cores bound it. The main loop
-// (qconv8.cuh) is an implicit GEMM per block (one 64-step time tile of one
+// (qconv.cuh) is an implicit GEMM per block (one 64-step time tile of one
 // (b, f) row x 64 output channels): per Cin chunk of 16 the four input
 // components over the halo window stay in shared memory for all eight
 // products; per product the weights of all taps arrive by cp.async one step
 // ahead (mma.sync m16n8k16 bf16, f32 accumulators). No wgmma or TMA yet;
 // those are the next steps.
-#include "qconv8.cuh"
-
-using namespace qtile8;
-
-namespace {
-
-// bias, mask the ragged time and channel edges, store
-template <typename T>
-struct BiasStore {
-  const float* bias;  // [4*Cout] or null
-  T* out;             // [B,4,F,T,Cout]
-
-  template <typename Prod>
-  __device__ void store(float (&y)[4][kPerThread], unsigned char*,
-                        const qconv8::Tile& tl) const {
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int t = tl.t0 + Prod::row(j), n = tl.n0 + Prod::col(j);
-      if (t >= tl.T_len || n >= tl.Cout) continue;
-#pragma unroll
-      for (int bo = 0; bo < 4; ++bo) {
-        const float bv = bias != nullptr ? bias[bo * tl.Cout + n] : 0.0f;
-        out[((((size_t)tl.b * 4 + bo) * tl.F + tl.f) * tl.T_len + t) * tl.Cout + n] =
-            Elem<T>::from_f(y[bo][j] + bv);
-      }
-    }
-  }
-};
-
-template <typename T>
-int launch(const void* x, const void* wc, const float* bias, const float* alpha,
-           void* out, int B, int F, int T_len, int Cin, int Cout, int kh, int kw,
-           const Scheme8& s, cudaStream_t stream) {
-  return qconv8::launch<T>(x, wc, alpha, B, F, T_len, Cin, Cout, kh, kw, s,
-                           BiasStore<T>{bias, static_cast<T*>(out)}, 0, stream);
-}
-
-}  // namespace
+#include "qconv.cuh"
 
 extern "C" {
 
@@ -72,18 +35,8 @@ int qasr_qconv_ft8(const void* x, const void* wc, const void* bias,
                    const void* alpha, void* out, int B, int F, int T_len, int Cin,
                    int Cout, int kh, int kw, int dtype, const float* v8,
                    const float* o8, void* stream) {
-  Scheme8 s;
-  if (make_scheme(v8, o8, &s) != 0) return (int)cudaErrorInvalidValue;
-  if (!qconv8::shape_ok(B, F, Cin, Cout, kh, kw)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* b = static_cast<const float*>(bias);
-  const float* a = static_cast<const float*>(alpha);
-  if (dtype == 0)
-    return launch<float>(x, wc, b, a, out, B, F, T_len, Cin, Cout, kh, kw, s, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, wc, b, a, out, B, F, T_len, Cin, Cout, kh, kw,
-                                 s, st);
-  return (int)cudaErrorInvalidValue;
+  return qconv::forward_entry<8>(x, wc, bias, alpha, out, B, F, T_len, Cin, Cout, kh, kw,
+                                 dtype, v8, o8, stream);
 }
 
 const char* qasr_cuda_error_string(int err) {

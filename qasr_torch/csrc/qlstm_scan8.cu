@@ -39,10 +39,10 @@
 // never stored.
 #include <cooperative_groups.h>
 
-#include "qtile8.cuh"
+#include "qtile.cuh"
 
 namespace cg = cooperative_groups;
-using namespace qtile8;
+using namespace qtile;
 
 namespace {
 

@@ -56,10 +56,10 @@
 // T: rows past B are zero-filled in shared memory and never stored.
 #include <cooperative_groups.h>
 
-#include "qtile8.cuh"
+#include "qtile.cuh"
 
 namespace cg = cooperative_groups;
-using namespace qtile8;
+using namespace qtile;
 
 namespace {
 

@@ -1,20 +1,23 @@
-// Shared machinery of the two rank-8 quaternion kernels (qconv_ft8.cu,
-// qgemm8.cu): cp.async staging, the per-product accumulation on the staged
-// tiles, and the O8 recombination into the four output components.
+// Shared machinery of the quaternion conv and GEMM kernels (qconv.cuh,
+// qgemm.cuh; the QLSTM kernels use its tiles and the rank-8 scheme):
+// cp.async staging, the per-product accumulation on the staged tiles, and
+// the recombination into the four output components.
 //
-// The rank-8 scheme (qasr/ops/quaternion.py U8/V8/O8):
-//   prod_p = (sum_a U8[p,a] w_a) . (sum_a V8[p,a] x_a),   p = 0..7
-//   y_b    = sum_p O8[b,p] prod_p
-// The weight side (U8) is combined by the caller into wc[p]. Each block owns
+// A scheme of P products (qasr/ops/quaternion.py: the rank-8 U8/V8/O8, P = 8,
+// or the 10-product W_COMBO/X_COMBO/OUT_COMBO, P = 10):
+//   prod_p = (sum_a U[p,a] w_a) . (sum_a V[p,a] x_a),   p = 0..P-1
+//   y_b    = sum_p O[b,p] prod_p
+// Each row of V has one or two nonzero terms. The weight side (U) is
+// combined by the caller into wc[p]. Each block owns
 // one BM x BN output tile of all four components. It walks the contraction
 // in chunks; for each chunk the four input components stay resident in
-// shared memory while the eight products run over it one after the other.
+// shared memory while the P products run over it one after the other.
 // The optional PReLU prologue is applied to the resident chunk once, in
 // place. A step is one (chunk, product): its weights arrive by cp.async one
-// step ahead, its combos (two nonzero V8 terms: one FMA per element) are
-// formed from the resident chunk into the A tile, the product is
+// step ahead, its combos (at most two nonzero V terms: one FMA per element)
+// are formed from the resident chunk into the A tile, the product is
 // accumulated in f32 over the chunk and folded at once into the four f32
-// output accumulators with column p of O8 — in registers, so only five
+// output accumulators with column p of O — in registers, so only five
 // accumulator tiles are ever live.
 //
 // Two ways to multiply the staged tiles:
@@ -29,40 +32,49 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace qtile8 {
+namespace qtile {
 
-constexpr int kProds = 8;
+constexpr int kProds = 8;  // the rank-8 scheme's products
 constexpr int BM = 64;          // output rows per block
 constexpr int BN = 64;          // output channels per block
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kPerThread = BM * BN / kThreads;  // 16 output elements a thread
 constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory on sm_90
 
-// The scheme, sparse on the input side. Built on the host from the dense
-// tables the Python wrapper passes, so the numbers live in one place.
-struct Scheme8 {
-  int in_a[kProds][2];
-  float in_c[kProds][2];
-  float out[4][kProds];
+// A scheme of P products, sparse on the input side. Built on the host from
+// the dense tables the Python wrapper passes, so the numbers live in one
+// place. A one-term combo keeps its term twice, the second with coefficient
+// 0 (c * x + 0 * x is c * x for every finite x).
+template <int P>
+struct Scheme {
+  int in_a[P][2];
+  float in_c[P][2];
+  float out[4][P];
 };
+using Scheme8 = Scheme<kProds>;
 
-// v8: [8][4] row-major; o8: [4][8] row-major. Returns 0, or -1 when a V8 row
-// does not have exactly two nonzero terms.
-inline int make_scheme(const float* v8, const float* o8, Scheme8* s) {
-  for (int p = 0; p < kProds; ++p) {
+// v: [P][4] row-major; o: [4][P] row-major. Returns 0, or -1 when a row of v
+// has no nonzero term or more than two.
+template <int P>
+inline int make_scheme(const float* v, const float* o, Scheme<P>* s) {
+  for (int p = 0; p < P; ++p) {
     int n = 0;
     for (int a = 0; a < 4; ++a) {
-      if (v8[p * 4 + a] != 0.0f) {
+      if (v[p * 4 + a] != 0.0f) {
         if (n == 2) return -1;
         s->in_a[p][n] = a;
-        s->in_c[p][n] = v8[p * 4 + a];
+        s->in_c[p][n] = v[p * 4 + a];
         ++n;
       }
     }
-    if (n != 2) return -1;
+    if (n == 0) return -1;
+    if (n == 1) {
+      s->in_a[p][1] = s->in_a[p][0];
+      s->in_c[p][1] = 0.0f;
+    }
   }
   for (int b = 0; b < 4; ++b)
-    for (int p = 0; p < kProds; ++p) s->out[b][p] = o8[b * kProds + p];
+    for (int p = 0; p < P; ++p) s->out[b][p] = o[b * P + p];
   return 0;
 }
 
@@ -138,14 +150,14 @@ __device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_group 0
 // In order: the scheme; the A tile (combos) [a_rows][lda]; two chunk buffers
 // of the input, each [4][a_rows][KC]; two weight stages, each
 // [taps][KC][ldb]. Every region starts 128-byte aligned.
-template <typename T, int KC>
+template <typename T, int KC, int P = kProds>
 struct Layout {
   static constexpr int lda = Elem<T>::lda(KC);
   static constexpr int ldb = Elem<T>::kLdb;
   int a, x, x_bytes, w, w_bytes, total;
 
   __host__ __device__ Layout(int a_rows, int taps) {
-    int off = align128((int)sizeof(Scheme8));
+    int off = align128((int)sizeof(Scheme<P>));
     a = off;
     off += align128(a_rows * lda * (int)sizeof(T));
     x = off;
@@ -266,9 +278,9 @@ struct Product<T, KC, true> {
   }
 };
 
-// y[b] += O8[b, p] * acc, in registers
-template <typename P>
-__device__ inline void fold(float (&y)[4][kPerThread], const P& prod, const Scheme8& sch,
+// y[b] += O[b, p] * acc, in registers
+template <typename Prod, int P>
+__device__ inline void fold(float (&y)[4][kPerThread], const Prod& prod, const Scheme<P>& sch,
                             int p) {
 #pragma unroll
   for (int b = 0; b < 4; ++b) {
@@ -310,8 +322,8 @@ __device__ inline void prelu_chunk(T* xs, int a_rows, const float* __restrict__ 
 
 // Combos of product p from the resident chunk into the A tile:
 // A[r][k] = c1 * x[a1][r][k] + c2 * x[a2][r][k].
-template <typename T, int KC>
-__device__ inline void form_combos(T* A, const T* xs, int a_rows, const Scheme8& sch,
+template <typename T, int KC, int P>
+__device__ inline void form_combos(T* A, const T* xs, int a_rows, const Scheme<P>& sch,
                                    int p) {
   constexpr int V = Elem<T>::kVec, VPR = KC / V;
   constexpr int LDA = Layout<T, KC>::lda;
@@ -329,4 +341,4 @@ __device__ inline void form_combos(T* A, const T* xs, int a_rows, const Scheme8&
   }
 }
 
-}  // namespace qtile8
+}  // namespace qtile

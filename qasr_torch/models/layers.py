@@ -20,6 +20,7 @@ from torch import nn
 from qasr_torch.ops.initializers import quaternion_init
 from qasr_torch.ops.kernels import qconv_ft
 from qasr_torch.ops.kernels.qconv_chain import chain_layer
+from qasr_torch.ops.kernels.qgemm import qconv2d_pallas, qdense_pallas
 from qasr_torch.ops.kernels.qgemm8 import qdense_pallas8
 from qasr_torch.ops.qlinalg import qconv
 
@@ -46,11 +47,16 @@ def stacked_to_tf_packed(x: torch.Tensor) -> torch.Tensor:
 class QConv(nn.Module):
     """Quaternion 2-D convolution.
 
-    ``layout="btfc"``: packed ``[B, T, F, 4*Cin]`` in and out, block path
-    (one ``F.conv2d`` on the 4x-expanded kernel) — the thin layer.
+    ``layout="btfc"``: packed ``[B, T, F, 4*Cin]`` in and out, on the block
+    path (one ``F.conv2d`` on the 4x-expanded kernel) — the thin layer — or,
+    with ``use_pallas`` where ``Cin * kh * kw >= 32`` (``layers.py:132-140``),
+    on slice-im2col and the 10-product GEMM (:func:`qconv2d_pallas`: kernels
+    H and I on a CUDA tensor).
     ``layout="stacked_ft"``: ``[B, 4, F, T, Cin]`` in and out through
-    :func:`chain_layer` (kernels A and C on a CUDA tensor), optionally
-    applying the previous layer's PReLU slopes in its prologue.
+    :func:`chain_layer` in ``scheme`` (``"fast8"``: kernels A and C;
+    ``"fast10"``: kernels F and G), optionally applying the previous layer's
+    PReLU slopes in its prologue. Parameters are the same in every case, so
+    one checkpoint serves under every routing.
     """
 
     def __init__(
@@ -60,6 +66,8 @@ class QConv(nn.Module):
         kernel_size: Sequence[int] = (3, 3),
         *,
         layout: str = "btfc",
+        scheme: str = "fast8",
+        use_pallas: bool = False,
         dtype: torch.dtype = torch.float32,
         generator: torch.Generator | None = None,
         device: torch.device | str = "cuda",
@@ -68,6 +76,12 @@ class QConv(nn.Module):
         if layout not in ("btfc", "stacked_ft"):
             raise ValueError(f"unknown layout {layout!r}")
         self.layout = layout
+        self.scheme = scheme
+        # the im2col GEMM pays off once its contraction reaches a few tiles
+        self.im2col = (
+            use_pallas and layout == "btfc" and len(kernel_size) == 2
+            and cin * kernel_size[0] * kernel_size[1] >= 32
+        )
         self.dtype = dtype
         self.kernel = nn.Parameter(
             quaternion_init((4, *kernel_size, cin, features), generator=generator, device=device)
@@ -83,27 +97,38 @@ class QConv(nn.Module):
     ) -> torch.Tensor:
         x = x.to(self.dtype)
         if self.layout == "stacked_ft":
-            return chain_layer(x, self.kernel, self.bias, alpha_prev, plain=plain)
+            return chain_layer(
+                x, self.kernel, self.bias, alpha_prev, scheme=self.scheme, plain=plain
+            )
         if alpha_prev is not None:
             raise ValueError("the packed layout has no PReLU prologue")
-        y = qconv(x, self.kernel.to(self.dtype))
+        if self.im2col:
+            y = qconv2d_pallas(x, self.kernel.to(self.dtype), plain=plain)
+        else:
+            y = qconv(x, self.kernel.to(self.dtype))
         return y + self.bias.to(self.dtype)
 
 
 class QDense(nn.Module):
     """Quaternion dense layer on packed ``[..., 4*K]`` input, through the
-    rank-8 GEMM (kernel B, forward and dx, on a CUDA tensor)."""
+    rank-8 GEMM (``scheme="fast8"``: kernel B, forward and dx, on a CUDA
+    tensor) or the 10-product GEMM (``"fast10"``: :func:`qdense_pallas`,
+    kernel H forward and dx, kernel I for dW)."""
 
     def __init__(
         self,
         cin: int,
         features: int,
         *,
+        scheme: str = "fast8",
         dtype: torch.dtype = torch.float32,
         generator: torch.Generator | None = None,
         device: torch.device | str = "cuda",
     ):
         super().__init__()
+        if scheme not in ("fast8", "fast10"):
+            raise ValueError(f"unknown scheme {scheme!r} (choose fast8 | fast10)")
+        self.scheme = scheme
         self.dtype = dtype
         self.kernel = nn.Parameter(
             quaternion_init((4, cin, features), generator=generator, device=device)
@@ -111,7 +136,8 @@ class QDense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(4 * features, device=device))
 
     def forward(self, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
-        y = qdense_pallas8(x.to(self.dtype), self.kernel.to(self.dtype), plain=plain)
+        gemm = qdense_pallas if self.scheme == "fast10" else qdense_pallas8
+        y = gemm(x.to(self.dtype), self.kernel.to(self.dtype), plain=plain)
         return y + self.bias.to(self.dtype)
 
 

@@ -8,12 +8,15 @@ there is no conv dropout, as in every preset.
 
 Layer order, as in the JAX encoder: thin conv(s) in the packed layout, each
 with its split PReLU; a frequency-only ``(1, pool)`` VALID max-pool after
-``pool_after`` layers; then every post-pool layer that kernel A supports runs
-in the component-stacked F-major layout ``[B, 4, F, T, C]``: one transpose in,
-each layer ``bias + qconv8(prelu_prev(x))`` (the previous layer's PReLU
-fused into the conv's prologue), the last PReLU in torch, and one transpose
-out to ``[B, T, 4*F*C]``; then the quaternion dense layers with their PReLUs
-and the real output layer.
+``pool_after`` layers; then every post-pool layer that the stacked kernels
+support runs in the component-stacked F-major layout ``[B, 4, F, T, C]``:
+one transpose in, each layer ``bias + qconv(prelu_prev(x))`` in the scheme
+the op variant names (the previous layer's PReLU fused into the conv's
+prologue), the last PReLU in torch, and one transpose out to
+``[B, T, 4*F*C]``; then the quaternion dense layers with their PReLUs and
+the real output layer. Under ``use_pallas`` every conv stays packed (the
+wide ones on slice-im2col and the 10-product GEMM) and the dense layers take
+the 10-product GEMM too.
 """
 
 from __future__ import annotations
@@ -37,15 +40,56 @@ from qasr_torch.models.layers import (
 from qasr_torch.ops.kernels import qconv_ft
 
 
+# op_variant -> the scheme of the stacked layers, or None where every layer
+# stays packed on the block path (qasr/models/qcnn.py:64-80 and
+# layers.py:179-204, 255; stacked8g is the rank-8 products in one grouped
+# XLA dispatch, the same arithmetic as kernels A and C)
+CONV_SCHEMES = {
+    "auto": "fast8", "stacked8": "fast8", "fused8": "fast8", "fusedchain8": "fast8",
+    "stacked8g": "fast8",
+    "stacked": "fast10", "fused": "fast10", "fusedchain": "fast10",
+    "block": None,
+}
+# the packed XLA conv arms of qasr/models/layers.py:116-153, not ported
+UNPORTED_CONV_VARIANTS = ("fast", "fast10", "fast8", "legacy_auto")
+
+
+def conv_scheme(op_variant: str, use_pallas: bool = False) -> str | None:
+    """The scheme of a qcnn tower's stacked layers for ``op_variant``
+    (``"fast8"`` or ``"fast10"``), or None when every layer stays packed:
+    ``use_pallas`` (the im2col GEMM, ``qcnn.py:75-80``) or ``"block"``.
+    Raises ``NotImplementedError`` for the packed XLA arms and
+    ``ValueError`` for a value the JAX package does not know."""
+    if op_variant in UNPORTED_CONV_VARIANTS:
+        raise NotImplementedError(
+            f"op_variant={op_variant!r} (the packed XLA conv arms) is not ported yet "
+            "(ROADMAP.md Queue 1 item 3)"
+        )
+    if op_variant not in CONV_SCHEMES:
+        raise ValueError(
+            f"unknown op_variant {op_variant!r} for arch='qcnn' (choose "
+            f"{' | '.join([*CONV_SCHEMES, *UNPORTED_CONV_VARIANTS])})"
+        )
+    return None if use_pallas else CONV_SCHEMES[op_variant]
+
+
 def stacked_routing(
     conv_features: Sequence[int],
     kernel_size: tuple[int, int],
     pool_after: int,
     cin: int = 1,
+    *,
+    op_variant: str = "auto",
+    use_pallas: bool = False,
 ) -> list[bool]:
-    """Which conv layers run in the stacked layout: post-pool layers that
-    kernel A's ``supported()`` admits. (The TPU's ``>= 128`` channel gate for
-    its matrix-unit lanes is not carried over.)"""
+    """Which conv layers run in the stacked layout: none when
+    :func:`conv_scheme` keeps every layer packed, else the post-pool layers
+    that the stacked kernels' ``supported()`` admits. The port keeps its own
+    channel gate: the TPU's ``>= 128`` quaternion channels
+    (``qcnn.py:87-98``) filled its matrix unit's 128 lanes, while the port's
+    kernels take any multiple of 8 channels."""
+    if conv_scheme(op_variant, use_pallas) is None:
+        return [False] * len(conv_features)
     out = []
     for i, feats in enumerate(conv_features):
         out.append(
@@ -114,19 +158,28 @@ class ConvTowerEncoder(nn.Module):
         kernel_size: tuple[int, int],
         pool_after: int,
         pool_size: int,
+        *,
+        op_variant: str = "auto",
+        use_pallas: bool = False,
         **common,
     ) -> int:
-        """Add the conv layers; returns the quaternion width ``F * C`` that
-        the tower hands on."""
+        """Add the conv layers, routed as :func:`stacked_routing` and
+        :func:`conv_scheme` say for ``op_variant`` and ``use_pallas``;
+        returns the quaternion width ``F * C`` that the tower hands on."""
         self.pool_after = pool_after
         self.pool_size = pool_size
-        self.stacked = stacked_routing(conv_features, kernel_size, pool_after)
+        self.conv_scheme = conv_scheme(op_variant, use_pallas)
+        self.stacked = stacked_routing(
+            conv_features, kernel_size, pool_after, op_variant=op_variant, use_pallas=use_pallas
+        )
         device = common["device"]
         cin, f = 1, n_feats
         for i, feats in enumerate(conv_features):
             layout = "stacked_ft" if self.stacked[i] else "btfc"
             self.add_module(
-                f"qconv_{i}", QConv(cin, feats, kernel_size, layout=layout, **common)
+                f"qconv_{i}",
+                QConv(cin, feats, kernel_size, layout=layout, scheme=self.conv_scheme or "fast8",
+                      use_pallas=use_pallas, **common),
             )
             self.add_module(f"conv_prelu_{i}", PReLU(4 * feats, device=device))
             if i + 1 == pool_after:
@@ -158,6 +211,10 @@ class ConvTowerEncoder(nn.Module):
 class QCNNEncoder(ConvTowerEncoder):
     """Quaternion CNN encoder -> framewise CTC logits ``[B, T, vocab]``.
 
+    ``op_variant`` and ``use_pallas`` route the conv tower
+    (:func:`conv_scheme`, :func:`stacked_routing`); ``dense_scheme`` picks
+    the dense layers' GEMM (``"fast8"``: kernel B; ``"fast10"``: kernels H
+    and I). ``qasr_torch.models.build_model`` maps a config onto them.
     Submodules are named as the JAX parameter tree (``qconv_<i>``,
     ``conv_prelu_<i>``, ``qdense_<i>``, ``dense_prelu_<i>``, ``output``), so
     ``state_dict()`` keys are the JAX names joined with dots.
@@ -174,6 +231,9 @@ class QCNNEncoder(ConvTowerEncoder):
         pool_after: int = 1,
         pool_size: int = 3,
         dropout_rate: float = 0.3,
+        op_variant: str = "auto",
+        use_pallas: bool = False,
+        dense_scheme: str = "fast8",
         dtype: torch.dtype = torch.float32,
         generator: torch.Generator | None = None,
         device: torch.device | str = "cuda",
@@ -181,10 +241,12 @@ class QCNNEncoder(ConvTowerEncoder):
         super().__init__()
         self.dtype = dtype
         common = dict(dtype=dtype, generator=generator, device=device)
-        k = self._build_tower(n_feats, conv_features, kernel_size, pool_after, pool_size, **common)
+        k = self._build_tower(n_feats, conv_features, kernel_size, pool_after, pool_size,
+                              op_variant=op_variant, use_pallas=use_pallas, **common)
         self.n_dense = len(dense_features)
+        self.dense_scheme = dense_scheme
         for i, feats in enumerate(dense_features):
-            self.add_module(f"qdense_{i}", QDense(k, feats, **common))
+            self.add_module(f"qdense_{i}", QDense(k, feats, scheme=dense_scheme, **common))
             self.add_module(f"dense_prelu_{i}", PReLU(4 * feats, device=device))
             self.add_module(f"dense_dropout_{i}", Dropout(dropout_rate))
             k = feats

@@ -232,6 +232,7 @@ class QLSTMEncoder(ConvTowerEncoder):
         dtype: torch.dtype = torch.float32,
         input_proj: str = "auto",
         recurrent: str = "pallas8",
+        use_pallas: bool = False,
         generator: torch.Generator | None = None,
         device: torch.device | str = "cuda",
     ):
@@ -239,7 +240,10 @@ class QLSTMEncoder(ConvTowerEncoder):
         self.dtype = dtype
         self.recurrent = recurrent
         common = dict(dtype=dtype, generator=generator, device=device)
-        k = self._build_tower(n_feats, conv_features, kernel_size, pool_after, pool_size, **common)
+        # the JAX encoder's tower runs its default "auto" routing, or every
+        # layer packed under use_pallas (qasr/models/qlstm.py:329-341)
+        k = self._build_tower(n_feats, conv_features, kernel_size, pool_after, pool_size,
+                              use_pallas=use_pallas, **common)
         self.lstm_layers = lstm_layers
         for i in range(lstm_layers):
             self.add_module(f"qbilstm_{i}", QBiLSTM(
@@ -247,8 +251,9 @@ class QLSTMEncoder(ConvTowerEncoder):
             self.add_module(f"lstm_dropout_{i}", Dropout(dropout_rate))
             k = 2 * lstm_features
         self.n_dense = len(dense_features)
+        dense_scheme = "fast10" if use_pallas else "fast8"
         for i, feats in enumerate(dense_features):
-            self.add_module(f"qdense_{i}", QDense(k, feats, **common))
+            self.add_module(f"qdense_{i}", QDense(k, feats, scheme=dense_scheme, **common))
             self.add_module(f"dense_prelu_{i}", PReLU(4 * feats, device=device))
             self.add_module(f"dense_dropout_{i}", Dropout(dropout_rate))
             k = feats

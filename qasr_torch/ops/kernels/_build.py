@@ -38,13 +38,18 @@ build_seconds = 0.0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ENTRIES = {
-    # x, wc, bias, alpha, out, B, F, T, Cin, Cout, kh, kw, dtype, v8, o8, stream
+    # x, wc, bias, alpha, out, B, F, T, Cin, Cout, kh, kw, dtype, v, o, stream
     "qasr_qconv_ft8": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P, _P, _P],
-    # x4, wc8, y4, M, K, N, dtype, v8, o8, stream
+    "qasr_qconv_ft10": [_P, _P, _P, _P, _P] + [_I] * 8 + [_P, _P, _P],
+    # x4, wc, y4, M, K, N, dtype, v, o, stream
     "qasr_qgemm8": [_P, _P, _P] + [_I] * 4 + [_P, _P, _P],
+    "qasr_qgemm10": [_P, _P, _P] + [_I] * 4 + [_P, _P, _P],
+    # x4, dy4, dw, M, K, N, dtype, x_combo, out_combo, w_combo, stream
+    "qasr_qgemm10_dw": [_P, _P, _P] + [_I] * 4 + [_P] * 4,
     # dz, wc, z, alpha, dx, partials, dalpha, B, F, T, Cin, Cout, kh, kw, dtype,
-    # v8, o8, stream
+    # v, o, stream
     "qasr_qconv_dx8": [_P] * 7 + [_I] * 8 + [_P, _P, _P],
+    "qasr_qconv_dx10": [_P] * 7 + [_I] * 8 + [_P, _P, _P],
     # B, F, T
     "qasr_qconv_dx8_partial_rows": [_I] * 3,
     # xz, wc8, lengths, hs, cs, gates, T, D, B, H, dtype, v8, o8, stream

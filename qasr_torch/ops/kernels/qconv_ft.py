@@ -1,21 +1,25 @@
-"""Rank-8 quaternion conv2d on the component-stacked, frequency-major layout:
-kernel A (``qasr_torch/csrc/qconv_ft8.cu``) and its plain PyTorch version.
+"""Stacked quaternion conv2d on the component-stacked, frequency-major
+layout: kernel A (``qasr_torch/csrc/qconv_ft8.cu``, the rank-8 scheme),
+kernel F (``qasr_torch/csrc/qconv_ft10.cu``, the 10-product scheme) and their
+plain PyTorch version.
 
 Counterpart of ``qasr/ops/pallas/qconv_ft.py``: the TPU kernel ``_ft_kernel``
-(forward role, rank-8 scheme) becomes a hand-written CUDA kernel for Hopper,
-and ``_qconv_stacked_xla`` (P plain convs on the input combos) becomes the
-plain version the CPU path and the card's parity checks use.
+(forward role, with either scheme) becomes hand-written CUDA kernels for
+Hopper, one main loop (``csrc/qconv.cuh``) instantiated for P = 8 and P = 10
+products, and ``_qconv_stacked_xla`` (P plain convs on the input combos)
+becomes the plain version the CPU path and the card's parity checks use.
 
 Layout: ``x [B, 4, F, T, C]`` (component slices lead; F-major), weights
 ``w [4, kh, kw, Cin, Cout]`` with kh over time and kw over frequency — the
 stacked layout is (F, T)-major, so the plain version swaps the two kernel
-dims for ``F.conv2d`` (H = F, W = T), and the kernel indexes tap
+dims for ``F.conv2d`` (H = F, W = T), and the kernels index tap
 ``s = dt*kw + df`` exactly as ``_ft_kernel`` does.
 
-Kernel A computes, per layer, ``bias + qconv8(act(x))`` where ``act`` is the
-previous layer's split PReLU (``alpha``) or the identity; bias and alpha are
-optional. Its wrapper :func:`qconv_ft8` takes the plain version for a CPU
-tensor only; for a CUDA tensor it launches the kernel or raises.
+Kernels A and F compute, per layer, ``bias + qconv(act(x))`` where ``act``
+is the previous layer's split PReLU (``alpha``) or the identity; bias and
+alpha are optional. Their wrappers :func:`qconv_ft8` and :func:`qconv_ft10`
+take the plain version for a CPU tensor only; for a CUDA tensor they launch
+the kernel or raise.
 """
 
 from __future__ import annotations
@@ -58,10 +62,15 @@ class _Scheme:
 
 SCHEME10 = _Scheme("fast10", W_COMBO, X_COMBO, OUT_COMBO)
 SCHEME8 = _Scheme("fast8", U8, V8, O8)
+SCHEMES = {"fast8": SCHEME8, "fast10": SCHEME10}
 
-# f32 tables handed to the kernel (host memory, read at launch)
-_V8_F32 = np.ascontiguousarray(V8, np.float32)
-_O8_F32 = np.ascontiguousarray(O8, np.float32)
+# f32 tables handed to the kernels (host memory, read at launch): the input
+# side [P, 4] and the output side [4, P] of each scheme
+_TABLES = {
+    name: (np.ascontiguousarray(sc.v_mat, np.float32), np.ascontiguousarray(sc.o_mat, np.float32))
+    for name, sc in SCHEMES.items()
+}
+_V8_F32, _O8_F32 = _TABLES["fast8"]
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Largest kernel height and width: a 5x5 tile fits a block's shared memory in
 # both dtypes; 7 does not (the launcher checks the exact size and raises).
@@ -69,9 +78,9 @@ _MAX_KERNEL = 5
 
 
 def supported(cin: int, cout: int, kernel_size, padding="SAME", strides=None) -> bool:
-    """Whether kernel A handles this conv: stride 1, SAME, odd kernels of at
-    most 5x5, and channel counts that are multiples of 8 (one 16-byte bf16
-    vector)."""
+    """Whether kernels A and F handle this conv: stride 1, SAME, odd kernels
+    of at most 5x5, and channel counts that are multiples of 8 (one 16-byte
+    bf16 vector)."""
     kh, kw = kernel_size
     return (
         padding == "SAME"
@@ -103,36 +112,50 @@ def _prelu_stacked(x_st: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return torch.where(x_st >= 0, x_st, a * x_st)
 
 
-def qconv_fast8_stacked_plain(
+def _combo(x_st: torch.Tensor, terms) -> torch.Tensor:
+    """``sum_a c_a * x_st[:, a]`` over a scheme's (index, coefficient) terms,
+    term by term in the storage dtype (as ``_qconv_stacked_xla`` forms it)."""
+    out = None
+    for a, c in terms:
+        t = x_st[:, a] * c
+        out = t if out is None else out + t
+    return out
+
+
+def qconv_stacked_plain(
     x_st: torch.Tensor,
     w: torch.Tensor,
     bias: torch.Tensor | None = None,
     alpha: torch.Tensor | None = None,
+    *,
+    scheme: _Scheme = SCHEME8,
 ) -> torch.Tensor:
-    """Plain version of kernel A: ``bias + qconv8(act(x_st))``.
+    """Plain version of kernels A and F: ``bias + qconv(act(x_st))`` in
+    ``scheme``.
 
-    P=8 ``F.conv2d`` calls on the 2-sparse input combos (after
-    ``_qconv_stacked_xla``), recombined with O8 in f32. ``x_st [B,4,F,T,Cin]``
-    in the compute dtype; ``w [4,kh,kw,Cin,Cout]``; ``bias [4*Cout]`` and
-    ``alpha [4*Cin]`` optional. Returns ``[B,4,F,T,Cout]`` in x's dtype.
+    P ``F.conv2d`` calls on the input combos (after ``_qconv_stacked_xla``),
+    formed in x's dtype, on the weight combos ``combine_weights(w, dtype,
+    scheme.u)``, recombined with the scheme's output table in f32.
+    ``x_st [B,4,F,T,Cin]`` in the compute dtype; ``w [4,kh,kw,Cin,Cout]``;
+    ``bias [4*Cout]`` and ``alpha [4*Cin]`` optional. Returns
+    ``[B,4,F,T,Cout]`` in x's dtype.
     """
     b, _, f, t, cin = x_st.shape
     _, kh, kw, _, cout = w.shape
     if kh % 2 == 0 or kw % 2 == 0:
-        raise ValueError(f"kernel A's SAME conv needs odd kernels, got {(kh, kw)}")
+        raise ValueError(f"the stacked SAME conv needs odd kernels, got {(kh, kw)}")
     if alpha is not None:
         x_st = _prelu_stacked(x_st, alpha)
-    # [8, kh, kw, Cin, Cout] -> per product [Cout, Cin, kw (F), kh (T)]
-    wc = combine_weights(w, x_st.dtype).permute(0, 4, 3, 2, 1)
+    # [P, kh, kw, Cin, Cout] -> per product [Cout, Cin, kw (F), kh (T)]
+    wc = combine_weights(w, x_st.dtype, scheme.u).permute(0, 4, 3, 2, 1)
     pad = ((kw - 1) // 2, (kh - 1) // 2)
     prods = []
-    for p, terms in enumerate(SCHEME8.fwd_in):
-        (a1, c1), (a2, c2) = terms
-        xc = x_st[:, a1] * c1 + x_st[:, a2] * c2  # [B, F, T, Cin]
+    for p, terms in enumerate(scheme.fwd_in):
+        xc = _combo(x_st, terms)  # [B, F, T, Cin]
         y = F.conv2d(xc.permute(0, 3, 1, 2), wc[p], padding=pad)  # [B, Cout, F, T]
         prods.append(y.float())
-    o8 = torch.as_tensor(O8, dtype=torch.float32, device=x_st.device)
-    out = torch.einsum("pbnft,qp->bqftn", torch.stack(prods), o8)
+    o = torch.as_tensor(scheme.o_mat, dtype=torch.float32, device=x_st.device)
+    out = torch.einsum("pbnft,qp->bqftn", torch.stack(prods), o)
     if bias is not None:
         out = out + bias.float().reshape(4, 1, 1, cout)
     return out.to(x_st.dtype)
@@ -151,29 +174,40 @@ def _check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape) ->
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def qconv_ft8_cuda(
+# per scheme: the kernel's letter and its C entry
+_FWD_KERNELS = {"fast8": ("A", "qasr_qconv_ft8"), "fast10": ("F", "qasr_qconv_ft10")}
+
+
+def qconv_ft_cuda(
     x_st: torch.Tensor,
     wc: torch.Tensor,
     bias: torch.Tensor | None = None,
     alpha: torch.Tensor | None = None,
+    *,
+    scheme: _Scheme = SCHEME8,
 ) -> torch.Tensor:
-    """Launch kernel A. ``x_st [B,4,F,T,Cin]`` and ``wc [8,kh,kw,Cin,Cout]``
-    (U8-combined) on one CUDA device, contiguous, both f32 or both bf16;
-    ``bias [4*Cout]`` / ``alpha [4*Cin]`` f32 or None. Raises on anything the
-    kernel does not take, or when it fails to build or launch."""
-    if x_st.ndim != 5 or x_st.shape[1] != 4 or wc.ndim != 5 or wc.shape[0] != 8:
+    """Launch kernel A (``SCHEME8``) or F (``SCHEME10``). ``x_st
+    [B,4,F,T,Cin]`` and ``wc [P,kh,kw,Cin,Cout]`` (the scheme's weight
+    combos) on one CUDA device, contiguous, both f32 or both bf16; ``bias
+    [4*Cout]`` / ``alpha [4*Cin]`` f32 or None. Raises on anything the kernel
+    does not take, or when it fails to build or launch."""
+    letter, entry = _FWD_KERNELS[scheme.name]
+    n_prods = scheme.n_prods
+    if x_st.ndim != 5 or x_st.shape[1] != 4 or wc.ndim != 5 or wc.shape[0] != n_prods:
         raise ValueError(
-            f"expected x [B,4,F,T,C] and wc [8,kh,kw,Cin,Cout], got "
+            f"expected x [B,4,F,T,C] and wc [{n_prods},kh,kw,Cin,Cout], got "
             f"{tuple(x_st.shape)} and {tuple(wc.shape)}"
         )
     b, _, f, t, cin = x_st.shape
     _, kh, kw, _, cout = wc.shape
     if x_st.dtype not in _DTYPE_CODE:
-        raise TypeError(f"kernel A takes float32 or bfloat16, got {x_st.dtype}")
+        raise TypeError(f"kernel {letter} takes float32 or bfloat16, got {x_st.dtype}")
     if not supported(cin, cout, (kh, kw)):
-        raise ValueError(f"kernel A does not support cin={cin} cout={cout} kernel={(kh, kw)}")
+        raise ValueError(
+            f"kernel {letter} does not support cin={cin} cout={cout} kernel={(kh, kw)}"
+        )
     _check_cuda_tensor("x_st", x_st, x_st.dtype, x_st.shape)
-    _check_cuda_tensor("wc", wc, x_st.dtype, (8, kh, kw, cin, cout))
+    _check_cuda_tensor("wc", wc, x_st.dtype, (n_prods, kh, kw, cin, cout))
     for name, v, n in (("bias", bias, 4 * cout), ("alpha", alpha, 4 * cin)):
         if v is not None:
             _check_cuda_tensor(name, v, torch.float32, (n,))
@@ -185,20 +219,33 @@ def qconv_ft8_cuda(
     out = torch.empty((b, 4, f, t, cout), dtype=x_st.dtype, device=x_st.device)
     if out.numel() == 0:
         return out
+    v_tab, o_tab = _TABLES[scheme.name]
     with torch.cuda.device(x_st.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.qasr_qconv_ft8(
+        err = getattr(lib, entry)(
             x_st.data_ptr(), wc.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if alpha is None else alpha.data_ptr(),
             out.data_ptr(), b, f, t, cin, cout, kh, kw, _DTYPE_CODE[x_st.dtype],
-            _V8_F32.ctypes.data_as(ctypes.c_void_p),
-            _O8_F32.ctypes.data_as(ctypes.c_void_p),
+            v_tab.ctypes.data_as(ctypes.c_void_p),
+            o_tab.ctypes.data_as(ctypes.c_void_p),
             stream,
         )
-    _build.check(lib, err, "qconv_ft8 launch")
-    qconv_ft8.launches += 1
+    _build.check(lib, err, f"{entry[5:]} launch")
+    _WRAPPERS[scheme.name].launches += 1
     return out
+
+
+def _qconv_ft(x_st, w, bias, alpha, scheme: _Scheme) -> torch.Tensor:
+    if not x_st.is_cuda:
+        return qconv_stacked_plain(x_st, w, bias, alpha, scheme=scheme)
+    return qconv_ft_cuda(
+        x_st,
+        combine_weights(w, x_st.dtype, scheme.u).contiguous(),
+        None if bias is None else bias.float().contiguous(),
+        None if alpha is None else alpha.float().contiguous(),
+        scheme=scheme,
+    )
 
 
 def qconv_ft8(
@@ -210,20 +257,26 @@ def qconv_ft8(
     """Rank-8 stacked quaternion conv ``bias + qconv8(act(x_st))``.
 
     ``x_st [B,4,F,T,Cin]`` in the compute dtype; ``w [4,kh,kw,Cin,Cout]``
-    (stacked checkpoint layout); ``bias [4*Cout]`` and ``alpha [4*Cin]``
-    (the previous layer's PReLU slopes) optional. A CPU tensor takes the
-    plain version; a CUDA tensor launches kernel A or raises.
+    (stacked checkpoint layout); ``bias [4*Cout]`` and ``alpha [4*Cin]`` (the
+    previous layer's PReLU slopes) optional. A CPU tensor takes the plain
+    version; a CUDA tensor launches kernel A or raises.
     """
-    if not x_st.is_cuda:
-        return qconv_fast8_stacked_plain(x_st, w, bias, alpha)
-    wc = combine_weights(w, x_st.dtype).contiguous()
-    return qconv_ft8_cuda(
-        x_st,
-        wc,
-        None if bias is None else bias.float().contiguous(),
-        None if alpha is None else alpha.float().contiguous(),
-    )
+    return _qconv_ft(x_st, w, bias, alpha, SCHEME8)
 
 
-#: launches of kernel A since the last reset (counted where it launches)
+def qconv_ft10(
+    x_st: torch.Tensor,
+    w: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    alpha: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The 10-product stacked quaternion conv ``bias + qconv10(act(x_st))``:
+    as :func:`qconv_ft8`, through kernel F on a CUDA tensor."""
+    return _qconv_ft(x_st, w, bias, alpha, SCHEME10)
+
+
+#: launches of kernels A and F since the last reset (counted where each
+#: launches)
 qconv_ft8.launches = 0
+qconv_ft10.launches = 0
+_WRAPPERS = {"fast8": qconv_ft8, "fast10": qconv_ft10}

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from qasr_torch.ops.kernels import qconv_chain, qconv_dx8, qconv_ft, qgemm8, qlstm_scan
+from qasr_torch.ops.kernels import qconv_chain, qconv_dx, qconv_ft, qgemm, qgemm8, qlstm_scan
 
 
 def _rand(rng, *shape, scale=1.0):
@@ -51,7 +51,7 @@ def test_qconv_kernel_matches_plain_on_card(cuda_device, dtype, kernel, t):
     got = qconv_ft.qconv_ft8(x, w, bias, alpha)
     torch.cuda.synchronize()
     assert qconv_ft.qconv_ft8.launches == before + 1
-    want = qconv_ft.qconv_fast8_stacked_plain(x.float(), w, bias, alpha)
+    want = qconv_ft.qconv_stacked_plain(x.float(), w, bias, alpha)
     torch.testing.assert_close(got.float(), want, **tol)
 
 
@@ -84,11 +84,11 @@ def test_qconv_dx8_kernel_matches_plain_on_card(cuda_device, dtype, epilogue, ke
     w = _t(_rand(rng, 4, *kernel, 16, 24, scale=0.1)).to(cuda_device)
     z = _t(_rand(rng, 2, 4, 5, t, 16, scale=0.5)).to(cuda_device, dtype) if epilogue else None
     alpha = _t(_rand(rng, 64, scale=0.25)).to(cuda_device) if epilogue else None
-    before = qconv_dx8.qconv_dx8.launches
-    dx, dalpha = qconv_dx8.qconv_dx8(dz, w, z, alpha)
+    before = qconv_dx.qconv_dx8.launches
+    dx, dalpha = qconv_dx.qconv_dx8(dz, w, z, alpha)
     torch.cuda.synchronize()
-    assert qconv_dx8.qconv_dx8.launches == before + 1
-    want_dx, want_da = qconv_dx8.qconv_dx8_plain(
+    assert qconv_dx.qconv_dx8.launches == before + 1
+    want_dx, want_da = qconv_dx.qconv_dx_plain(
         dz.float(), w, None if z is None else z.float(), alpha
     )
     torch.testing.assert_close(dx.float(), want_dx, **tol)
@@ -301,3 +301,137 @@ def test_qlstm_scan_fn_kernel_path_matches_plain_path_on_card(cuda_device, dtype
         scale = want.abs().max().item() if name == "dwc8" else 1.0
         torch.testing.assert_close(got.float(), want.float(), rtol=tol["rtol"],
                                    atol=tol["atol"] * scale, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the 10-product kernels: F (conv), G (its transpose), H (GEMM, both roles),
+# I (the GEMM's dW)
+# ---------------------------------------------------------------------------
+
+
+def _tol(dtype):
+    return dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("kernel,t", [((3, 3), 70), ((3, 5), 33), ((5, 5), 20)])
+def test_qconv_ft10_kernel_matches_plain_on_card(cuda_device, dtype, prologue, kernel, t):
+    """Kernel F, with and without the PReLU prologue and bias, against its
+    plain version; 16 -> 24 channels, a ragged time tail."""
+    rng = np.random.default_rng(11)
+    x = _t(_rand(rng, 2, 4, 5, t, 16, scale=0.5)).to(cuda_device, dtype)
+    w = _t(_rand(rng, 4, *kernel, 16, 24, scale=0.1)).to(cuda_device)
+    bias = _t(_rand(rng, 96, scale=0.1)).to(cuda_device) if prologue else None
+    alpha = _t(np.abs(_rand(rng, 64, scale=0.25))).to(cuda_device) if prologue else None
+    before = qconv_ft.qconv_ft10.launches
+    got = qconv_ft.qconv_ft10(x, w, bias, alpha)
+    torch.cuda.synchronize()
+    assert qconv_ft.qconv_ft10.launches == before + 1
+    want = qconv_ft.qconv_stacked_plain(x.float(), w, bias, alpha, scheme=qconv_ft.SCHEME10)
+    torch.testing.assert_close(got.float(), want, **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("kernel,t", [((3, 3), 70), ((3, 5), 33), ((5, 3), 20)])
+def test_qconv_dx10_kernel_matches_plain_on_card(cuda_device, dtype, epilogue, kernel, t):
+    """Kernel G: dx (and with the PReLU backward, dalpha, for signed slopes)
+    against its plain version, and dx without the epilogue against the
+    TPU's rotated-role formulation; 24 -> 16 channels, a ragged time tail."""
+    tol = _tol(dtype)
+    rng = np.random.default_rng(12)
+    dz = _t(_rand(rng, 2, 4, 5, t, 24, scale=0.5)).to(cuda_device, dtype)
+    w = _t(_rand(rng, 4, *kernel, 16, 24, scale=0.1)).to(cuda_device)
+    z = _t(_rand(rng, 2, 4, 5, t, 16, scale=0.5)).to(cuda_device, dtype) if epilogue else None
+    alpha = _t(_rand(rng, 64, scale=0.25)).to(cuda_device) if epilogue else None
+    before = qconv_dx.qconv_dx10.launches
+    dx, dalpha = qconv_dx.qconv_dx10(dz, w, z, alpha)
+    again = qconv_dx.qconv_dx10(dz, w, z, alpha)
+    torch.cuda.synchronize()
+    assert qconv_dx.qconv_dx10.launches == before + 2
+    assert torch.equal(dx, again[0])
+    want_dx, want_da = qconv_dx.qconv_dx_plain(
+        dz.float(), w, None if z is None else z.float(), alpha, scheme=qconv_ft.SCHEME10
+    )
+    torch.testing.assert_close(dx.float(), want_dx, **tol)
+    if epilogue:
+        assert torch.equal(dalpha, again[1])
+        scale = want_da.abs().max().item()
+        torch.testing.assert_close(dalpha, want_da, rtol=tol["rtol"], atol=tol["atol"] * scale)
+    else:
+        assert dalpha is None
+        rot = qconv_dx.qconv_dx10_rotated_plain(dz.float(), w)
+        torch.testing.assert_close(dx.float(), rot, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(100, 72, 40), (7, 13, 62)])
+def test_qgemm10_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
+    """Kernel H in both roles: forward, and dx on the conj-transposed
+    weights, against its plain version; ragged K and N are padded."""
+    rng = np.random.default_rng(13)
+    x4 = _t(_rand(rng, 4, m, k, scale=0.5)).to(cuda_device, dtype)
+    dy4 = _t(_rand(rng, 4, m, n, scale=0.5)).to(cuda_device, dtype)
+    w = _t(_rand(rng, 4, k, n, scale=0.2)).to(cuda_device)
+    f0, d0 = qgemm.qgemm10.launches, qgemm.qgemm10_dx.launches
+    got = qgemm.qgemm10(x4, w)
+    got_dx = qgemm.qgemm10_dx(dy4, w)
+    torch.cuda.synchronize()
+    assert (qgemm.qgemm10.launches, qgemm.qgemm10_dx.launches) == (f0 + 1, d0 + 1)
+    torch.testing.assert_close(got.float(), qgemm.qgemm_stacked_plain(x4.float(), w), **_tol(dtype))
+    want_dx = qgemm.qgemm_stacked_plain(dy4.float(), qgemm8.conj_transpose_dense(w))
+    torch.testing.assert_close(got_dx.float(), want_dx, **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(300, 72, 40), (1000, 13, 62), (256, 136, 200)])
+def test_qgemm10_dw_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
+    """Kernel I against its plain version: ragged M (its last chunk masked),
+    K and N ragged (padded) and over several tiles; a sum over M, held
+    relative to its largest element; two runs give the same bits."""
+    tol = _tol(dtype)
+    rng = np.random.default_rng(14)
+    x4 = _t(_rand(rng, 4, m, k, scale=0.5)).to(cuda_device, dtype)
+    dy4 = _t(_rand(rng, 4, m, n, scale=0.5)).to(cuda_device, dtype)
+    before = qgemm.qgemm10_dw.launches
+    got = qgemm.qgemm10_dw(x4, dy4)
+    again = qgemm.qgemm10_dw(x4, dy4)
+    torch.cuda.synchronize()
+    assert qgemm.qgemm10_dw.launches == before + 2
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    want = qgemm.qgemm_dw_plain(x4, dy4)
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=tol["rtol"], atol=tol["atol"] * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [30, 300])
+def test_10_product_functions_match_plain_autograd_on_card(cuda_device, m):
+    """ChainLayerFn in fast10 (kernels F and G) and QGemmFn (kernel H both
+    roles; kernel I at M >= 256, the 16-product einsum below) give the plain
+    path's gradients in f32."""
+    rng = np.random.default_rng(15)
+    args = [_t(_rand(rng, 2, 4, 5, 21, 16, scale=0.5)), _t(_rand(rng, 4, 3, 5, 16, 8, scale=0.2)),
+            _t(_rand(rng, 32, scale=0.1)), _t(_rand(rng, 64, scale=0.25))]
+    dz = _t(_rand(rng, 2, 4, 5, 21, 8)).to(cuda_device)
+    grads = []
+    for plain in (False, True):
+        ts = [a.to(cuda_device).requires_grad_() for a in args]
+        qconv_chain.chain_layer(*ts, scheme="fast10", plain=plain).backward(dz)
+        grads.append([t.grad for t in ts])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    x4, w = _t(_rand(rng, 4, m, 24, scale=0.5)), _t(_rand(rng, 4, 24, 16, scale=0.2))
+    dy = _t(_rand(rng, 4, m, 16)).to(cuda_device)
+    grads = []
+    for plain in (False, True):
+        ts = [a.to(cuda_device).requires_grad_() for a in (x4, w)]
+        qgemm.qgemm_stacked(ts[0], ts[1], plain=plain).backward(dy)
+        grads.append([t.grad for t in ts])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -28,7 +28,7 @@ from jax.experimental.pallas import tpu as pltpu
 from qasr.ops.pallas import qconv_chain as jchain
 from qasr.ops.pallas import qconv_ft as jft
 from qasr.ops.pallas import qgemm8 as jgemm
-from qasr_torch.ops.kernels import qconv_dx8, qgemm8
+from qasr_torch.ops.kernels import qconv_dx, qgemm8
 from qasr_torch.ops.kernels.qconv_chain import ChainLayerFn, chain_layer
 
 # the package exports a function of the module's name
@@ -89,7 +89,7 @@ def test_qconv_dx8_plain_matches_xla_vjp(kernel, t, negative_alpha):
     jw = jnp.asarray(w)
     _, vjp = jax.vjp(lambda x: jft.qconv_fast8_stacked(x, jw), jnp.asarray(z))
     (want_dx,) = vjp(jnp.asarray(dz))
-    dx, dalpha = qconv_dx8.qconv_dx8(torch.from_numpy(dz), torch.from_numpy(w))
+    dx, dalpha = qconv_dx.qconv_dx8(torch.from_numpy(dz), torch.from_numpy(w))
     assert dalpha is None
     _close(dx, want_dx, "dx without epilogue")
 
@@ -97,7 +97,7 @@ def test_qconv_dx8_plain_matches_xla_vjp(kernel, t, negative_alpha):
         lambda zz, a: jft.qconv_fast8_stacked(_jprelu(zz, a), jw), jnp.asarray(z), jnp.asarray(alpha)
     )
     want_dx, want_da = vjp(jnp.asarray(dz))
-    dx, dalpha = qconv_dx8.qconv_dx8(
+    dx, dalpha = qconv_dx.qconv_dx8(
         torch.from_numpy(dz), torch.from_numpy(w), torch.from_numpy(z), torch.from_numpy(alpha)
     )
     _close(dx, want_dx, "dx with epilogue")
@@ -173,7 +173,7 @@ def test_conj_transpose_matches_reference():
     rng = np.random.default_rng(4)
     w = _rand(rng, 4, 3, 5, 8, 16)
     np.testing.assert_array_equal(
-        qconv_dx8.conj_transpose_w(torch.from_numpy(w)).numpy(),
+        qconv_dx.conj_transpose_w(torch.from_numpy(w)).numpy(),
         np.asarray(jft._conj_transpose_w(jnp.asarray(w))),
     )
     wd = _rand(rng, 4, 12, 20)
@@ -237,20 +237,20 @@ def test_qgemm8_dense_grads_ragged_match_block_dense():
 
 
 def test_backward_kernel_entries_refuse_cpu_tensors():
-    c0, d0 = qconv_dx8.qconv_dx8.launches, qgemm8.qgemm8_dx.launches
+    c0, d0 = qconv_dx.qconv_dx8.launches, qgemm8.qgemm8_dx.launches
     dz = torch.zeros(1, 4, 3, 8, 8)
     wc = torch.zeros(8, 3, 3, 8, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        qconv_dx8.qconv_dx8_cuda(dz, wc)
+        qconv_dx.qconv_dx_cuda(dz, wc)
     with pytest.raises(ValueError, match="together"):
-        qconv_dx8.qconv_dx8_cuda(dz, wc, torch.zeros(1, 4, 3, 8, 8), None)
+        qconv_dx.qconv_dx_cuda(dz, wc, torch.zeros(1, 4, 3, 8, 8), None)
     with pytest.raises(ValueError, match="does not support"):
-        qconv_dx8.qconv_dx8_cuda(torch.zeros(1, 4, 3, 8, 12), torch.zeros(8, 3, 3, 12, 8))
+        qconv_dx.qconv_dx_cuda(torch.zeros(1, 4, 3, 8, 12), torch.zeros(8, 3, 3, 12, 8))
     with pytest.raises(ValueError, match="CUDA"):
         qgemm8.qgemm8_cuda(torch.zeros(4, 5, 8), torch.zeros(8, 8, 8), role="dx")
     # CPU tensors take the plain versions and count no launch
-    qconv_dx8.qconv_dx8(dz, torch.zeros(4, 3, 3, 8, 8))
+    qconv_dx.qconv_dx8(dz, torch.zeros(4, 3, 3, 8, 8))
     qgemm8.qgemm8_dx(torch.zeros(4, 5, 8), torch.zeros(4, 8, 8))
-    assert (qconv_dx8.qconv_dx8.launches, qgemm8.qgemm8_dx.launches) == (c0, d0)
+    assert (qconv_dx.qconv_dx8.launches, qgemm8.qgemm8_dx.launches) == (c0, d0)
     if not torch.cuda.is_available():
         assert (c0, d0) == (0, 0)

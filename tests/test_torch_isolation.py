@@ -3,9 +3,10 @@ the GPU has no JAX, and the port keeps its own copies of what it needs.
 
 A subprocess blocks jax/flax/optax/orbax and ``qasr`` itself in
 ``sys.modules`` before importing the port, then serves a small qcnn and a
-small qlstm on the CPU end to end (greedy and beam) and trains
-``tiny_synthetic`` and the small qlstm for two steps each; a source scan
-checks that no file of the port (or chip_smoke.py) imports any of them.
+small qlstm on the CPU end to end (greedy and beam), trains
+``tiny_synthetic`` and the small qlstm for two steps each, and trains and
+serves through the command line (``qasr_torch.cli``); a source scan checks
+that no file of the port (or chip_smoke.py) imports any of them.
 """
 
 import os
@@ -76,6 +77,18 @@ for _ in range(2):
     m = train_step(qstate, next(qstream))
     assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"])), m
 assert qstate.step == 2
+import tempfile
+import wave
+from qasr_torch.cli import main, transcribe_main
+with tempfile.TemporaryDirectory() as d:
+    last = main(["--preset", "tiny_synthetic", "--device", "cpu", "--set", "train.num_steps=1",
+                 "train.eval_every=1", "model.op_variant=fused", "model.dense_variant=pallas",
+                 f"train.checkpoint_dir={d}"])
+    with wave.open(f"{d}/a.wav", "wb") as f:
+        f.setnchannels(1); f.setsampwidth(2); f.setframerate(16000)
+        f.writeframes((wavs[0] * 20000).astype(np.int16).tobytes())
+    out = transcribe_main(["--ckpt", d, "--device", "cpu", f"{d}/a.wav"])
+    assert len(out) == 1 and np.isfinite(last["dev_loss"]), (out, last)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "qasr")
                 and sys.modules[m] is not None)
 print("OK", loaded)
@@ -108,7 +121,7 @@ def test_no_jax_imports_in_port_sources():
     for line in ("import qasr_torch", "from qasr_torch.configs import Config"):
         assert not _FORBIDDEN.search(line), line
     files = sorted((REPO / "qasr_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
+    assert len(files) > 10 and REPO / "qasr_torch" / "cli.py" in files
     bad = {
         str(f.relative_to(REPO)): _FORBIDDEN.findall(f.read_text())
         for f in files

@@ -179,11 +179,11 @@ def test_kernel_entries_refuse_cpu_tensors():
     x = torch.zeros(1, 4, 3, 8, 8)
     wc = torch.zeros(8, 3, 3, 8, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        qconv_ft.qconv_ft8_cuda(x, wc)
+        qconv_ft.qconv_ft_cuda(x, wc)
     with pytest.raises(ValueError, match="CUDA"):
         qgemm8.qgemm8_cuda(torch.zeros(4, 5, 8), torch.zeros(8, 8, 8))
     with pytest.raises(TypeError):
-        qconv_ft.qconv_ft8_cuda(x.half(), wc.half())
+        qconv_ft.qconv_ft_cuda(x.half(), wc.half())
     with pytest.raises(ValueError, match="does not support"):
-        qconv_ft.qconv_ft8_cuda(torch.zeros(1, 4, 3, 8, 12), torch.zeros(8, 3, 3, 12, 8))
+        qconv_ft.qconv_ft_cuda(torch.zeros(1, 4, 3, 8, 12), torch.zeros(8, 3, 3, 12, 8))
     assert (qconv_ft.qconv_ft8.launches, qgemm8.qgemm8_cl.launches) == (a0, b0)
