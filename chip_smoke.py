@@ -4,9 +4,11 @@
 
 Drives the port's serving path and its training path (``qasr_torch``, no
 JAX) at the full width of ``timit_qcnn`` (the paper's QCNN-256, bf16
-compute, random weights from a seeded ``torch.Generator``), and the serving
-and training paths of ``librispeech_qlstm``, through the hand-written CUDA
-kernels, and checks them. Phases, one line each (or a few):
+compute, random weights from a seeded ``torch.Generator``), the serving
+and training paths of ``librispeech_qlstm`` and of the real-CNN baseline
+``timit_real_cnn``, and the row-contracting product's probe, through the
+hand-written CUDA kernels, and checks them. Phases, one line each (or a
+few):
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc build of qasr_torch/csrc/*.cu into qasr_torch/_build/
@@ -62,6 +64,20 @@ kernels, and checks them. Phases, one line each (or a few):
               rank-8 model (with a torch.profiler breakdown of one step),
               and each new kernel against its plain version, its bound and
               one library call
+ 10. dgt and  kernel J (the row-contracting x^T y of benchmarks/probe_dgt.py)
+     real CNN against its plain version at the probe's shape (M 65536, K = N
+              = 256), both modes, f32 and bf16, the same bits across modes
+              and runs (gated); the probe (``qasr_torch.tools.probe_dgt``) in
+              this process with its launches counted, and once as a
+              subprocess; ``timit_real_cnn`` (config 3, the real-CNN
+              baseline) at full width: served greedy and beam with its bf16
+              logits against f32, twenty steps, one ``train()`` whose
+              checkpoint serves (gated; no port kernel runs); then, not
+              gated, its train step against the rank-8 QCNN's
+              (``vs_baseline``) with a torch.profiler breakdown of one
+              real-CNN step, ``conv_roofline`` (block path and
+              ``use_pallas``) and kernel J against its plain version, its
+              bound and ``torch.matmul``
 
 then one JSON line with the per-kernel results, the nvidia-smi line and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -119,10 +135,12 @@ TOL_LOSS_BF16 = 1e-2
 TOL_GRAD_F32 = {"rel_norm": 1e-4}
 TOL_LOSS_F32 = 1e-4
 
-# H100 SXM datasheet peaks, the bounds' denominators (dense bf16, HBM3)
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_S = 3.35e12
 FRAME_S = 0.010  # 10 ms hop: one frame is 10 ms of audio
+# The training runs of the TIMIT models here (phases 6, 9 and 10; why the
+# rate is 1e-4: main, where phase 6 builds its configuration)
+TRAIN_OVERRIDES = {"data.dataset": "synthetic", "data.n_mels": 40, "model.vocab": 62,
+                   "data.bucket_sizes": (256,), "train.warmup_steps": 2,
+                   "train.learning_rate": 1e-4}
 
 
 def _line(**kw) -> None:
@@ -184,8 +202,12 @@ def _alternating(kernel_fn, plain_fn, n: int, n_plain: int | None = None,
 def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     """The least time the card could take, in ms: the larger of the
     operations over the bf16 tensor-core peak and the bytes (each input read
-    once, each output written once) over the HBM rate."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    once, each output written once) over the HBM rate, both the H100 SXM
+    datasheet's (``qasr_torch.utils.profiling.CHIPS``)."""
+    from qasr_torch.utils.profiling import CHIPS
+
+    spec = CHIPS["h100"]
+    t_ops, t_bytes = flops / (spec.peak_bf16_tflops * 1e12), nbytes / (spec.hbm_gbps * 1e9)
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -221,6 +243,7 @@ def _profile(fn, what: str, phase: int, smi: str, n_top: int, named: dict | None
 
 
 def _counters():
+    from qasr_torch.ops.kernels.dgt import dgt
     from qasr_torch.ops.kernels.qconv_dx import qconv_dx8, qconv_dx10
     from qasr_torch.ops.kernels.qconv_ft import qconv_ft8, qconv_ft10
     from qasr_torch.ops.kernels.qgemm import qgemm10, qgemm10_dw, qgemm10_dx
@@ -231,7 +254,7 @@ def _counters():
             "qconv_dx8": qconv_dx8, "qlstm_scan8": qlstm_scan_fast8,
             "qlstm_scan8_bwd": qlstm_scan_bwd, "qconv_ft10": qconv_ft10,
             "qconv_dx10": qconv_dx10, "qgemm10": qgemm10, "qgemm10_dx": qgemm10_dx,
-            "qgemm10_dw": qgemm10_dw}
+            "qgemm10_dw": qgemm10_dw, "dgt": dgt}
 
 
 def _want(**launches) -> dict:
@@ -1312,6 +1335,181 @@ def phase9_fast10(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: list) -
             for name, (src, rep) in replaces.items()]
 
 
+def phase10_dgt_real_cnn(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: list) -> dict:
+    """Kernel J and the real-CNN baseline. Kernel J (the row-contracting
+    ``x^T y`` of ``benchmarks/probe_dgt.py``) against its plain version at
+    the probe's shape, both modes, f32 and bf16, the same bits across modes
+    and runs (gated); its main path, ``qasr_torch.tools.probe_dgt``, in this
+    process with its launches counted and once as a subprocess. Config 3,
+    ``timit_real_cnn``, at full width: served greedy and beam, twenty steps,
+    one ``train()`` whose checkpoint serves (gated; it launches none of the
+    port's kernels). Then, not gated: its train step against the rank-8
+    QCNN's (``vs_baseline``) and a torch.profiler breakdown of one of its
+    steps, ``conv_roofline`` on the block path and under
+    ``use_pallas``, and kernel J's time against its plain version, its bound
+    and ``torch.matmul``. Returns kernel J's entry of the kernels line."""
+    from qasr_torch.configs import get_config
+    from qasr_torch.infer import Transcriber
+    from qasr_torch.models import build_model
+    from qasr_torch.models.qcnn import RealCNNEncoder
+    from qasr_torch.ops.kernels.dgt import dgt, dgt_plain
+    from qasr_torch.tools import probe_dgt
+    from qasr_torch.train.state import create_train_state
+    from qasr_torch.train.step import train_step
+    from qasr_torch.utils.profiling import conv_roofline
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    m, k, n = probe_dgt.M, probe_dgt.K, probe_dgt.N
+
+    # kernel J at the probe's shape against its plain version, gated as in
+    # phase 3: f32 differs in the summation order only (65536 terms a sum);
+    # bf16 sums the exact products in f32 as the plain version does and
+    # rounds once at the end (held against the f32 plain result, so the
+    # rounding, ~2e-3 relative, is what shows). The two modes feed the
+    # tensor cores (bf16) or the CUDA cores (f32) the same operands in the
+    # same order: the same bits; and the split of M is summed in fixed
+    # order: the same bits twice.
+    x32 = torch.randn((m, k), generator=g, device=dev)
+    y32 = torch.randn((m, n), generator=g, device=dev)
+    j_err = None
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        x, y = x32.to(dtype), y32.to(dtype)
+        x_t = x.T.contiguous()
+        dname = str(dtype)[6:]
+        ref = dgt_plain(x.float(), y.float(), mode="dgt")
+        got = dgt(x, y, mode="dgt")
+        for mode, xx in (("dgt", x), ("plain", x_t)):
+            out = dgt(xx, y, mode=mode)
+            err = _errors(out, ref)
+            _report(f"dgt M{m} K{k} N{n} {dname} mode={mode}", err, tol, phase=10)
+            if not torch.equal(out, got):
+                raise RuntimeError(f"dgt {dname}: mode {mode} differs in bits from mode dgt")
+            if (dtype, mode) == (torch.bfloat16, "dgt"):
+                j_err = err["max_abs_err"]
+        if not torch.equal(dgt(x, y, mode="dgt"), got):
+            raise RuntimeError(f"dgt {dname} differs between two runs on the same inputs")
+    print(f"phase 10 parity dgt: the two modes and two runs give the same bits (f32, bf16)",
+          flush=True)
+    del x32, y32
+
+    # kernel J's main path: the probe, in this process (its launches counted)
+    # and as a user runs it
+    _reset_counts()
+    probe_dgt.main()
+    probe_counts = _read_counts()
+    if probe_counts["dgt"] < 1 or probe_counts != _want(dgt=probe_counts["dgt"]):
+        raise RuntimeError(f"the probe's launches {probe_counts}, expected kernel J's alone")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.run([sys.executable, "-m", "qasr_torch.tools.probe_dgt"], cwd=root,
+                          env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"python -m qasr_torch.tools.probe_dgt exited {proc.returncode}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    print("phase 10 probe (python -m qasr_torch.tools.probe_dgt): "
+          + " | ".join(proc.stdout.strip().splitlines()), flush=True)
+
+    # config 3 at full width: serving, gated (finite logits of the padded
+    # shape; bf16 against the same weights in f32 within phase 4's limit:
+    # both paths round at ~14 layer boundaries, ~4e-3 each)
+    cfg = get_config("timit_real_cnn")
+    model = build_model(cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    if not isinstance(model, RealCNNEncoder):
+        raise RuntimeError(f"timit_real_cnn built {type(model).__name__}")
+    n_params = sum(p.numel() for p in model.parameters())
+    params = model.state_dict()
+    del model
+    greedy = Transcriber(cfg=cfg, params=params, device=dev)
+    beam = Transcriber(cfg=cfg, params=params, device=dev, beam=True)
+    _reset_counts()
+    hyp_greedy = greedy.transcribe_batch(wavs)
+    hyp_beam = beam.transcribe_batch(wavs)
+    logits, lengths = greedy.logits(wavs)
+    serve_counts = _read_counts()
+    if serve_counts != _want():
+        raise RuntimeError(f"real-CNN serving launched port kernels: {serve_counts}")
+    cfg32 = cfg.override(**{"model.compute_dtype": "float32"})
+    logits32, _ = Transcriber(cfg=cfg32, params=params, device=dev).logits(wavs)
+    torch.cuda.synchronize()
+    want_shape = (len(wavs), logits32.shape[1], cfg.model.vocab)
+    if tuple(logits.shape) != want_shape or not len(hyp_greedy) == len(hyp_beam) == len(wavs):
+        raise RuntimeError(f"real-CNN logits {tuple(logits.shape)}, expected {want_shape}")
+    lerr = _errors(logits, logits32)
+    _gate("real-CNN serving logits bf16 vs f32", lerr, TOL_LOGITS_F32)
+    del beam, params
+    print(f"phase 10 serving: timit_real_cnn bf16 ({n_params / 1e6:.1f} M params), "
+          f"{len(wavs)} utterances, logits {tuple(logits.shape)} finite; greedy phones "
+          f"{[len(h) for h in hyp_greedy]}, beam phones {[len(h) for h in hyp_beam]}; "
+          f"logits bf16 vs f32 max_abs {lerr['max_abs_err']:.3e} rel_norm "
+          f"{lerr['rel_norm']:.3e} (tol {TOL_LOGITS_F32}); port kernels launched: none",
+          flush=True)
+
+    # config 3 training: phase 6's batch and schedule (peak 1e-4 after a
+    # 2-step warmup); twenty steps lower the loss; one train() whose
+    # checkpoint a Transcriber serves; no port kernel runs
+    tcfg = cfg.override(**TRAIN_OVERRIDES)
+    state = create_train_state(tcfg, device=dev)
+    _reset_counts()
+    losses = [train_step(state, batch)["loss"].item() for _ in range(20)]
+    if _read_counts() != _want():
+        raise RuntimeError("the real-CNN train step launched port kernels")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"real CNN: twenty steps on one batch did not lower the loss: {losses}")
+    del state
+    torch.cuda.empty_cache()
+    lcfg = tcfg.override(**{"train.num_steps": 4, "train.log_every": 2, "train.eval_every": 4,
+                            "train.checkpoint_every": 4})
+    last, train_counts, hyp, train_s = _train_and_serve(lcfg, dev, "smoke_real_cnn", wavs, {})
+    if train_counts != _want():
+        raise RuntimeError(f"real-CNN train() launched port kernels: {train_counts}")
+    print(f"phase 10 train: timit_real_cnn full width, loss over 20 steps on one batch "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; train() {lcfg.train.num_steps} steps in "
+          f"{train_s:.2f} s, last log {json.dumps({k: last[k] for k in sorted(last)})}; "
+          f"checkpoint served {len(hyp)} utterances", flush=True)
+
+    # not gated: the real CNN's step against the rank-8 QCNN's, in turns
+    # (bench.py's vs_baseline: QCNN audio-s/s over real-CNN audio-s/s)
+    audio_s = batch["features"].shape[0] * batch["features"].shape[1] * FRAME_S
+    st_r = create_train_state(tcfg, device=dev)
+    st_q = create_train_state(tcfg8, device=dev)
+    step_r, step_q = _alternating(lambda: train_step(st_r, batch), lambda: train_step(st_q, batch),
+                                  3)
+    prof_r = _profile(lambda: train_step(st_r, batch), "real-CNN train step B16xT256 bf16", 10,
+                      smi, 8)
+    del st_r, st_q
+    torch.cuda.empty_cache()
+    # conv_roofline at the flagship's post-pool shape, block path and im2col
+    roof = {arm: conv_roofline(batch=16, t=256, f=13, cin=256, cout=256, use_pallas=arm == "pallas",
+                               device=dev)
+            for arm in ("block", "pallas")}
+    # kernel J at the probe's shape: its call against the plain version, the
+    # plain mode, torch.matmul and the bound
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    y = torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16)
+    x_t = x.T.contiguous()
+    j_ms, j_plain = _alternating(lambda: dgt(x, y, mode="dgt"),
+                                 lambda: dgt_plain(x, y, mode="dgt"), 50)
+    j_mode_plain = _time_ms(lambda: dgt(x_t, y, mode="plain"), 50)
+    lib_j = _time_ms(lambda: torch.matmul(x.T, y), 50)
+    bound_j = _bound(2 * m * k * n, _nbytes(x, y) + k * n * x.element_size())
+    print(f"phase 10 timing on {smi}: train step B16xT256 bf16 real CNN {step_r:.3f} ms "
+          f"({audio_s / step_r * 1e3:.1f} audio-s/s), rank-8 QCNN {step_q:.3f} ms "
+          f"({audio_s / step_q * 1e3:.1f} audio-s/s), vs_baseline {step_r / step_q:.3f}; "
+          + "; ".join(f"conv_roofline {arm} B16 T256 F13 C256: qconv {r['qconv_s'] * 1e3:.3f} ms "
+                      f"({r['qconv_tflops']:.1f} TFLOP/s, {r['qconv_pct_of_peak']:.1f}% of peak), "
+                      f"expanded real {r['expanded_real_s'] * 1e3:.3f} ms "
+                      f"({r['expanded_real_tflops']:.1f} TFLOP/s), ratio "
+                      f"{r['qconv_vs_expanded_real']:.3f}" for arm, r in roof.items())
+          + f"; dgt M{m} K{k} N{n} bf16 mode dgt {j_ms:.4f} ms, mode plain {j_mode_plain:.4f} "
+          f"ms, plain version {j_plain:.4f} ms, torch.matmul(x.T, y) {lib_j:.4f} ms, bound "
+          f"{bound_j[0]:.4f} ms ({bound_j[1]})", flush=True)
+    print(prof_r, flush=True)
+    return {"name": "dgt", "route": "cuda", "source": "qasr_torch/csrc/dgt.cu",
+            "replaces": "benchmarks/probe_dgt.py:23", "launches": probe_counts["dgt"],
+            "max_abs_err": j_err, "ms": j_ms, "plain_ms": j_plain, "bound_ms": bound_j[0],
+            "bound_by": bound_j[1], "library_ms": lib_j}
+
+
 def time_rank8(tree: str) -> int:
     """``--time-rank8 TREE``: the rank-8 kernels A, C (with its epilogue), B
     and B's dx role of the ``qasr_torch`` under ``TREE``, at phase 5's shapes,
@@ -1506,9 +1704,7 @@ def main() -> int:
     # and the loss diverges on the kernel and the plain path alike, so the
     # short runs here train at 1e-4. The fixed batch is TIMIT-like: 16
     # utterances of 256 frames (2.56 s) with 40 phone labels each.
-    tcfg = cfg.override(**{"data.dataset": "synthetic", "data.n_mels": 40, "model.vocab": 62,
-                           "data.bucket_sizes": (256,), "train.warmup_steps": 2,
-                           "train.learning_rate": 1e-4})
+    tcfg = cfg.override(**TRAIN_OVERRIDES)
     brng = np.random.default_rng(SEED + 1)
     batch = {
         "features": brng.standard_normal((16, 256, 40, 4)).astype(np.float32),
@@ -1668,6 +1864,9 @@ def main() -> int:
     # 9. timit_qcnn in the 10-product scheme, served and trained through the
     # CLI (its own launch counts)
     fast10_entries = phase9_fast10(dev, smi, tcfg, batch, wavs)
+    # 10. kernel J through the probe, and the real-CNN baseline (config 3)
+    # served and trained (their own launch counts)
+    dgt_entry = phase10_dgt_real_cnn(dev, smi, tcfg, batch, wavs)
 
     def entry(name, source, replaces, bound, lib_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1689,6 +1888,7 @@ def main() -> int:
         scan_entry,
         scan_bwd_entry,
         *fast10_entries,
+        dgt_entry,
     ])
     print(smi, flush=True)
     _line(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -278,6 +278,58 @@ struct Product<T, KC, true> {
   }
 };
 
+// The product xc^T . dyc over one chunk of KC rows m (kernels I and J): A =
+// xc^T, read from xc [KC][kLdb] (rows m) transposed; B = dyc [KC][kLdb] as
+// Product's B. The accumulator layout is Product's, so row(j) indexes the
+// output's rows (K) and col(j) its columns (N).
+template <typename T, int KC, bool TC = Elem<T>::kTensorCore>
+struct ProductAT;
+
+// f32 on the CUDA cores: within a warp the A read is a broadcast and the B
+// read is contiguous.
+template <typename T, int KC>
+struct ProductAT<T, KC, false> : Product<T, KC, false> {
+  __device__ void mma_t(const T* xc, const T* dc) {
+    constexpr int LD = Elem<T>::kLdb, dr = kThreads / BN;
+    const int c = this->col(0), r0 = this->row(0);
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      const float bv = Elem<T>::to_f(dc[k * LD + c]);
+#pragma unroll
+      for (int j = 0; j < kPerThread; ++j)
+        this->acc[j] += Elem<T>::to_f(xc[k * LD + r0 + j * dr]) * bv;
+    }
+  }
+};
+
+// bf16 on the tensor cores, the warp tiling of Product<T, KC, true>. The A
+// fragment (16 rows of K x 16 of M) comes from xc's rows m by
+// ldmatrix.trans: lane l addresses row (l/16)*8 + l%8 of the 16 m rows, at
+// K offset ((l/8)%2)*8, so the four 8x8 matrices arrive as (K 0-7, M 0-7),
+// (K 8-15, M 0-7), (K 0-7, M 8-15), (K 8-15, M 8-15): the A registers' order.
+template <typename T, int KC>
+struct ProductAT<T, KC, true> : Product<T, KC, true> {
+  __device__ void mma_t(const T* xc, const T* dc) {
+    constexpr int LD = Elem<T>::kLdb;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int wm = warp / 4, wn = warp % 4;
+    const int lr = lane % 16, lc = (lane / 16) * 8;  // B, as Product loads it
+    const int am = (lane / 16) * 8 + lane % 8, ak = ((lane / 8) % 2) * 8;
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      unsigned b[4];
+      ldmatrix_x4_trans(b, dc + (kk * 16 + lr) * LD + wn * 16 + lc);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        unsigned a[4];
+        ldmatrix_x4_trans(a, xc + (kk * 16 + am) * LD + wm * 32 + mi * 16 + ak);
+        mma_bf16_16816(this->acc[mi * 2 + 0], a, b[0], b[1]);
+        mma_bf16_16816(this->acc[mi * 2 + 1], a, b[2], b[3]);
+      }
+    }
+  }
+};
+
 // y[b] += O[b, p] * acc, in registers
 template <typename Prod, int P>
 __device__ inline void fold(float (&y)[4][kPerThread], const Prod& prod, const Scheme<P>& sch,

@@ -55,6 +55,12 @@ routing, as the JAX encoder's does; ``use_pallas=True`` keeps the tower
 packed (im2col GEMM where it applies) and puts the dense layers on the
 10-product GEMM (``qasr/models/qlstm.py:338, 370``); ``dense_variant`` is not
 read, as the JAX encoder does not read it (any value it takes is accepted).
+
+``arch="real_cnn"`` (``qasr/train/state.py:57-67``): the real-CNN baseline on
+cuDNN convs and cuBLAS GEMMs, as the JAX package runs it on plain XLA;
+``op_variant``, ``dense_variant`` and ``use_pallas`` are not read, as the
+JAX ``build_model`` does not pass them. ``arch="real_lstm"`` raises
+``NotImplementedError`` (Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -64,7 +70,7 @@ from torch import nn
 
 from qasr_torch.configs import Config
 from qasr_torch.configs.config import ModelConfig
-from qasr_torch.models.qcnn import QCNNEncoder, conv_scheme
+from qasr_torch.models.qcnn import QCNNEncoder, RealCNNEncoder, conv_scheme
 from qasr_torch.models.qlstm import QLSTMEncoder
 from qasr_torch.ops.kernels import qlstm_scan
 
@@ -129,8 +135,8 @@ def build_model(
     port's init) on ``device`` (the GPU unless the caller asks for the CPU),
     in train mode (dropout at ``cfg.model.dropout_rate``) or eval mode.
 
-    ``arch="qcnn"`` and ``arch="qlstm"`` serve and train, routed as the
-    module docstring's table says in both modes.
+    ``arch="qcnn"``, ``arch="qlstm"`` and ``arch="real_cnn"`` serve and
+    train, routed as the module docstring says in both modes.
     """
     m = cfg.model
     dtype = _DTYPES[m.compute_dtype]
@@ -173,7 +179,22 @@ def build_model(
             generator=generator,
             device=device,
         ).train(train)
-    raise NotImplementedError(
-        f"arch={m.arch!r} is not ported yet (ROADMAP.md Queue 1: real_cnn is item 6, "
-        "real_lstm is item 13)"
-    )
+    if m.arch == "real_cnn":
+        return RealCNNEncoder(
+            n_feats=cfg.data.n_mels,
+            conv_features=tuple(m.conv_features),
+            dense_features=tuple(m.dense_features),
+            vocab=m.vocab,
+            kernel_size=tuple(m.kernel_size),
+            pool_after=m.pool_after,
+            pool_size=m.pool_size,
+            dropout_rate=m.dropout_rate,
+            dtype=dtype,
+            generator=generator,
+            device=device,
+        ).train(train)
+    if m.arch == "real_lstm":
+        raise NotImplementedError(
+            "arch='real_lstm' is not ported yet (ROADMAP.md Queue 1 item 13)"
+        )
+    raise ValueError(f"unknown arch {m.arch!r} (choose qcnn | real_cnn | qlstm | real_lstm)")

@@ -12,12 +12,13 @@ CPU.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from qasr_torch.ops.initializers import quaternion_init
+from qasr_torch.ops.initializers import glorot_uniform, lecun_normal, quaternion_init
 from qasr_torch.ops.kernels import qconv_ft
 from qasr_torch.ops.kernels.qconv_chain import chain_layer
 from qasr_torch.ops.kernels.qgemm import qconv2d_pallas, qdense_pallas
@@ -158,13 +159,42 @@ class PReLU(nn.Module):
 
 
 class Dense(nn.Module):
-    """Real dense layer with the JAX layout: ``kernel [In, V]``, ``bias [V]``
-    (glorot-uniform kernel, zero bias)."""
+    """Real dense layer with the JAX layout: ``kernel [In, V]`` (drawn by
+    ``kernel_init``: glorot-uniform unless the caller names another
+    initializer of ``qasr_torch.ops.initializers``), ``bias [V]`` (zeros)."""
 
     def __init__(
         self,
         cin: int,
         features: int,
+        *,
+        kernel_init: Callable[..., torch.Tensor] = glorot_uniform,
+        dtype: torch.dtype = torch.float32,
+        generator: torch.Generator | None = None,
+        device: torch.device | str = "cuda",
+    ):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(kernel_init((cin, features), generator=generator, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        return x @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+
+
+class Conv(nn.Module):
+    """Real 2-D convolution with flax's layout and defaults (``nn.Conv``):
+    ``kernel [kh, kw, Cin, Cout]`` (lecun-normal), ``bias [Cout]`` (zeros),
+    stride 1, SAME padding, on channels-last ``[B, T, F, Cin]`` -> ``[B, T,
+    F, Cout]`` (kh over T, kw over F). One cuDNN conv on the card, which
+    takes the channels-last input as it lies."""
+
+    def __init__(
+        self,
+        cin: int,
+        features: int,
+        kernel_size: Sequence[int] = (3, 3),
         *,
         dtype: torch.dtype = torch.float32,
         generator: torch.Generator | None = None,
@@ -172,15 +202,16 @@ class Dense(nn.Module):
     ):
         super().__init__()
         self.dtype = dtype
-        limit = (6.0 / (cin + features)) ** 0.5
-        gdev = generator.device if generator is not None else torch.device("cpu")
-        k = (torch.rand(cin, features, generator=generator, device=gdev) * 2 - 1) * limit
-        self.kernel = nn.Parameter(k.to(device))
+        self.kernel = nn.Parameter(
+            lecun_normal((*kernel_size, cin, features), generator=generator, device=device)
+        )
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype)
-        return x @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+        w = self.kernel.to(self.dtype).permute(3, 2, 0, 1)  # [kh,kw,I,O] -> [O,I,kh,kw]
+        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w, self.bias.to(self.dtype),
+                     padding="same")
+        return y.permute(0, 2, 3, 1)
 
 
 class Dropout(nn.Module):

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from qasr_torch.models.layers import (
+    Conv,
     Dense,
     Dropout,
     PReLU,
@@ -37,6 +38,7 @@ from qasr_torch.models.layers import (
     stacked_to_tf_packed,
     tf_packed_to_stacked,
 )
+from qasr_torch.ops.initializers import lecun_normal
 from qasr_torch.ops.kernels import qconv_ft
 
 
@@ -101,6 +103,14 @@ def stacked_routing(
     return out
 
 
+def freq_max_pool(x: torch.Tensor, pool_size: int) -> torch.Tensor:
+    """Max-pool ``[B, T, F, C]`` over frequency only, ``(1, pool_size)``
+    VALID (time resolution feeds CTC)."""
+    return F.max_pool2d(
+        x.permute(0, 3, 1, 2), kernel_size=(1, pool_size), stride=(1, pool_size)
+    ).permute(0, 2, 3, 1)
+
+
 def quaternion_conv_tower(
     x: torch.Tensor,
     convs: Sequence[QConv],
@@ -137,10 +147,7 @@ def quaternion_conv_tower(
         else:
             x = act(conv(x, plain=plain))
         if i + 1 == pool_after:
-            # frequency only: time resolution feeds CTC
-            x = F.max_pool2d(
-                x.permute(0, 3, 1, 2), kernel_size=(1, pool_size), stride=(1, pool_size)
-            ).permute(0, 2, 3, 1)
+            x = freq_max_pool(x, pool_size)
     if in_stacked:
         x = pending(x)
     return x, in_stacked
@@ -269,5 +276,91 @@ class QCNNEncoder(ConvTowerEncoder):
         x = self._run_tower(x, plain)
         for i in range(self.n_dense):
             x = getattr(self, f"dense_prelu_{i}")(getattr(self, f"qdense_{i}")(x, plain=plain))
+            x = getattr(self, f"dense_dropout_{i}")(x, generator)
+        return self.output(x).float()
+
+
+class RealCNNEncoder(nn.Module):
+    """Real-valued CNN baseline at equal feature-map count (counterpart of
+    ``qasr/models/qcnn.py:RealCNNEncoder``, config 3 ``timit_real_cnn``):
+    the QCNN's topology with ordinary real convs and dense layers of
+    ``4 * features`` channels, so 4x the quaternion model's parameters.
+
+    The JAX package runs it on plain XLA, so the port runs it on cuDNN convs
+    and cuBLAS GEMMs: it has no kernel of its own. Input ``[B, T, F, 4]``
+    (the four quaternion components are conv_0's four input channels),
+    channels-last throughout the tower: SAME 2-D convs over (T, F), each
+    with its PReLU; the frequency-only ``(1, pool_size)`` VALID max-pool
+    after ``pool_after`` layers; the flatten ``[B, T, F*C]`` (index
+    ``f*C + c``); the dense layers with their PReLUs and dropout; the real
+    output layer. Every conv and dense kernel, the output head's too, is
+    flax's default lecun-normal, every bias zero. Parameters keep the JAX
+    names and shapes (``docs/checkpoint_layout.md``): ``conv_<i>.kernel
+    [kh, kw, Cin, Cout]``, ``conv_<i>.bias``, ``conv_prelu_<i>.alpha``,
+    ``dense_<i>.kernel [In, Out]``, ``dense_<i>.bias``,
+    ``dense_prelu_<i>.alpha``, ``output.kernel``, ``output.bias``.
+    """
+
+    def __init__(
+        self,
+        *,
+        n_feats: int,
+        conv_features: Sequence[int] = (32, 32, 64, 64, 64, 64, 64, 64, 64, 64),
+        dense_features: Sequence[int] = (256, 256, 256),
+        vocab: int = 62,
+        kernel_size: tuple[int, int] = (3, 3),
+        pool_after: int = 1,
+        pool_size: int = 3,
+        dropout_rate: float = 0.3,
+        dtype: torch.dtype = torch.float32,
+        generator: torch.Generator | None = None,
+        device: torch.device | str = "cuda",
+    ):
+        super().__init__()
+        self.dtype = dtype
+        self.pool_after = pool_after
+        self.pool_size = pool_size
+        self.n_conv = len(conv_features)
+        self.n_dense = len(dense_features)
+        common = dict(dtype=dtype, generator=generator, device=device)
+        cin, f = 4, n_feats
+        for i, feats in enumerate(conv_features):
+            self.add_module(f"conv_{i}", Conv(cin, 4 * feats, kernel_size, **common))
+            self.add_module(f"conv_prelu_{i}", PReLU(4 * feats, device=device))
+            if i + 1 == pool_after:
+                f = (f - pool_size) // pool_size + 1
+            cin = 4 * feats
+        k = f * cin
+        for i, feats in enumerate(dense_features):
+            self.add_module(f"dense_{i}", Dense(k, 4 * feats, kernel_init=lecun_normal, **common))
+            self.add_module(f"dense_prelu_{i}", PReLU(4 * feats, device=device))
+            self.add_module(f"dense_dropout_{i}", Dropout(dropout_rate))
+            k = 4 * feats
+        self.output = Dense(k, vocab, kernel_init=lecun_normal, **common)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        *,
+        lengths: torch.Tensor | None = None,
+        plain: bool = False,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """``x [B, T, F, 4]`` -> logits ``[B, T, vocab]`` f32. In train mode
+        the dropout masks come from ``generator`` (on x's device).
+        ``lengths`` is accepted and unused (the model is frame-local, as the
+        JAX encoder's); so is ``plain``, as there is no kernel to swap."""
+        del lengths, plain
+        if x.ndim != 4:
+            raise ValueError(f"expected [B, T, F, 4] input, got {tuple(x.shape)}")
+        x = x.to(self.dtype)
+        for i in range(self.n_conv):
+            x = getattr(self, f"conv_prelu_{i}")(getattr(self, f"conv_{i}")(x))
+            if i + 1 == self.pool_after:
+                x = freq_max_pool(x, self.pool_size)
+        b, t = x.shape[:2]
+        x = x.reshape(b, t, -1)
+        for i in range(self.n_dense):
+            x = getattr(self, f"dense_prelu_{i}")(getattr(self, f"dense_{i}")(x))
             x = getattr(self, f"dense_dropout_{i}")(x, generator)
         return self.output(x).float()

@@ -11,6 +11,10 @@ differ because ``torch.Generator`` is not JAX's PRNG):
 
 fan_in/fan_out are counted in quaternion units (Cin*prod(kernel),
 Cout*prod(kernel)).
+
+The real layers' initializers of flax's defaults are here too:
+:func:`glorot_uniform` (the QCNN's output head) and :func:`lecun_normal`
+(flax's ``nn.Conv``/``nn.Dense`` default: the real-CNN baseline).
 """
 
 from __future__ import annotations
@@ -61,3 +65,41 @@ def quaternion_init(
     sin_t = mag * torch.sin(theta)
     w = torch.stack([w_r, sin_t * axis[..., 0], sin_t * axis[..., 1], sin_t * axis[..., 2]])
     return w.to(device=device, dtype=dtype)
+
+
+def glorot_uniform(
+    shape: tuple[int, ...],
+    *,
+    generator: torch.Generator | None = None,
+    device: torch.device | str = "cpu",
+) -> torch.Tensor:
+    """flax's ``glorot_uniform`` for a real kernel ``[*kernel, In, Out]``:
+    uniform on ``+-sqrt(6 / (fan_in + fan_out))``. Drawn on ``generator``'s
+    device, moved to ``device``."""
+    fan_in, fan_out = _fans(tuple(shape))
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    gdev = generator.device if generator is not None else torch.device("cpu")
+    k = (torch.rand(*shape, generator=generator, device=gdev) * 2 - 1) * limit
+    return k.to(device)
+
+
+# the standard deviation of a unit normal truncated to [-2, 2] (flax's
+# variance_scaling divides by it, so the draw keeps the asked variance)
+_TRUNC2_STD = 0.87962566103423978
+
+
+def lecun_normal(
+    shape: tuple[int, ...],
+    *,
+    generator: torch.Generator | None = None,
+    device: torch.device | str = "cpu",
+) -> torch.Tensor:
+    """flax's ``lecun_normal`` for a real kernel ``[*kernel, In, Out]``: a
+    normal truncated at two standard deviations, scaled to variance
+    ``1 / fan_in``. Drawn on ``generator``'s device, moved to ``device``."""
+    fan_in, _ = _fans(tuple(shape))
+    std = math.sqrt(1.0 / fan_in) / _TRUNC2_STD
+    gdev = generator.device if generator is not None else torch.device("cpu")
+    k = torch.empty(*shape, device=gdev)
+    torch.nn.init.trunc_normal_(k, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+    return k.to(device)

@@ -57,6 +57,8 @@ _ENTRIES = {
     # gates, cs, dhs, wc8, lengths, dz, xbuf, dh, dc, T, D, B, H, dtype, v8, o8,
     # stream
     "qasr_qlstm_scan8_bwd": [_P] * 9 + [_I] * 5 + [_P] * 3,
+    # x, y, part, out, M, K, N, splits, rows, dtype, stream
+    "qasr_dgt": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

@@ -1,0 +1,118 @@
+"""The row-contracting product ``out [K, N] = x^T y``: kernel J
+(``qasr_torch/csrc/dgt.cu``) and its plain PyTorch version.
+
+Counterpart of the TPU kernel ``benchmarks/probe_dgt.py:kern``, which asks
+whether a matrix unit contracts rows with rows (the orientation a weight
+gradient needs) as fast as the native orientation. Two modes, as the probe's:
+
+- ``"dgt"``: ``x [M, K]``, rows contract with rows: ``out = x^T y``;
+- ``"plain"``: ``x`` pre-transposed to ``[K, M]``: ``out = x y``.
+
+``y`` is ``[M, N]`` in both; bf16 or f32 in, f32 accumulation, one cast to
+x's dtype at the end. Kernel J splits M over blocks and sums the f32
+partials in a second pass in fixed order, so it gives the same bits every
+run, and the two modes give the same bits as each other.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from qasr_torch.ops.kernels import _build
+from qasr_torch.ops.kernels.qconv_ft import _DTYPE_CODE, _check_cuda_tensor
+
+MODES = ("dgt", "plain")
+# kernel J's rows of M a chunk (dgt.cu: DgtCfg) and its output tile
+_CHUNK = {torch.bfloat16: 32, torch.float32: 16}
+_TILE = 64
+# blocks of kernel J resident on an SM (dgt.cu: kMinBlocks): the split of M
+# aims at one full wave of them
+_BLOCKS_PER_SM = 4
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r} (choose {' | '.join(MODES)})")
+
+
+def _dims(x: torch.Tensor, y: torch.Tensor, mode: str) -> tuple[int, int, int]:
+    """``(M, K, N)`` of ``x`` and ``y`` in ``mode``; raises on shapes that do
+    not contract."""
+    _check_mode(mode)
+    if x.ndim != 2 or y.ndim != 2:
+        raise ValueError(f"expected 2-D x and y, got {tuple(x.shape)} and {tuple(y.shape)}")
+    m, k = x.shape if mode == "dgt" else x.shape[::-1]
+    if y.shape[0] != m:
+        raise ValueError(f"x {tuple(x.shape)} ({mode}) and y {tuple(y.shape)} do not contract")
+    return m, k, y.shape[1]
+
+
+def dgt_plain(x: torch.Tensor, y: torch.Tensor, *, mode: str) -> torch.Tensor:
+    """Plain version of kernel J: ``x.float().T @ y.float()`` (``"dgt"``) or
+    ``x.float() @ y.float()`` (``"plain"``), cast to x's dtype."""
+    _dims(x, y, mode)
+    xf = x.float()
+    return ((xf.T if mode == "dgt" else xf) @ y.float()).to(x.dtype)
+
+
+def supported(m: int, k: int, n: int, dtype: torch.dtype, mode: str = "dgt") -> bool:
+    """Whether kernel J takes these shapes: f32 or bf16, K and N multiples of
+    8 (16-byte rows), and M too in ``"plain"`` mode, where x's rows run
+    along M."""
+    _check_mode(mode)
+    return (
+        dtype in _DTYPE_CODE and m >= 1 and k >= 1 and n >= 1 and k % 8 == 0 and n % 8 == 0
+        and (mode == "dgt" or m % 8 == 0)
+    )
+
+
+def splits(m: int, k: int, n: int, dtype: torch.dtype, sms: int) -> int:
+    """The number of runs of M that kernel J sums apart: enough blocks for
+    one full wave on ``sms`` SMs, each run at least one chunk, none empty."""
+    chunks = math.ceil(m / _CHUNK[dtype])
+    tiles = math.ceil(k / _TILE) * math.ceil(n / _TILE)
+    want = min(chunks, max(1, math.ceil(_BLOCKS_PER_SM * sms / tiles)))
+    return math.ceil(chunks / math.ceil(chunks / want))
+
+
+def dgt_cuda(x: torch.Tensor, y: torch.Tensor, *, mode: str) -> torch.Tensor:
+    """Launch kernel J (its two passes) on CUDA ``x`` and ``y``: one device,
+    contiguous, the same dtype, shapes :func:`supported` admits. Returns
+    ``[K, N]`` in x's dtype. Raises on anything the kernel does not take, or
+    when it fails to build or launch."""
+    m, k, n = _dims(x, y, mode)
+    if not supported(m, k, n, x.dtype, mode):
+        raise ValueError(f"kernel J does not take M={m} K={k} N={n} {x.dtype} ({mode})")
+    _check_cuda_tensor("x", x, x.dtype, x.shape)
+    _check_cuda_tensor("y", y, x.dtype, y.shape)
+    if y.device != x.device:
+        raise ValueError(f"y is on {y.device}, x on {x.device}")
+    lib = _build.load_library()
+    s = splits(m, k, n, x.dtype, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    part = torch.empty((s, k, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((k, n), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.qasr_dgt(
+            x.data_ptr(), y.data_ptr(), part.data_ptr(), out.data_ptr(), m, k, n, s,
+            int(mode == "dgt"), _DTYPE_CODE[x.dtype], stream,
+        )
+    _build.check(lib, err, "dgt launch")
+    dgt.launches += 1
+    return out
+
+
+def dgt(x: torch.Tensor, y: torch.Tensor, *, mode: str, plain: bool = False) -> torch.Tensor:
+    """``out [K, N]`` of ``x`` and ``y [M, N]`` in ``mode`` (see the module
+    docstring), in x's dtype. A CPU tensor, or ``plain=True``, takes the
+    plain version; a CUDA tensor launches kernel J (counted in
+    ``dgt.launches``) or raises."""
+    if plain or not x.is_cuda:
+        return dgt_plain(x, y, mode=mode)
+    return dgt_cuda(x, y, mode=mode)
+
+
+#: launches of kernel J since the last reset (counted where it launches)
+dgt.launches = 0

@@ -435,3 +435,50 @@ def test_10_product_functions_match_plain_autograd_on_card(cuda_device, m):
         grads.append([t.grad for t in ts])
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1000, 72, 40), (4096, 256, 256), (777, 64, 136)])
+def test_dgt_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
+    """Kernel J against its plain version in both modes (``"plain"`` where M
+    is a multiple of 8): ragged M (the last chunk zero-filled), K and N over
+    partial tiles; a sum over M, held relative to its largest element; the
+    two modes and two runs give the same bits."""
+    from qasr_torch.ops.kernels import dgt
+
+    tol = _tol(dtype)
+    rng = np.random.default_rng(16)
+    x = _t(_rand(rng, m, k)).to(cuda_device, dtype)
+    y = _t(_rand(rng, m, n)).to(cuda_device, dtype)
+    before = dgt.dgt.launches
+    got = dgt.dgt(x, y, mode="dgt")
+    again = dgt.dgt(x, y, mode="dgt")
+    modes = ("dgt", "plain") if dgt.supported(m, k, n, dtype, "plain") else ("dgt",)
+    if "plain" in modes:
+        assert torch.equal(dgt.dgt(x.T.contiguous(), y, mode="plain"), got)
+    torch.cuda.synchronize()
+    assert dgt.dgt.launches == before + 1 + len(modes)
+    assert got.dtype == dtype and got.shape == (k, n) and torch.equal(got, again)
+    want = dgt.dgt_plain(x, y, mode="dgt").float()
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=tol["rtol"], atol=tol["atol"] * scale)
+
+
+@pytest.mark.cuda
+def test_dgt_kernel_refuses_on_card(cuda_device):
+    """Shapes kernel J does not take raise; nothing falls back."""
+    from qasr_torch.ops.kernels import dgt
+
+    x = torch.zeros(64, 12, device=cuda_device)
+    with pytest.raises(ValueError, match="does not take"):
+        dgt.dgt(x, torch.zeros(64, 8, device=cuda_device), mode="dgt")
+    with pytest.raises(ValueError, match="does not take"):
+        dgt.dgt(torch.zeros(8, 60, device=cuda_device), torch.zeros(60, 8, device=cuda_device),
+                mode="plain")
+    with pytest.raises(ValueError, match="does not take"):
+        dgt.dgt(torch.zeros(64, 8, device=cuda_device, dtype=torch.float16),
+                torch.zeros(64, 8, device=cuda_device, dtype=torch.float16), mode="dgt")
+    with pytest.raises(ValueError, match="contiguous"):
+        dgt.dgt(torch.zeros(8, 64, device=cuda_device).T, torch.zeros(64, 8, device=cuda_device),
+                mode="dgt")

@@ -3,9 +3,9 @@ stacked conv), G (its transpose), H (the GEMM, forward and dx) and I (the
 GEMM's dW).
 
 On the CPU each wrapper runs its kernel's plain PyTorch version; that is
-what is held here against the TPU kernels in interpret mode
-(``pltpu.force_tpu_interpret_mode()``, as tests/test_pallas.py and
-tests/test_qconv_chain.py run them): ``qconv2d_ft_stacked`` (``_ft_kernel``
+what is held here against the TPU kernels, interpreted as
+tests/test_pallas.py and tests/test_qconv_chain.py run them (through the
+HLO interpreter: ``tests/pallas_interpret.py``): ``qconv2d_ft_stacked`` (``_ft_kernel``
 with ``SCHEME10``, forward and dx), ``qconv_chain.chain_layer(...,
 scheme="fast10")`` (``_fwd_kernel``, ``_dx_kernel``) and
 ``qgemm.qgemm_stacked`` (``_qgemm_kernel``, ``_qgemm_dw_kernel``). The CUDA
@@ -26,12 +26,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from qasr.ops.pallas import qconv_chain as jchain
 from qasr.ops.pallas import qconv_ft as jft
 from qasr_torch.ops.kernels import qconv_dx, qconv_ft, qgemm
 from qasr_torch.ops.kernels.qconv_chain import ChainLayerFn, chain_layer, qconv_dw
+from tests.pallas_interpret import hlo_interpret
 
 # the package exports a function of the module's name
 jqgemm = importlib.import_module("qasr.ops.pallas.qgemm")
@@ -72,7 +72,7 @@ def test_qconv_fast10_plain_matches_pallas_interpret(kernel, t, cin, cout):
     rng = np.random.default_rng(sum(kernel) + t)
     x = _rand(rng, 2, 4, 5, t, cin, scale=0.5)
     w = _rand(rng, 4, *kernel, cin, cout, scale=0.2)
-    with pltpu.force_tpu_interpret_mode():
+    with hlo_interpret():
         want = np.asarray(jft.qconv2d_ft_stacked(jnp.asarray(x), jnp.asarray(w)))
     got = qconv_ft.qconv_ft10(_t(x), _t(w))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
@@ -90,7 +90,7 @@ def test_qconv_fast10_grads_match_pallas_vjp(kernel, t):
     x = _rand(rng, 2, 4, 4, t, 8, scale=0.5)
     w = _rand(rng, 4, *kernel, 8, 16, scale=0.2)
     dz = _rand(rng, 2, 4, 4, t, 16)
-    with pltpu.force_tpu_interpret_mode():
+    with hlo_interpret():
         want_z, vjp = jax.vjp(jft.qconv2d_ft_stacked, jnp.asarray(x), jnp.asarray(w))
         want_dx, want_dw = vjp(jnp.asarray(dz))
     tx, tw = _t(x).requires_grad_(), _t(w).requires_grad_()
@@ -108,7 +108,7 @@ def test_qconv_dx10_plain_and_rotated_match_pallas_dx_role():
     rng = np.random.default_rng(21)
     dz = _rand(rng, 2, 4, 5, 19, 16)
     w = _rand(rng, 4, 3, 5, 8, 16, scale=0.2)
-    with pltpu.force_tpu_interpret_mode():
+    with hlo_interpret():
         want = np.asarray(jft._ft_dx_impl(jnp.asarray(dz), jnp.asarray(w), jft.SCHEME10))
     dx, dalpha = qconv_dx.qconv_dx10(_t(dz), _t(w))
     assert dalpha is None
@@ -162,7 +162,7 @@ def test_chain_layer_fast10_matches_pallas_chain(kernel, negative_alpha, prologu
         zp = jchain.chain_layer(xp, ww, bb, aa if prologue else None, t_valid=t, scheme="fast10")
         return jchain.chain_exit(zp, f, t, kw)
 
-    with pltpu.force_tpu_interpret_mode():
+    with hlo_interpret():
         want_z, vjp = jax.vjp(ref, *map(jnp.asarray, (x, w, bias, alpha)))
         want = vjp(jnp.asarray(dz))
     ts = [_t(a).requires_grad_() for a in (x, w, bias, alpha)]
@@ -212,7 +212,7 @@ def test_qgemm_plain_matches_pallas_interpret(m, k, n):
     rng = np.random.default_rng(m + k)
     x4 = _rand(rng, 4, m, k)
     w = _rand(rng, 4, k, n, scale=0.1)
-    with pltpu.force_tpu_interpret_mode():
+    with hlo_interpret():
         want = np.asarray(jqgemm.qgemm_stacked(jnp.asarray(x4), jnp.asarray(w)))
     np.testing.assert_allclose(qgemm.qgemm_stacked_plain(_t(x4), _t(w)).numpy(), want, **TOL)
     np.testing.assert_allclose(qgemm.qgemm10(_t(x4), _t(w)).numpy(), want, **TOL)
@@ -234,7 +234,7 @@ def test_qgemm_fn_grads_match_pallas(m, k, n):
     x4 = _rand(rng, 4, m, k, scale=0.5)
     w = _rand(rng, 4, k, n, scale=0.1)
     dy4 = _rand(rng, 4, m, n)
-    with pltpu.force_tpu_interpret_mode():
+    with hlo_interpret():
         want_y, vjp = jax.vjp(jqgemm.qgemm_stacked, jnp.asarray(x4), jnp.asarray(w))
         want_dx, want_dw = vjp(jnp.asarray(dy4))
     tx, tw = _t(x4).requires_grad_(), _t(w).requires_grad_()
@@ -247,7 +247,7 @@ def test_qgemm_fn_grads_match_pallas(m, k, n):
     # each dW formulation alone, against the TPU's
     want_einsum = jqgemm._dw_einsum(jnp.asarray(x4), jnp.asarray(dy4))
     _close_rel(qgemm.dw_einsum(_t(x4), _t(dy4)), want_einsum, "dw_einsum")
-    with pltpu.force_tpu_interpret_mode():
+    with hlo_interpret():
         want_pallas = jqgemm._dw_pallas(jnp.asarray(x4), jnp.asarray(dy4))
     _close_rel(qgemm.qgemm_dw_plain(_t(x4), _t(dy4)), want_pallas, "qgemm_dw_plain")
 
@@ -259,7 +259,7 @@ def test_qdense_pallas_matches_pallas_interpret():
     x = _rand(rng, 2, 7, 4 * 13)
     w = _rand(rng, 4, 13, 9, scale=0.3)
     dy = _rand(rng, 2, 7, 36)
-    with pltpu.force_tpu_interpret_mode():
+    with hlo_interpret():
         want, vjp = jax.vjp(jqgemm.qdense_pallas, jnp.asarray(x), jnp.asarray(w))
         want_dx, want_dw = vjp(jnp.asarray(dy))
     tx, tw = _t(x).requires_grad_(), _t(w).requires_grad_()
@@ -285,7 +285,7 @@ def test_qconv2d_pallas_matches_pallas_interpret(spatial, cin, cout, padding, st
     rng = np.random.default_rng(cin + cout + spatial[0])
     x = _rand(rng, 2, *spatial, 4 * cin, scale=0.5)
     w = _rand(rng, 4, 3, 3, cin, cout, scale=0.2)
-    with pltpu.force_tpu_interpret_mode():
+    with hlo_interpret():
         want, vjp = jax.vjp(
             lambda xx, ww: jqgemm.qconv2d_pallas(xx, ww, strides=strides, padding=padding),
             jnp.asarray(x), jnp.asarray(w),

@@ -15,11 +15,10 @@ twin ``qconv_fast10_stacked`` (``qconv_ft.supported`` asks for bf16) and
 op variants give JAX one program, and ``use_pallas`` (every conv packed,
 every dense layer on ``qdense_pallas``) makes ``op_variant`` and
 ``dense_variant`` moot; its dense ``pallas`` layers and its ``use_pallas``
-convs run the Pallas kernels in interpret mode under jit. The JAX side
-therefore runs once for each of its three programs (dense pallas or not,
-``use_pallas``) and every port configuration is held against its program's
-results: running an interpreted ``pallas_call`` through the same cached jit
-again hangs the process (qasr/ops/pallas/qconv_chain.py:409-411 saw it too).
+convs run the Pallas kernels interpreted (``tests/pallas_interpret.py``)
+under jit. The JAX side therefore runs once for each of its three programs
+(dense pallas or not, ``use_pallas``), each part one jitted computation,
+and every port configuration is held against its program's results.
 
 Tolerances, f32: logits rtol/atol 1e-4 (three conv layers of up to 9*128
 products and two dense layers, summed in another order); the loss and the
@@ -35,7 +34,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from qasr.configs import get_config as jget_config
 from qasr.data.batching import BatchStream as JBatchStream
@@ -48,9 +46,13 @@ from qasr_torch.configs import get_config
 from qasr_torch.models import build_model, qlstm_routing
 from qasr_torch.train.state import create_train_state
 from qasr_torch.train.step import batch_to_device, loss_fn, train_step
+from tests.pallas_interpret import hlo_interpret
 
 torch.set_num_threads(1)
 
+# The smallest model that pins the slice: a thin layer, then two of 128
+# quaternion channels, the least the JAX package stacks (qcnn.py:87-98), so
+# both sides take their stacked and im2col paths; one dense layer; f32.
 OVERRIDES = {
     "model.conv_features": (8, 128, 128),
     "model.dense_features": (16,),
@@ -99,10 +101,12 @@ def _jax_run(dense_pallas: bool, use_pallas: bool):
                            "model.dense_variant": "pallas" if dense_pallas else "auto"})
         batch = _batch(jcfg)
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
-        with pltpu.force_tpu_interpret_mode():
-            jstate = jcreate_train_state(jcfg, jax.random.PRNGKey(0), batch["features"])
+        with hlo_interpret():
+            jstate = jax.jit(lambda f: jcreate_train_state(jcfg, jax.random.PRNGKey(0), f))(
+                jb["features"])
             jmodel = jbuild_model(jcfg)
-            logits = jmodel.apply({"params": jstate.params}, jb["features"], train=False)
+            logits = jax.jit(lambda p, f: jmodel.apply({"params": p}, f, train=False))(
+                jstate.params, jb["features"])
             jloss = make_loss_fn(jcfg, jmodel)
             grads = jax.jit(jax.grad(lambda p: jloss(p, jb, jax.random.PRNGKey(1), True)[0]))(
                 jstate.params)
@@ -167,6 +171,8 @@ def test_qlstm_use_pallas_matches_jax():
     """A small QCNN-LSTM under ``use_pallas``: the tower packed (the im2col
     GEMM for its wide layers) and the dense layer on the 10-product GEMM,
     as the JAX encoder passes the flag to both; logits against JAX's."""
+    # pins the routing alone: qconv_1's Cin * kh * kw = 72 >= 32 takes the
+    # im2col GEMM, qconv_0's 9 does not; one layer of the smallest hidden size
     over = {
         "model.conv_features": (8, 16), "model.lstm_features": 8, "model.lstm_layers": 1,
         "model.dense_features": (8,), "model.vocab": 12, "model.compute_dtype": "float32",
@@ -177,10 +183,10 @@ def test_qlstm_use_pallas_matches_jax():
     x = np.random.default_rng(3).standard_normal((2, 21, 8, 4)).astype(np.float32)
     lengths = np.array([21, 13], np.int32)
     jmodel = jbuild_model(jcfg)
-    with pltpu.force_tpu_interpret_mode():
-        tree = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
-        want = jmodel.apply({"params": tree}, jnp.asarray(x), train=False,
-                            lengths=jnp.asarray(lengths))
+    with hlo_interpret():
+        tree = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+        want = jax.jit(lambda p, xx, ll: jmodel.apply({"params": p}, xx, train=False, lengths=ll))(
+            tree, jnp.asarray(x), jnp.asarray(lengths))
     port = build_model(tcfg, device="cpu")
     assert not any(port.stacked) and port.qconv_1.im2col and not port.qconv_0.im2col
     assert port.qdense_0.scheme == "fast10"

@@ -5,7 +5,8 @@ plain versions (kernel A forward; kernel C for dx and dalpha; kernel B on
 the conj-transposed weights for the GEMM's dx) with their own dW and db.
 They are called directly here, so their backward passes are what is held:
 against ``jax.vjp`` of the Pallas kernels in interpret mode (as
-tests/test_qconv_chain.py and tests/test_pallas.py run them), and against
+tests/test_qconv_chain.py and tests/test_pallas.py run them, through the
+HLO interpreter: ``tests/pallas_interpret.py``), and against
 the XLA custom VJP of ``qconv_fast8_stacked``. The kernels themselves are
 held against these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
@@ -23,13 +24,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from qasr.ops.pallas import qconv_chain as jchain
 from qasr.ops.pallas import qconv_ft as jft
 from qasr.ops.pallas import qgemm8 as jgemm
 from qasr_torch.ops.kernels import qconv_dx, qgemm8
 from qasr_torch.ops.kernels.qconv_chain import ChainLayerFn, chain_layer
+from tests.pallas_interpret import hlo_interpret
 
 # the package exports a function of the module's name
 jqgemm = importlib.import_module("qasr.ops.pallas.qgemm")
@@ -157,7 +158,7 @@ def test_chain_layer_fn_grads_match_pallas_chain(kernel, negative_alpha, prologu
         zp = jchain.chain_layer(xp, ww, bb, aa if prologue else None, t_valid=t)
         return jchain.chain_exit(zp, f, t, kw)
 
-    with pltpu.force_tpu_interpret_mode():
+    with hlo_interpret():
         want_z, vjp = jax.vjp(ref, *map(jnp.asarray, (x, w, bias, alpha)))
         want = vjp(jnp.asarray(dz))
     z, got = _port_layer_grads(x, w, bias, alpha, dz, prologue)
@@ -200,7 +201,7 @@ def test_qgemm8_fn_grads_match_pallas(m, k, n):
     x4 = _rand(rng, 4, m, k, scale=0.5)
     w = _rand(rng, 4, k, n, scale=0.05)
     dy4 = _rand(rng, 4, m, n)
-    with pltpu.force_tpu_interpret_mode():
+    with hlo_interpret():
         want_y, vjp = jax.vjp(jgemm.qgemm8_cl, jnp.asarray(x4), jnp.asarray(w))
         want_dx, want_dw = vjp(jnp.asarray(dy4))
     tx, tw = torch.from_numpy(x4).requires_grad_(), torch.from_numpy(w).requires_grad_()

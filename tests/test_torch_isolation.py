@@ -1,12 +1,15 @@
 """qasr_torch runs without JAX and without the JAX package: the machine with
 the GPU has no JAX, and the port keeps its own copies of what it needs.
 
-A subprocess blocks jax/flax/optax/orbax and ``qasr`` itself in
-``sys.modules`` before importing the port, then serves a small qcnn and a
-small qlstm on the CPU end to end (greedy and beam), trains
-``tiny_synthetic`` and the small qlstm for two steps each, and trains and
-serves through the command line (``qasr_torch.cli``); a source scan checks
-that no file of the port (or chip_smoke.py) imports any of them.
+A subprocess blocks jax/flax/optax/orbax, ``qasr`` itself and
+``benchmarks`` in ``sys.modules`` before importing the port, then serves a
+small qcnn and a small qlstm on the CPU end to end (greedy and beam), trains
+``tiny_synthetic`` and the small qlstm for two steps each, trains and
+serves through the command line (``qasr_torch.cli``), runs kernel J's plain
+version through ``qasr_torch.utils``, imports ``qasr_torch.tools.probe_dgt``
+and serves a small real CNN; a source scan checks
+that no file of the port (or chip_smoke.py) imports any of them, nor the
+JAX package's probes (``benchmarks``).
 """
 
 import os
@@ -19,7 +22,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 
 _SCRIPT = r"""
 import sys
-for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint", "qasr"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint", "qasr", "benchmarks"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import numpy as np
 import torch
@@ -89,7 +92,20 @@ with tempfile.TemporaryDirectory() as d:
         f.writeframes((wavs[0] * 20000).astype(np.int16).tobytes())
     out = transcribe_main(["--ckpt", d, "--device", "cpu", f"{d}/a.wav"])
     assert len(out) == 1 and np.isfinite(last["dev_loss"]), (out, last)
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "qasr")
+import qasr_torch.tools.probe_dgt
+from qasr_torch.ops.kernels.dgt import dgt
+from qasr_torch.utils import checkify_fn, steady_state_time
+x, y = torch.randn(64, 16), torch.randn(64, 8)
+err, out = checkify_fn(dgt)(x, y, mode="dgt")
+err.throw()
+assert torch.allclose(out, x.T @ y, rtol=1e-5, atol=1e-5)
+assert steady_state_time(lambda n: 0.5 + 0.01 * n, repeats=1) > 0
+rcfg = cfg.override(**{"model.arch": "real_cnn", "model.conv_features": (4, 8)})
+rparams = build_model(rcfg, generator=torch.Generator().manual_seed(0), device="cpu").state_dict()
+out = Transcriber(cfg=rcfg, params=rparams, device="cpu").transcribe_batch(wavs)
+assert len(out) == 2, out
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "qasr",
+                                                              "benchmarks")
                 and sys.modules[m] is not None)
 print("OK", loaded)
 """
@@ -106,22 +122,26 @@ def test_port_serves_with_jax_blocked():
     assert "OK []" in proc.stdout
 
 
-# any import of JAX or of the JAX package (``qasr``, ``qasr.x``), not of
-# ``qasr_torch``
+# any import of JAX, of the JAX package (``qasr``, ``qasr.x``) or of its
+# probes (``benchmarks``), not of ``qasr_torch``
 _FORBIDDEN = re.compile(
-    r"^[ \t]*(?:import|from)[ \t]+(?:jax|jaxlib|flax|optax|orbax|qasr)\b",
+    r"^[ \t]*(?:import|from)[ \t]+(?:jax|jaxlib|flax|optax|orbax|qasr|benchmarks)\b",
     re.MULTILINE,
 )
 
 
 def test_no_jax_imports_in_port_sources():
     for line in ("import qasr", "from qasr.configs import get_config", "import qasr.native",
-                 "    from qasr import native", "import jax.numpy as jnp"):
+                 "    from qasr import native", "import jax.numpy as jnp",
+                 "from benchmarks import probe_dgt"):
         assert _FORBIDDEN.search(line), line
     for line in ("import qasr_torch", "from qasr_torch.configs import Config"):
         assert not _FORBIDDEN.search(line), line
     files = sorted((REPO / "qasr_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10 and REPO / "qasr_torch" / "cli.py" in files
+    for part in ("utils/__init__.py", "utils/profiling.py", "utils/debug.py",
+                 "ops/kernels/dgt.py", "tools/probe_dgt.py"):
+        assert REPO / "qasr_torch" / part in files, part
     bad = {
         str(f.relative_to(REPO)): _FORBIDDEN.findall(f.read_text())
         for f in files

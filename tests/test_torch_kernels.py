@@ -3,7 +3,8 @@
 On the CPU each wrapper runs its kernel's plain PyTorch version; that is
 what is held here against the JAX XLA paths and against the Pallas kernels
 in interpret mode (as tests/test_pallas.py and tests/test_qconv_chain.py run
-them). The CUDA kernels themselves are checked against the plain versions by
+them, through the HLO interpreter: ``tests/pallas_interpret.py``). The CUDA
+kernels themselves are checked against the plain versions by
 tests/test_torch_cuda.py, which skips without a card, and by chip_smoke.py.
 
 Inputs are numpy-seeded, f32. Tolerance: rtol/atol 1e-4 — sums of up to
@@ -15,13 +16,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from qasr.ops.pallas import qconv_chain as jchain
 from qasr.ops.pallas import qconv_ft as jft
 from qasr.ops.pallas import qgemm8 as jgemm
 from qasr.ops.qlinalg import qdense as jqdense
 from qasr_torch.ops.kernels import qconv_chain, qconv_ft, qgemm8
+from tests.pallas_interpret import hlo_interpret
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -59,7 +60,7 @@ def test_qconv_plain_matches_pallas_interpret():
     rng = np.random.default_rng(7)
     x = _rand(rng, 1, 4, 5, 32, 128, scale=0.5)
     w = _rand(rng, 4, 3, 3, 128, 128, scale=0.05)
-    with pltpu.force_tpu_interpret_mode():
+    with hlo_interpret():
         want = np.asarray(jft.qconv2d_ft8_stacked(jnp.asarray(x), jnp.asarray(w)))
     got = qconv_ft.qconv_ft8(_t(x), _t(w)).numpy()
     np.testing.assert_allclose(got, want, **TOL)
@@ -75,7 +76,7 @@ def test_chain_layer_matches_pallas_chain(t):
     w = _rand(rng, 4, 3, 3, c, c, scale=0.05)
     bias = _rand(rng, 4 * c, scale=0.1)
     alpha = np.abs(_rand(rng, 4 * c, scale=0.25))
-    with pltpu.force_tpu_interpret_mode():
+    with hlo_interpret():
         xp = jchain.chain_entry(jnp.asarray(x), 3)
         z = jchain.chain_layer(
             xp, jnp.asarray(w), jnp.asarray(bias), jnp.asarray(alpha), t_valid=t
@@ -138,7 +139,7 @@ def test_qgemm8_plain_matches_pallas_interpret(m, k, n):
     rng = np.random.default_rng(m)
     x = _rand(rng, m, 4 * k)
     w = _rand(rng, 4, k, n, scale=0.1)
-    with pltpu.force_tpu_interpret_mode():
+    with hlo_interpret():
         want = np.asarray(jgemm.qdense_pallas8(jnp.asarray(x), jnp.asarray(w)))
     got = qgemm8.qdense_pallas8(_t(x), _t(w)).numpy()
     np.testing.assert_allclose(got, want, **TOL)

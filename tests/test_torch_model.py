@@ -83,7 +83,8 @@ def _jax_logits(model, params, wavs):
     batch = np.zeros((len(feats), t_pad, CFG.data.n_mels, 4), np.float32)
     for i, f in enumerate(feats):
         batch[i, : len(f)] = f
-    logits = model.apply({"params": params}, jnp.asarray(batch), train=False)
+    logits = jax.jit(lambda p, b: model.apply({"params": p}, b, train=False))(
+        params, jnp.asarray(batch))
     return np.asarray(logits), lengths
 
 
@@ -113,7 +114,8 @@ def test_encoder_logits_match_jax(jax_side):
     port.load_state_dict(params_from_jax(tree))
     assert port.stacked == [False, True, True]
     x = np.random.default_rng(1).standard_normal((2, 37, CFG.data.n_mels, 4)).astype(np.float32)
-    want = np.asarray(model.apply({"params": params}, jnp.asarray(x), train=False))
+    want = np.asarray(jax.jit(lambda p, xx: model.apply({"params": p}, xx, train=False))(
+        params, jnp.asarray(x)))
     with torch.no_grad():
         got = port(torch.from_numpy(x))
         plain = port(torch.from_numpy(x), plain=True)
@@ -128,7 +130,8 @@ def test_encoder_with_chain_exit_matches_jax():
     model = jbuild_model(cfg)
     x = np.random.default_rng(2).standard_normal((2, 21, cfg.data.n_mels, 4)).astype(np.float32)
     params = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
-    want = np.asarray(model.apply({"params": params}, jnp.asarray(x), train=False))
+    want = np.asarray(jax.jit(lambda p, xx: model.apply({"params": p}, xx, train=False))(
+        params, jnp.asarray(x)))
     port = build_model(cfg, device="cpu")
     assert port.stacked == [False, True, False]
     port.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
@@ -237,9 +240,13 @@ def test_native_copies_match_reference_on_served_logits(jax_side):
 
 
 def test_build_model_other_archs_not_ported():
-    for arch in ("real_cnn", "real_lstm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(CFG.override(**{"model.arch": arch}), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
+        build_model(CFG.override(**{"model.arch": "real_lstm"}), device="cpu")
+    with pytest.raises(ValueError, match="unknown arch"):
+        build_model(CFG.override(**{"model.arch": "transformer"}), device="cpu")
+    # the real-CNN baseline (config 3) is ported: tests/test_torch_real_cnn.py
+    assert type(build_model(CFG.override(**{"model.arch": "real_cnn"}), device="cpu")).__name__ \
+        == "RealCNNEncoder"
     # qlstm serves and trains; its block recurrence is not ported yet
     for over in ({"model.op_variant": "block"}, {"model.op_variant": "fast8"}):
         for train in (False, True):

@@ -3,9 +3,10 @@
 Inputs come from numpy with a seed; weights are drawn by the JAX package and
 bridged into the port. On the CPU the port runs kernel D's plain version
 (``qlstm_scan_fwd_plain``, the step-by-step twin of ``_fwd_xla``) and kernel
-B's. Where the JAX side reaches the Pallas kernel it runs in interpret mode
-(``FORCE_KERNEL`` and ``pltpu.force_tpu_interpret_mode()``, as
-tests/test_qlstm.py does), at H=128, the kernel's lane rule.
+B's. Where the JAX side reaches the Pallas kernel it runs interpreted
+(``FORCE_KERNEL``, as tests/test_qlstm.py does, under
+``tests/pallas_interpret.py:hlo_interpret``), at H=128, the kernel's lane
+rule.
 
 Tolerances, f32: 2e-5 against the interpreted Pallas kernel (as the JAX
 package's own test); 1e-5 against ``_fwd_xla``, whose products sum in
@@ -18,7 +19,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from qasr.configs import get_config
 from qasr.models import qlstm as jqlstm
@@ -37,6 +37,7 @@ from qasr_torch.models.qlstm import (
 )
 from qasr_torch.ops.kernels import qlstm_scan
 from qasr_torch.ops.kernels.qgemm8 import qdense_pallas8
+from tests.pallas_interpret import hlo_interpret
 
 torch.set_num_threads(1)
 TOL_KERNEL = dict(rtol=2e-5, atol=2e-5)
@@ -78,7 +79,7 @@ def test_scan_matches_pallas_kernel_interpret(force_pallas, b, t, use_lengths):
     xz, wc8, lengths = _scan_inputs(t, b, 128, seed=b * 100 + t)
     if not use_lengths:
         lengths = None
-    with pltpu.force_tpu_interpret_mode():
+    with hlo_interpret():
         want = jscan.qlstm_scan_fast8(
             jnp.asarray(xz), jnp.asarray(wc8), None if lengths is None else jnp.asarray(lengths)
         )
@@ -164,15 +165,18 @@ def _random_biases(tree, seed):
 
 @pytest.mark.parametrize("recurrent,hid", [("pallas8", 128), ("fast8", 16)])
 def test_qbilstm_matches_jax(force_pallas, recurrent, hid):
+    # pallas8 at H=128, the TPU kernel's lane rule (the least it takes);
+    # three ragged lengths, one of them the full T
     b, t, cin = 3, 11, 8
     rng = np.random.default_rng(3)
     x = (rng.standard_normal((b, t, 4 * cin)) * 0.5).astype(np.float32)
     lengths = np.array([11, 6, 2], np.int32)
     ref = jqlstm.QBiLSTM(hidden=hid, recurrent=recurrent)
-    params = ref.init(jax.random.PRNGKey(1), jnp.asarray(x), jnp.asarray(lengths))["params"]
-    params = _random_biases(params, seed=4)
-    with pltpu.force_tpu_interpret_mode():
-        want = ref.apply({"params": params}, jnp.asarray(x), jnp.asarray(lengths))
+    params = jax.jit(ref.init)(jax.random.PRNGKey(1), jnp.asarray(x), jnp.asarray(lengths))
+    params = _random_biases(params["params"], seed=4)
+    with hlo_interpret():
+        want = jax.jit(lambda p, xx, ll: ref.apply({"params": p}, xx, ll))(
+            params, jnp.asarray(x), jnp.asarray(lengths))
     port = QBiLSTM(cin, hid, recurrent=recurrent, device="cpu")
     port.load_state_dict(params_from_jax(params), strict=True)
     with torch.no_grad():
@@ -199,7 +203,8 @@ def test_encoder_matches_jax_with_ragged_lengths(jax_encoder, recurrent):
     rng = np.random.default_rng(6)
     x = rng.standard_normal((3, 29, CFG.data.n_mels, 4)).astype(np.float32)
     lengths = np.array([29, 17, 5], np.int32)
-    want = model.apply({"params": tree}, jnp.asarray(x), train=False, lengths=jnp.asarray(lengths))
+    want = jax.jit(lambda p, xx, ll: model.apply({"params": p}, xx, train=False, lengths=ll))(
+        tree, jnp.asarray(x), jnp.asarray(lengths))
     if recurrent == "fast8":
         port = build_model(CFG, device="cpu")
         assert port.recurrent == "fast8" and not port.training

@@ -219,7 +219,8 @@ def test_train_step_matches_jax():
     step; then the eval step's loss and greedy decode."""
     jcfg, tcfg = _cfgs()
     batches = _batches(jcfg, 3)
-    jstate = jcreate_train_state(jcfg, jax.random.PRNGKey(0), batches[0]["features"])
+    jstate = jax.jit(lambda f: jcreate_train_state(jcfg, jax.random.PRNGKey(0), f))(
+        batches[0]["features"])
     state = create_train_state(
         tcfg, device="cpu", params=params_from_jax(jax.tree.map(np.array, jstate.params))
     )
@@ -261,7 +262,9 @@ def test_port_trained_params_load_into_jax_model():
     tree = params_to_jax(state.model.state_dict())
     assert tree["qconv_1"]["kernel"].shape == (4, 3, 3, 8, 16)
     x = batches[0]["features"]
-    want = np.asarray(jbuild_model(jcfg).apply({"params": tree}, jnp.asarray(x), train=False))
+    jmodel = jbuild_model(jcfg)
+    want = np.asarray(jax.jit(lambda p, xx: jmodel.apply({"params": p}, xx, train=False))(
+        tree, jnp.asarray(x)))
     state.model.eval()
     with torch.no_grad():
         got = state.model(torch.from_numpy(x)).numpy()
