@@ -58,12 +58,13 @@ few):
               and beam, with launches per forward and logits gates;
               gradient parity, launches per step, twenty steps, and a
               4-step ``main`` run of the command line whose checkpoint
-              serves; ``use_pallas`` (im2col convs on H), one forward and
-              one step with their launches and gradient parity; then, not
-              gated, the encoder forward and the train step against the
+              serves; ``use_pallas`` (im2col convs on H and I), one forward
+              and one step with their launches and gradient parity; then,
+              not gated, the encoder forward and the train step against the
               rank-8 model (with a torch.profiler breakdown of one step),
-              and each new kernel against its plain version, its bound and
-              one library call
+              the ``use_pallas`` train step, and each new kernel against
+              its plain version, its bound and one library call (kernel I
+              with its split S)
  10. dgt and  kernel J (the row-contracting x^T y of benchmarks/probe_dgt.py)
      real CNN against its plain version at the probe's shape (M 65536, K = N
               = 256), both modes, f32 and bf16, the same bits across modes
@@ -219,8 +220,9 @@ def _profile(fn, what: str, phase: int, smi: str, n_top: int, named: dict | None
     """One call of ``fn`` under torch.profiler; returns the line that says
     where its device time goes: host-clock time, kernels busy, the device's
     idle share, the top ``n_top`` kernels by self device time and, for each
-    ``label: name part`` of ``named``, the kernels whose name holds that part
-    (their time, calls and share of busy, in or out of the top)."""
+    ``label: name part`` (or a tuple of parts) of ``named``, the kernels
+    whose name holds a part (their time, calls and share of busy, in or out
+    of the top)."""
     cuda = torch.autograd.DeviceType.CUDA
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -232,10 +234,11 @@ def _profile(fn, what: str, phase: int, smi: str, n_top: int, named: dict | None
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)[:n_top]
     rows = [f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top]
-    for label, part in (named or {}).items():
-        hits = [e for e in kern if part in e.key]
+    for label, parts in (named or {}).items():
+        parts = (parts,) if isinstance(parts, str) else parts
+        hits = [e for e in kern if any(part in e.key for part in parts)]
         ms = sum(e.self_device_time_total for e in hits) / 1e3
-        rows.append(f"{label} ({part}) {ms:.3f} ms x{sum(e.count for e in hits)} "
+        rows.append(f"{label} ({' + '.join(parts)}) {ms:.3f} ms x{sum(e.count for e in hits)} "
                     f"({ms / busy_ms:.1%} of busy)")
     return (f"phase {phase} profile on {smi}: {what} (kernel path, torch.profiler) "
             f"{wall_ms:.3f} ms on the host clock, kernels busy {busy_ms:.3f} ms (device idle "
@@ -271,6 +274,19 @@ def _reset_counts() -> None:
 def _read_counts() -> dict:
     torch.cuda.synchronize()
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _train_batch(tcfg) -> dict:
+    """The fixed TIMIT-like batch the TIMIT models train on (main's
+    training configuration): 16 utterances of 256 frames with 40 labels."""
+    brng = np.random.default_rng(SEED + 1)
+    return {
+        "features": brng.standard_normal((16, 256, 40, 4)).astype(np.float32),
+        "feature_lengths": np.full(16, 256, np.int32),
+        "labels": brng.integers(1, 62, size=(16, tcfg.data.max_label_len)).astype(np.int32),
+        "label_lengths": np.full(16, 40, np.int32),
+        "real_rows": np.ones(16, bool),
+    }
 
 
 def _cudnn_lstm(layer, dtype) -> torch.nn.LSTM:
@@ -964,6 +980,7 @@ def phase9_fast10(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: list) -
         qconv_stacked_plain,
     )
     from qasr_torch.ops.kernels.qgemm import (
+        dw_splits,
         qgemm10,
         qgemm10_cuda,
         qgemm10_dw,
@@ -1223,10 +1240,19 @@ def phase9_fast10(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: list) -
     st10 = create_train_state(tcfg, device=dev)
     st8 = create_train_state(tcfg8, device=dev)
     step10, step8 = _alternating(lambda: train_step(st10, batch), lambda: train_step(st8, batch), 3)
+    # kernel I: its split-M pass and, where S > 1, the second pass that sums
+    # the runs (qtile's reduce_splits; no other kernel of the step runs it)
+    named = {"kernel H": "qgemm_kernel<",
+             "kernel I": ("qgemm10_dw_kernel<", "reduce_splits_kernel<float>")}
     prof_line = _profile(lambda: train_step(st10, batch),
-                         f"one 10-product config 2 train step B{B}xT{T}", 9, smi, 10,
-                         {"kernel H": "qgemm_kernel<", "kernel I": "qgemm10_dw_kernel<"})
+                         f"one 10-product config 2 train step B{B}xT{T}", 9, smi, 10, named)
     del st10, st8
+    torch.cuda.empty_cache()
+    # the use_pallas step, where kernel I weighs most (nine im2col dW at
+    # M53248 K2304): after a warm-up, CUDA events
+    stp = create_train_state(pcfg, device=dev)
+    step_pallas = _time_ms(lambda: train_step(stp, batch), 3, 2)
+    del stp
     torch.cuda.empty_cache()
 
     # each kernel at its path shape (bf16), on CUDA events: the wrapper's
@@ -1298,15 +1324,19 @@ def phase9_fast10(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: list) -
     print(f"phase 9 timing on {smi}: encoder fwd B{B}xT{T} 10-product {fwd10:.3f} ms "
           f"({audio_s / fwd10 * 1e3:.1f} audio-s/s), rank-8 {fwd8:.3f} ms; train step 10-product "
           f"{step10:.3f} ms ({train_audio_s / step10 * 1e3:.1f} audio-s/s), rank-8 {step8:.3f} ms "
-          f"({train_audio_s / step8 * 1e3:.1f} audio-s/s)", flush=True)
+          f"({train_audio_s / step8 * 1e3:.1f} audio-s/s), use_pallas {step_pallas:.3f} ms "
+          f"({train_audio_s / step_pallas * 1e3:.1f} audio-s/s)", flush=True)
 
     def fmt(name, v):
         return (f"{name} call {v[0]:.4f} ms (the launcher alone {v[4]:.4f} ms) "
                 f"plain {v[1]:.4f} ms library {v[2]:.4f} ms bound {v[3][0]:.4f} ms ({v[3][1]})")
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"phase 9 timing on {smi}: " + "; ".join(
         [fmt(f"{name} B{B} F{NF} T{T} C{C}", t[name]) for name in ("qconv_ft10", "qconv_dx10")]
-        + [fmt(f"{role} M{r['m']} K{r['k']} N{r['n']}", r[key])
+        + [fmt(f"{role} M{r['m']} K{r['k']} N{r['n']}"
+               + (f" S{dw_splits(r['m'], r['k'], r['n'], bf16, sms)}" if key == "dw" else ""),
+               r[key])
            for r in gemm_rows for key, role in (("fwd", "qgemm10"), ("dx", "qgemm10_dx"),
                                                 ("dw", "qgemm10_dw"))]),
           flush=True)
@@ -1510,19 +1540,26 @@ def phase10_dgt_real_cnn(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: 
             "bound_by": bound_j[1], "library_ms": lib_j}
 
 
-def time_rank8(tree: str) -> int:
-    """``--time-rank8 TREE``: the rank-8 kernels A, C (with its epilogue), B
-    and B's dx role of the ``qasr_torch`` under ``TREE``, at phase 5's shapes,
-    bf16, on CUDA events; one JSON line. Run for two trees in turns (parent,
-    change, change, parent) in one call on the card, it compares two commits'
-    kernels; each tree builds its own at first use."""
+def time_kernels(tree: str) -> int:
+    """``--time-kernels TREE``: the rank-8 kernels A, C (with its epilogue),
+    B and B's dx role at phase 5's shapes, kernel I at phase 9's three
+    shapes, and the 10-product and ``use_pallas`` train steps of phase 9
+    (B16 x T256), of the ``qasr_torch`` under ``TREE``, bf16, on CUDA
+    events; one JSON line of ms (I's entries name its split S where the
+    tree has one). Run for two trees in turns (parent, change, change,
+    parent) in one call on the card, it compares two commits' kernels; each
+    tree builds its own at first use."""
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import qasr_torch
     from qasr_torch import qconv_dx8, qconv_ft8
+    from qasr_torch.configs import get_config
+    from qasr_torch.ops.kernels import qgemm
     from qasr_torch.ops.kernels.qgemm8 import qgemm8_cl, qgemm8_dx
+    from qasr_torch.train.state import create_train_state
+    from qasr_torch.train.step import train_step
 
     if not os.path.abspath(qasr_torch.__file__).startswith(tree + os.sep):
         raise RuntimeError(f"imported {qasr_torch.__file__}, not the tree {tree}")
@@ -1539,13 +1576,33 @@ def time_rank8(tree: str) -> int:
     bias, alpha, slopes = rnd(1024, scale=0.1), rnd(1024, scale=0.25).abs(), rnd(1024, scale=0.25)
     xb, wb = rnd(4, 4096, 3328, scale=0.5).to(bf16), rnd(4, 3328, 256, scale=0.02)
     dyb = rnd(4, 4096, 256).to(bf16)
-    _line(tree=tree, **{
+    times = {
         "qconv_ft8 B16 F13 T256 C256": _time_ms(lambda: qconv_ft8(x, w, bias, alpha), 20, 3),
         "qconv_dx8 B16 F13 T256 C256 epilogue": _time_ms(lambda: qconv_dx8(dz, w, x, slopes),
                                                          20, 3),
         "qgemm8 M4096 K3328 N256": _time_ms(lambda: qgemm8_cl(xb, wb), 20, 3),
         "qgemm8_dx M4096 N256 -> K3328": _time_ms(lambda: qgemm8_dx(dyb, wb), 20, 3),
-    })
+    }
+    del x, dz, xb, dyb
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m, k, n in ((4096, 3328, 256), (4096, 256, 256), (53248, 2304, 256)):
+        xg, dyg = rnd(4, m, k, scale=0.5).to(bf16), rnd(4, m, n).to(bf16)
+        split = (f" S{qgemm.dw_splits(m, k, n, bf16, sms)}" if hasattr(qgemm, "dw_splits")
+                 else "")
+        times[f"qgemm10_dw M{m} K{k} N{n}{split}"] = _time_ms(lambda: qgemm.qgemm10_dw(xg, dyg),
+                                                              5 if m > 4096 else 20, 3)
+        del xg, dyg
+    torch.cuda.empty_cache()
+    tcfg = get_config("timit_qcnn").override(**TRAIN_OVERRIDES, **{
+        "model.op_variant": "fused", "model.dense_variant": "pallas"})
+    batch = _train_batch(tcfg)
+    for name, cfg in (("10-product", tcfg), ("use_pallas", tcfg.override(**{
+            "model.use_pallas": True}))):
+        state = create_train_state(cfg, device=dev)
+        times[f"train step {name} B16 T256"] = _time_ms(lambda: train_step(state, batch), 3, 2)
+        del state
+        torch.cuda.empty_cache()
+    _line(tree=tree, **times)
     return 0
 
 
@@ -1705,14 +1762,7 @@ def main() -> int:
     # short runs here train at 1e-4. The fixed batch is TIMIT-like: 16
     # utterances of 256 frames (2.56 s) with 40 phone labels each.
     tcfg = cfg.override(**TRAIN_OVERRIDES)
-    brng = np.random.default_rng(SEED + 1)
-    batch = {
-        "features": brng.standard_normal((16, 256, 40, 4)).astype(np.float32),
-        "feature_lengths": np.full(16, 256, np.int32),
-        "labels": brng.integers(1, 62, size=(16, tcfg.data.max_label_len)).astype(np.int32),
-        "label_lengths": np.full(16, 40, np.int32),
-        "real_rows": np.ones(16, bool),
-    }
+    batch = _train_batch(tcfg)
     train_audio_s = 16 * 256 * FRAME_S
 
     # 5. timing (informational), at the paths' shapes
@@ -1900,7 +1950,7 @@ if __name__ == "__main__":
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of qasr_torch on one CUDA card.")
-    ap.add_argument("--time-rank8", metavar="TREE",
-                    help="only time kernels A, B and C of the qasr_torch under TREE")
+    ap.add_argument("--time-kernels", metavar="TREE",
+                    help="only time kernels A, B, C and I of the qasr_torch under TREE")
     args = ap.parse_args()
-    sys.exit(main() if args.time_rank8 is None else time_rank8(args.time_rank8))
+    sys.exit(main() if args.time_kernels is None else time_kernels(args.time_kernels))

@@ -13,8 +13,9 @@
 // card's ~295: the bytes (20 us at 3.35 TB/s). Blocks run in no order on 132
 // SMs, so the TPU's sequential carry becomes a split of M: grid (N/64, K/64,
 // S), block (n, k, s) sums its 64 x 64 tile over the s-th run of whole
-// chunks of M into an f32 partial [S,K,N]; a second pass sums the S partials
-// in fixed order and casts. No atomics: the same bits every run. The chunks
+// chunks of M into an f32 partial [S,K,N]; a second pass (qtile's
+// reduce_splits, shared with kernel I) sums the S partials in fixed order
+// and casts. No atomics: the same bits every run. The chunks
 // arrive by cp.async kStages - 1 ahead. The product is qtile's: bf16 on
 // mma.sync (rows mode feeds x^T through ldmatrix.trans, cols mode loads it
 // straight; both hand the tensor cores the same fragments in the same order,
@@ -28,7 +29,6 @@ namespace {
 
 constexpr int kStages = 4;
 constexpr int kMinBlocks = 4;
-constexpr int kReduceThreads = 256;
 constexpr int kStaticSmem = 48 * 1024;  // above it a launch needs an attribute
 
 // rows of M per chunk: the mma's contraction
@@ -56,11 +56,6 @@ struct DgtLayout {
   static constexpr int stage = x_bytes + y_bytes;
   static constexpr int total = kStages * stage;
 };
-
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 template <typename T, bool kRows>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -129,17 +124,6 @@ dgt_kernel(const T* __restrict__ x, const T* __restrict__ y, float* __restrict__
   }
 }
 
-// out[i] = cast(sum_s part[s][i]), s ascending
-template <typename T>
-__global__ void dgt_reduce_kernel(const float* __restrict__ part, T* __restrict__ out,
-                                  int splits, int kn) {
-  const int i = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (i >= kn) return;
-  float acc = part[i];
-  for (int s = 1; s < splits; ++s) acc += part[(size_t)s * kn + i];
-  out[i] = Elem<T>::from_f(acc);
-}
-
 template <typename T, bool kRows>
 int launch(const void* x, const void* y, float* part, void* out, int M, int K, int N,
            int splits, cudaStream_t stream) {
@@ -153,10 +137,7 @@ int launch(const void* x, const void* y, float* part, void* out, int M, int K, i
       static_cast<const T*>(x), static_cast<const T*>(y), part, M, K, N, per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int kn = K * N;
-  dgt_reduce_kernel<T><<<(kn + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0,
-                         stream>>>(part, static_cast<T*>(out), splits, kn);
-  return (int)cudaGetLastError();
+  return reduce_splits(part, static_cast<T*>(out), splits, (size_t)K * N, stream);
 }
 
 }  // namespace

@@ -143,6 +143,12 @@ __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\
 
 __device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
+// until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // ---------------------------------------------------------------------------
 // shared-memory layout of one block (same arithmetic on host and device)
 // ---------------------------------------------------------------------------
@@ -278,7 +284,7 @@ struct Product<T, KC, true> {
   }
 };
 
-// The product xc^T . dyc over one chunk of KC rows m (kernels I and J): A =
+// The product xc^T . dyc over one chunk of KC rows m (kernel J): A =
 // xc^T, read from xc [KC][kLdb] (rows m) transposed; B = dyc [KC][kLdb] as
 // Product's B. The accumulator layout is Product's, so row(j) indexes the
 // output's rows (K) and col(j) its columns (N).
@@ -391,6 +397,34 @@ __device__ inline void form_combos(T* A, const T* xs, int a_rows, const Scheme<P
     for (int e = 0; e < V; ++e) cmb[e] = c1 * u[e] + c2 * w[e];
     store_vec(A + r * LDA + v * V, cmb);
   }
+}
+
+// ---------------------------------------------------------------------------
+// the second pass of a split-M kernel (I, J): out[i] = cast(sum_s part[s][i]),
+// s ascending, so every run gives the same bits
+// ---------------------------------------------------------------------------
+
+constexpr int kReduceThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_splits_kernel(const float* __restrict__ part, T* __restrict__ out, int splits,
+                     size_t count) {
+  const size_t i = (size_t)blockIdx.x * kReduceThreads + threadIdx.x;
+  if (i >= count) return;
+  float acc = part[i];
+  for (int s = 1; s < splits; ++s) acc += part[(size_t)s * count + i];
+  out[i] = Elem<T>::from_f(acc);
+}
+
+// part [splits][count] f32 -> out [count]; returns a cudaError_t
+template <typename T>
+inline int reduce_splits(const float* part, T* out, int splits, size_t count,
+                         cudaStream_t stream) {
+  const size_t blocks = (count + kReduceThreads - 1) / kReduceThreads;
+  reduce_splits_kernel<T><<<(unsigned)blocks, kReduceThreads, 0, stream>>>(part, out, splits,
+                                                                           count);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace qtile

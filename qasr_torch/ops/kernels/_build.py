@@ -44,8 +44,8 @@ _ENTRIES = {
     # x4, wc, y4, M, K, N, dtype, v, o, stream
     "qasr_qgemm8": [_P, _P, _P] + [_I] * 4 + [_P, _P, _P],
     "qasr_qgemm10": [_P, _P, _P] + [_I] * 4 + [_P, _P, _P],
-    # x4, dy4, dw, M, K, N, dtype, x_combo, out_combo, w_combo, stream
-    "qasr_qgemm10_dw": [_P, _P, _P] + [_I] * 4 + [_P] * 4,
+    # x4, dy4, part, dw, M, K, N, splits, dtype, x_combo, out_combo, w_combo, stream
+    "qasr_qgemm10_dw": [_P] * 4 + [_I] * 5 + [_P] * 4,
     # dz, wc, z, alpha, dx, partials, dalpha, B, F, T, Cin, Cout, kh, kw, dtype,
     # v, o, stream
     "qasr_qconv_dx8": [_P] * 7 + [_I] * 8 + [_P, _P, _P],

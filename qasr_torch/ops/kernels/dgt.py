@@ -68,12 +68,18 @@ def supported(m: int, k: int, n: int, dtype: torch.dtype, mode: str = "dgt") -> 
     )
 
 
-def splits(m: int, k: int, n: int, dtype: torch.dtype, sms: int) -> int:
-    """The number of runs of M that kernel J sums apart: enough blocks for
-    one full wave on ``sms`` SMs, each run at least one chunk, none empty."""
-    chunks = math.ceil(m / _CHUNK[dtype])
-    tiles = math.ceil(k / _TILE) * math.ceil(n / _TILE)
-    want = min(chunks, max(1, math.ceil(_BLOCKS_PER_SM * sms / tiles)))
+def splits(m: int, k: int, n: int, *, chunk: int, tile: tuple[int, int], blocks_per_sm: int,
+           sms: int) -> int:
+    """The number of runs S of M that a split-M kernel (J, and I in
+    ``qgemm.py``) sums apart, its grid ``(N/tile_n, K/tile_k, S)`` with
+    ``blocks_per_sm`` blocks resident on each of ``sms`` SMs: the whole
+    number of runs nearest one full wave, at least 1 (so S = 1 where the
+    tiles alone fill a wave), each run whole chunks of ``chunk`` rows and
+    none empty."""
+    chunks = math.ceil(m / chunk)
+    tiles = math.ceil(k / tile[0]) * math.ceil(n / tile[1])
+    slots = blocks_per_sm * sms
+    want = min(chunks, max(1, (2 * slots + tiles) // (2 * tiles)))
     return math.ceil(chunks / math.ceil(chunks / want))
 
 
@@ -90,7 +96,8 @@ def dgt_cuda(x: torch.Tensor, y: torch.Tensor, *, mode: str) -> torch.Tensor:
     if y.device != x.device:
         raise ValueError(f"y is on {y.device}, x on {x.device}")
     lib = _build.load_library()
-    s = splits(m, k, n, x.dtype, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    s = splits(m, k, n, chunk=_CHUNK[x.dtype], tile=(_TILE, _TILE), blocks_per_sm=_BLOCKS_PER_SM,
+               sms=torch.cuda.get_device_properties(x.device).multi_processor_count)
     part = torch.empty((s, k, n), dtype=torch.float32, device=x.device)
     out = torch.empty((k, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):

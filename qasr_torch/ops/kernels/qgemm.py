@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from qasr_torch.ops.kernels import _build
+from qasr_torch.ops.kernels.dgt import splits
 from qasr_torch.ops.kernels.qconv_ft import _DTYPE_CODE, _TABLES, _check_cuda_tensor
 from qasr_torch.ops.kernels.qgemm8 import conj_transpose_dense
 from qasr_torch.ops.quaternion import (
@@ -40,6 +41,12 @@ from qasr_torch.ops.quaternion import (
 
 #: the contraction length from which dW runs kernel I (``qgemm.py:310``)
 DW_KERNEL_MIN_M = 256
+# kernel I's rows of M a chunk, its (K, N) output tile and its blocks
+# resident on an SM (qgemm10_dw.cu: DwCfg, BM x BN, kMinBlocks): the split
+# of M aims at one full wave of them
+_DW_CHUNK = {torch.bfloat16: 64, torch.float32: 16}
+_DW_TILE = (64, 64)
+_DW_BLOCKS_PER_SM = 1
 
 # each product's input terms (X_COMBO row) and cotangent terms (OUT_COMBO
 # column, b ascending), as qgemm.py's _X_TERMS and _OUT_TERMS_OF_P
@@ -151,11 +158,21 @@ def qgemm10_cuda(x4: torch.Tensor, wc: torch.Tensor, *, role: str = "fwd") -> to
     return y4
 
 
+def dw_splits(m: int, k: int, n: int, dtype: torch.dtype, sms: int) -> int:
+    """The runs S of M that kernel I sums apart on a card of ``sms`` SMs
+    (``dgt.splits`` with kernel I's chunk, tile and blocks per SM); S = 1
+    writes dW in one pass."""
+    return splits(m, k, n, chunk=_DW_CHUNK[dtype], tile=_DW_TILE,
+                  blocks_per_sm=_DW_BLOCKS_PER_SM, sms=sms)
+
+
 def qgemm10_dw_cuda(x4: torch.Tensor, dy4: torch.Tensor) -> torch.Tensor:
-    """Launch kernel I on ``x4 [4, M, K]`` and ``dy4 [4, M, N]``: one CUDA
-    device, contiguous, both f32 or both bf16, K and N multiples of 8.
-    Returns ``dw [4, K, N]`` f32. Raises on anything the kernel does not
-    take, or when it fails to build or launch."""
+    """Launch kernel I (both its passes; one count) on ``x4 [4, M, K]`` and
+    ``dy4 [4, M, N]``: one CUDA device, contiguous, both f32 or both bf16, K
+    and N multiples of 8. M is split into :func:`dw_splits` runs summed into
+    f32 partials, then added in a fixed order. Returns ``dw [4, K, N]``
+    f32. Raises on anything the kernel does not take, or when it fails to
+    build or launch."""
     if x4.ndim != 3 or x4.shape[0] != 4 or dy4.ndim != 3 or dy4.shape[:2] != x4.shape[:2]:
         raise ValueError(
             f"expected x4 [4,M,K] and dy4 [4,M,N], got {tuple(x4.shape)} and {tuple(dy4.shape)}"
@@ -176,11 +193,15 @@ def qgemm10_dw_cuda(x4: torch.Tensor, dy4: torch.Tensor) -> torch.Tensor:
         return dw
     if m == 0:
         return dw.zero_()
+    s = dw_splits(m, k, n, x4.dtype,
+                  torch.cuda.get_device_properties(x4.device).multi_processor_count)
+    part = torch.empty((s, 4, k, n), dtype=torch.float32, device=x4.device) if s > 1 else None
     xc_tab, oc_tab = _TABLES["fast10"]
     with torch.cuda.device(x4.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.qasr_qgemm10_dw(
-            x4.data_ptr(), dy4.data_ptr(), dw.data_ptr(), m, k, n, _DTYPE_CODE[x4.dtype],
+            x4.data_ptr(), dy4.data_ptr(), None if part is None else part.data_ptr(),
+            dw.data_ptr(), m, k, n, s, _DTYPE_CODE[x4.dtype],
             xc_tab.ctypes.data_as(ctypes.c_void_p), oc_tab.ctypes.data_as(ctypes.c_void_p),
             _W_COMBO_F32.ctypes.data_as(ctypes.c_void_p), stream,
         )

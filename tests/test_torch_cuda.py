@@ -389,12 +389,20 @@ def test_qgemm10_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(300, 72, 40), (1000, 13, 62), (256, 136, 200)])
+@pytest.mark.parametrize("m,k,n", [(300, 72, 40), (1000, 13, 62), (256, 136, 200),
+                                   (4096, 256, 256), (3990, 256, 256), (2000, 200, 136),
+                                   (300, 1024, 1024)])
 def test_qgemm10_dw_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
     """Kernel I against its plain version: ragged M (its last chunk masked),
-    K and N ragged (padded) and over several tiles; a sum over M, held
-    relative to its largest element; two runs give the same bits."""
+    K and N ragged (padded) and over several tiles; M split into S > 1 runs
+    (the dense layers' M4096 K256 N256; M3990, whose last run is shorter and
+    ends in a masked chunk; K200 N136, partial tiles) and one pass where
+    the tiles fill a wave (K = N = 1024); a sum over M, held relative to its
+    largest element; two runs give the same bits."""
     tol = _tol(dtype)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    s = qgemm.dw_splits(m, -(-k // 8) * 8, -(-n // 8) * 8, dtype, sms)
+    assert (s == 1) == (k == 1024)
     rng = np.random.default_rng(14)
     x4 = _t(_rand(rng, 4, m, k, scale=0.5)).to(cuda_device, dtype)
     dy4 = _t(_rand(rng, 4, m, n, scale=0.5)).to(cuda_device, dtype)

@@ -29,6 +29,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from qasr_torch.ops.kernels import dgt as kdgt
+from qasr_torch.ops.kernels import qgemm as kqgemm
 
 torch.set_num_threads(1)
 _PROBE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -131,20 +132,46 @@ def test_supported_and_mode_check():
         kdgt.dgt_cuda(x, y, mode="dgt")
 
 
+# the split-M kernels' rows of M a chunk (per dtype), (K, N) tile and blocks
+# resident on an SM: J (dgt.cu) and I (qgemm10_dw.cu)
+_SPLIT_KERNELS = {
+    "J": (kdgt._CHUNK, (kdgt._TILE, kdgt._TILE), kdgt._BLOCKS_PER_SM),
+    "I": (kqgemm._DW_CHUNK, kqgemm._DW_TILE, kqgemm._DW_BLOCKS_PER_SM),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(_SPLIT_KERNELS))
 @pytest.mark.parametrize("m,k,n,sms", [(65536, 256, 256, 132), (65536, 256, 256, 114),
                                        (100, 256, 256, 132), (4096, 3328, 256, 132),
-                                       (40, 8, 8, 132)])
-def test_splits_cover_m_without_an_empty_run(m, k, n, sms):
-    """The split of M: at most one run a chunk, none empty; at the probe's
-    shape, one full wave of four blocks an SM."""
-    for dtype, chunk in ((torch.bfloat16, 32), (torch.float32, 16)):
-        s = kdgt.splits(m, k, n, dtype, sms)
-        chunks = -(-m // chunk)
+                                       (40, 8, 8, 132), (4096, 256, 256, 132),
+                                       (53248, 2304, 256, 132), (4096, 4096, 2048, 132)])
+def test_splits_cover_m_without_an_empty_run(kernel, m, k, n, sms):
+    """The shared split of M (``dgt.splits``) for kernels J and I: the runs
+    cover M exactly, at most one a chunk and none empty; S = 1 where the
+    tiles alone fill a wave; J at the probe's shape fills one wave of four
+    blocks an SM, I at the dense layers' K256 one wave of one block an SM,
+    and I at the path's two wide shapes runs one pass."""
+    chunk, tile, per_sm = _SPLIT_KERNELS[kernel]
+    tiles = -(-k // tile[0]) * -(-n // tile[1])
+    for dtype in (torch.bfloat16, torch.float32):
+        s = kdgt.splits(m, k, n, chunk=chunk[dtype], tile=tile, blocks_per_sm=per_sm, sms=sms)
+        chunks = -(-m // chunk[dtype])
         per = -(-chunks // s)
         assert 1 <= s <= chunks and (s - 1) * per < chunks <= s * per
-    for dtype in (torch.bfloat16, torch.float32):  # 16 tiles of 64 x 64: 33 x 16 >= 4 x 132
-        assert kdgt.splits(65536, 256, 256, dtype, 132) == 33
-        assert kdgt.splits(65536, 256, 256, dtype, 114) == 29
+        if tiles >= per_sm * sms:
+            assert s == 1
+        if kernel == "I":
+            assert kqgemm.dw_splits(m, k, n, dtype, sms) == s
+    for dtype in (torch.bfloat16, torch.float32):
+        if kernel == "J":  # 16 tiles of 64 x 64: 33 x 16 ~ 4 x 132, 29 x 16 ~ 4 x 114
+            assert kdgt.splits(65536, 256, 256, chunk=chunk[dtype], tile=tile,
+                               blocks_per_sm=per_sm, sms=132) == 33
+            assert kdgt.splits(65536, 256, 256, chunk=chunk[dtype], tile=tile,
+                               blocks_per_sm=per_sm, sms=114) == 29
+        else:  # 16 tiles: 8 x 16 <= 132; 208 and 144 tiles fill a wave alone
+            assert kqgemm.dw_splits(4096, 256, 256, dtype, 132) == 8
+            assert kqgemm.dw_splits(4096, 3328, 256, dtype, 132) == 1
+            assert kqgemm.dw_splits(53248, 2304, 256, dtype, 132) == 1
 
 
 def test_probe_tool_needs_a_card():
