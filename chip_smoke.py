@@ -15,7 +15,9 @@ few):
   3. parity   each kernel (A: the conv, B: the GEMM and its dx role, C: the
               transposed conv with the PReLU backward) against its plain
               PyTorch version on the card, at the paths' shapes, f32
-              (tight) and bf16 (loose), gated
+              (tight) and bf16 (loose), gated; then no host-to-device copy
+              in a warmed-up call of kernel B or H, forward or dx (gated,
+              torch.profiler)
   4. serving  a Transcriber on four synthetic 1-3 s waveforms, greedy and
               beam; kernel launch counts per forward; kernel-path logits
               against the plain path's, gated
@@ -243,6 +245,18 @@ def _profile(fn, what: str, phase: int, smi: str, n_top: int, named: dict | None
     return (f"phase {phase} profile on {smi}: {what} (kernel path, torch.profiler) "
             f"{wall_ms:.3f} ms on the host clock, kernels busy {busy_ms:.3f} ms (device idle "
             f"{max(0.0, 1 - busy_ms / wall_ms):.1%}); by self device time: " + "; ".join(rows))
+
+
+def _h2d_copies(fn) -> list[str]:
+    """The host-to-device copies one call of ``fn`` records under
+    torch.profiler: the runtime's memcpy calls and the device's HtoD copies,
+    as "name xcount"."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [f"{e.key} x{e.count}" for e in prof.key_averages()
+            if "HtoD" in e.key or e.key.startswith("cudaMemcpy")]
 
 
 def _counters():
@@ -1242,7 +1256,7 @@ def phase9_fast10(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: list) -
     step10, step8 = _alternating(lambda: train_step(st10, batch), lambda: train_step(st8, batch), 3)
     # kernel I: its split-M pass and, where S > 1, the second pass that sums
     # the runs (qtile's reduce_splits; no other kernel of the step runs it)
-    named = {"kernel H": "qgemm_kernel<",
+    named = {"kernel H": "qgemm_bf16_kernel<10",
              "kernel I": ("qgemm10_dw_kernel<", "reduce_splits_kernel<float>")}
     prof_line = _profile(lambda: train_step(st10, batch),
                          f"one 10-product config 2 train step B{B}xT{T}", 9, smi, 10, named)
@@ -1512,6 +1526,12 @@ def phase10_dgt_real_cnn(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: 
     roof = {arm: conv_roofline(batch=16, t=256, f=13, cin=256, cout=256, use_pallas=arm == "pallas",
                                device=dev)
             for arm in ("block", "pallas")}
+    # on the card the chains' difference quotients are device times: gated
+    # positive here (on a loaded host they can fall to zero or below, so the
+    # CPU test checks only that they are finite)
+    for arm, r in roof.items():
+        if not (r["qconv_s"] > 0 and r["expanded_real_s"] > 0):
+            raise RuntimeError(f"conv_roofline {arm}: non-positive time {r}")
     # kernel J at the probe's shape: its call against the plain version, the
     # plain mode, torch.matmul and the bound
     x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
@@ -1541,14 +1561,17 @@ def phase10_dgt_real_cnn(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: 
 
 
 def time_kernels(tree: str) -> int:
-    """``--time-kernels TREE``: the rank-8 kernels A, C (with its epilogue),
-    B and B's dx role at phase 5's shapes, kernel I at phase 9's three
-    shapes, and the 10-product and ``use_pallas`` train steps of phase 9
-    (B16 x T256), of the ``qasr_torch`` under ``TREE``, bf16, on CUDA
-    events; one JSON line of ms (I's entries name its split S where the
-    tree has one). Run for two trees in turns (parent, change, change,
-    parent) in one call on the card, it compares two commits' kernels; each
-    tree builds its own at first use."""
+    """``--time-kernels TREE``: of the ``qasr_torch`` under ``TREE``, bf16, on
+    CUDA events: the rank-8 kernels A and C (with its epilogue) at phase 5's
+    shape; kernels B and H, forward and dx, at every path shape (config 2's
+    dense layers at M4096 K3328 and K256, config 4's M16384 K512 N256 and
+    M2048 K1664 N2048 for B, the im2col convs' M53248 K2304 for H), each as
+    the wrapper's call and as the launcher alone on ready inputs; kernel I
+    at phase 9's three shapes; and the rank-8, 10-product and
+    ``use_pallas`` train steps (B16 x T256). One JSON line of ms (I's
+    entries name its split S where the tree has one). Run for two trees in
+    turns (parent, change, change, parent) in one call on the card, it
+    compares two commits' kernels; each tree builds its own at first use."""
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
     tree = os.path.abspath(tree)
@@ -1557,7 +1580,13 @@ def time_kernels(tree: str) -> int:
     from qasr_torch import qconv_dx8, qconv_ft8
     from qasr_torch.configs import get_config
     from qasr_torch.ops.kernels import qgemm
-    from qasr_torch.ops.kernels.qgemm8 import qgemm8_cl, qgemm8_dx
+    from qasr_torch.ops.kernels.qgemm8 import (
+        conj_transpose_dense,
+        qgemm8_cl,
+        qgemm8_cuda,
+        qgemm8_dx,
+    )
+    from qasr_torch.ops.quaternion import U8, W_COMBO, combine_weights
     from qasr_torch.train.state import create_train_state
     from qasr_torch.train.step import train_step
 
@@ -1574,16 +1603,34 @@ def time_kernels(tree: str) -> int:
     dz = rnd(16, 4, 13, 256, 256).to(bf16)
     w = rnd(4, 3, 3, 256, 256, scale=0.02)
     bias, alpha, slopes = rnd(1024, scale=0.1), rnd(1024, scale=0.25).abs(), rnd(1024, scale=0.25)
-    xb, wb = rnd(4, 4096, 3328, scale=0.5).to(bf16), rnd(4, 3328, 256, scale=0.02)
-    dyb = rnd(4, 4096, 256).to(bf16)
     times = {
         "qconv_ft8 B16 F13 T256 C256": _time_ms(lambda: qconv_ft8(x, w, bias, alpha), 20, 3),
         "qconv_dx8 B16 F13 T256 C256 epilogue": _time_ms(lambda: qconv_dx8(dz, w, x, slopes),
                                                          20, 3),
-        "qgemm8 M4096 K3328 N256": _time_ms(lambda: qgemm8_cl(xb, wb), 20, 3),
-        "qgemm8_dx M4096 N256 -> K3328": _time_ms(lambda: qgemm8_dx(dyb, wb), 20, 3),
     }
-    del x, dz, xb, dyb
+    del x, dz
+    # B and H: (kernel, M, K, N, roles); dx maps [4, M, N] -> [4, M, K]
+    gemms = [("qgemm8", 4096, 3328, 256, ("fwd", "dx")), ("qgemm8", 4096, 256, 256, ("fwd", "dx")),
+             ("qgemm8", 16384, 512, 256, ("fwd",)), ("qgemm8", 2048, 1664, 2048, ("fwd",)),
+             ("qgemm10", 4096, 3328, 256, ("fwd", "dx")), ("qgemm10", 4096, 256, 256, ("fwd", "dx")),
+             ("qgemm10", 53248, 2304, 256, ("fwd", "dx"))]
+    for name, m, k, n, roles in gemms:
+        wg = rnd(4, k, n, scale=k ** -0.5)
+        table, launcher = (U8, qgemm8_cuda) if name == "qgemm8" else (W_COMBO, qgemm.qgemm10_cuda)
+        calls = {"fwd": qgemm8_cl if name == "qgemm8" else qgemm.qgemm10,
+                 "dx": qgemm8_dx if name == "qgemm8" else qgemm.qgemm10_dx}
+        reps = 5 if m > 4096 else 20
+        for role in roles:
+            inp = rnd(4, m, k if role == "fwd" else n, scale=0.5).to(bf16)
+            wr = wg if role == "fwd" else conj_transpose_dense(wg)
+            wc = combine_weights(wr, bf16, table).contiguous()
+            shape = f"M{m} K{k} N{n}" if role == "fwd" else f"M{m} N{n} -> K{k}"
+            label = f"{name} {shape}" if role == "fwd" else f"{name}_dx {shape}"
+            times[label] = _time_ms(lambda: calls[role](inp, wg), reps, 3)
+            times[f"{label} alone"] = _time_ms(lambda: launcher(inp, wc, role=role), reps, 3)
+            del inp, wc
+        del wg
+        torch.cuda.empty_cache()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for m, k, n in ((4096, 3328, 256), (4096, 256, 256), (53248, 2304, 256)):
         xg, dyg = rnd(4, m, k, scale=0.5).to(bf16), rnd(4, m, n).to(bf16)
@@ -1593,10 +1640,10 @@ def time_kernels(tree: str) -> int:
                                                               5 if m > 4096 else 20, 3)
         del xg, dyg
     torch.cuda.empty_cache()
-    tcfg = get_config("timit_qcnn").override(**TRAIN_OVERRIDES, **{
-        "model.op_variant": "fused", "model.dense_variant": "pallas"})
+    tcfg8 = get_config("timit_qcnn").override(**TRAIN_OVERRIDES)
+    tcfg = tcfg8.override(**{"model.op_variant": "fused", "model.dense_variant": "pallas"})
     batch = _train_batch(tcfg)
-    for name, cfg in (("10-product", tcfg), ("use_pallas", tcfg.override(**{
+    for name, cfg in (("rank-8", tcfg8), ("10-product", tcfg), ("use_pallas", tcfg.override(**{
             "model.use_pallas": True}))):
         state = create_train_state(cfg, device=dev)
         times[f"train step {name} B16 T256"] = _time_ms(lambda: train_step(state, batch), 3, 2)
@@ -1705,6 +1752,26 @@ def main() -> int:
             _report(f"qgemm8_dx M{m} N{n} -> K{k} {dname}", err, tol)
             if (m, k, dtype) == (4096, 3328, torch.bfloat16):
                 results["qgemm8_dx"] = err["max_abs_err"]
+
+    # no host-to-device copy in a warmed-up call of B or H, forward or dx:
+    # such a copy from pageable memory synchronises the stream (gated; the
+    # detector is first shown to see one)
+    from qasr_torch.ops.kernels.qgemm import qgemm10, qgemm10_dx
+
+    control = _h2d_copies(lambda: torch.as_tensor(np.ones(8, np.float32), device=dev))
+    if not control:
+        raise RuntimeError("the profiler recorded no host-to-device copy of a numpy array")
+    xh, wh = rnd(4, 4096, 256, scale=0.5).to(torch.bfloat16), rnd(4, 256, 256, scale=0.06)
+    for name, fn in (("qgemm8", qgemm8_cl), ("qgemm8_dx", qgemm8_dx), ("qgemm10", qgemm10),
+                     ("qgemm10_dx", qgemm10_dx)):
+        fn(xh, wh)  # warm-up
+        copies = _h2d_copies(lambda: fn(xh, wh))
+        if copies:
+            raise RuntimeError(f"{name}: host-to-device copies in a warmed-up call: {copies}")
+    print(f"phase 3 copies: no host-to-device copy in a warmed-up call of qgemm8, qgemm8_dx, "
+          f"qgemm10, qgemm10_dx at M4096 K256 N256 bf16 (the profiler's control, a numpy "
+          f"array to the card: {control})", flush=True)
+    del xh, wh
 
     # 4. serving: the port's serving path, full width
     cfg = get_config("timit_qcnn")
@@ -1951,6 +2018,7 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description="Smoke run of qasr_torch on one CUDA card.")
     ap.add_argument("--time-kernels", metavar="TREE",
-                    help="only time kernels A, B, C and I of the qasr_torch under TREE")
+                    help="only time kernels A, B, C, H and I and the train steps of the "
+                         "qasr_torch under TREE")
     args = ap.parse_args()
     sys.exit(main() if args.time_kernels is None else time_kernels(args.time_kernels))

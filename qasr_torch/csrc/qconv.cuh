@@ -161,9 +161,10 @@ int launch(const void* x, const void* wc, const float* alpha, int B, int F, int 
            int epi_bytes, cudaStream_t stream) {
   const int smem = smem_for<T, P>(kh, kw, epi_bytes);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      qconv_kernel<T, P, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+  // once per instantiation (one device a process): the most any launch asks
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      qconv_kernel<T, P, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid((Cout + BN - 1) / BN, (T_len + BM - 1) / BM, B * F);
   qconv_kernel<T, P, Epi><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wc), alpha, F, T_len, Cin, Cout,

@@ -8,14 +8,45 @@
 // output in the input's type. M is masked in the kernel; the wrappers pad K
 // and N to multiples of 8 (one 16-byte bf16 vector).
 //
-// The input combos (at most two V terms) are formed in shared memory as each
-// input chunk arrives, so they never reach device memory. Each block owns a
-// 64x64 tile of all four components; per K chunk the four input components
-// stay in shared memory while the P products run over them, each product's
-// weights arriving by cp.async one step ahead (mma.sync m16n8k16 bf16, f32
-// accumulators; f32 on the CUDA cores), and each product is folded into the
-// four outputs with column p of O in registers.
+// What bounds it on an H100 (bf16): a block owns a 64 x 64 tile of all four
+// outputs (P f32 accumulators of it take 128 or 160 registers a thread, so
+// one block an SM and no larger tile), so every x tile is read by N/64
+// blocks and every weight tile by M/64: about 2 * (4 M K N + P K N M) / 64
+// bytes reach the SMs from L2, ~1.3 GB at M4096 K3328 N256 (P = 8) against
+// ~0.06 ms of tensor-core work. That re-fetch bounds a call: with the
+// products taken out the copies alone take ~0.146 ms there (~9 TB/s into
+// the SMs), with the copies taken out the products ~0.127 (PERF.md §6).
+//
+// The design (bf16):
+// - Two warpgroups each run half the products over the block's whole 64 x
+//   64 tile with wgmma (A, the input combos, from registers; B, the
+//   product's weight tile, from shared memory), so each product's f32
+//   accumulator stays in registers for the whole run and the fold with O
+//   runs once, at the end, through shared memory. A warp forms the combos
+//   of its 16 rows in registers from the ldmatrix fragments of the four
+//   components, in the storage dtype as the TPU kernel forms them (each
+//   term scaled by its coefficient rounded to bf16, each scaled term and
+//   their sum rounded once): no combo reaches shared memory. Each product's
+//   input terms are compiled in (the host checks the tables it is passed).
+// - One barrier a K chunk of 32: the chunk's four components and its P
+//   weight tiles arrive by TMA in a ring of four stages, all but the one
+//   being read in flight, each stage behind a full-barrier (mbarrier).
+//   Tiles are stored swizzled (x rows of 64 bytes in the 64-byte pattern,
+//   weight rows of 128 bytes in the 128-byte pattern, which is wgmma's
+//   layout for an N-contiguous B), so the ldmatrix rows fall in distinct
+//   bank groups without padding.
+// - The weight re-fetch: TMA moves the tiles ~1.3x faster than cp.async
+//   from every thread, and the block's eight warps (not one a product: ten
+//   warps left two of the SM's four schedulers a third) keep the products
+//   under the copies' time. Sharing each chunk's weight tiles among a
+//   cluster of 2 or 4 blocks along M by TMA multicast divides their L2
+//   reads but not the bytes each SM takes in, and measured slower (PERF.md
+//   §6, the versions of the main loop).
+// f32 keeps the CUDA-core loop (one product at a time over a resident
+// chunk, folded into four accumulators): it is on no timed path.
 #pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: the encoder is fetched at run time)
 
 #include "qtile.cuh"
 
@@ -23,23 +54,18 @@ namespace qgemm {
 
 using namespace qtile;
 
-// K chunk per step; two blocks fit on an SM in bf16
-template <typename T>
-struct GemmCfg;
-template <>
-struct GemmCfg<__nv_bfloat16> {
-  static constexpr int KC = 64, kMinBlocks = 2;
-};
-template <>
-struct GemmCfg<float> {
-  static constexpr int KC = 32, kMinBlocks = 1;
-};
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core loop
+// ---------------------------------------------------------------------------
 
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads, GemmCfg<T>::kMinBlocks)
-qgemm_kernel(const T* __restrict__ x4, const T* __restrict__ wc,
-             T* __restrict__ y4, int M, int K, int N, Scheme<P> scheme) {
-  constexpr int V = Elem<T>::kVec, KC = GemmCfg<T>::KC;
+constexpr int kKcF32 = 32;  // K chunk a step
+
+template <int P>
+__global__ void __launch_bounds__(kThreads, 1)
+qgemm_f32_kernel(const float* __restrict__ x4, const float* __restrict__ wc,
+                 float* __restrict__ y4, int M, int K, int N, Scheme<P> scheme) {
+  using T = float;
+  constexpr int V = Elem<T>::kVec, KC = kKcF32;
   constexpr int LDB = Layout<T, KC, P>::ldb;
   using Prod = Product<T, KC>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -116,16 +142,382 @@ qgemm_kernel(const T* __restrict__ x4, const T* __restrict__ wc,
   }
 }
 
-template <typename T, int P>
-int launch(const void* x4, const void* wc, void* y4, int M, int K, int N,
-           const Scheme<P>& s, cudaStream_t stream) {
-  const int smem = Layout<T, GemmCfg<T>::KC, P>(BM, 1).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      qgemm_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+// ---------------------------------------------------------------------------
+// bf16: shared-memory barriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+// the barriers' initialisation visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// this thread's arrival, and bytes more for the phase to wait for
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed; a wait that never ends
+// (a fault in the ring's protocol) traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  for (long long spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > (1ll << 26)) __trap();
+  }
+}
+
+// a 3-D box of the tensor map into this block's shared memory at dst,
+// completing on bar
+__device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the ring and the products
+// ---------------------------------------------------------------------------
+
+constexpr int kKc = 32;      // K a chunk: two 16-deep steps
+constexpr int kStages = 4;   // the ring's stages
+constexpr int kXTile = BM * kKc * 2;     // one component of a chunk: 64 rows of 64 bytes
+constexpr int kXBytes = 4 * kXTile;      // 16 KB
+constexpr int kWTile = kKc * BN * 2;     // one product's weights: 32 rows of 128 bytes
+constexpr int kFoldLd = BN + 8;          // f32 row stride of the fold's product tiles
+constexpr int kThreadsBf16 = 2 * 128;    // two warpgroups
+
+// Offsets from the block's 1024-aligned base: the stages, each the chunk's
+// x [4][BM][kKc] then its weights [P][kKc][BN]; then the stages' full
+// barriers. At the end the P f32 product tiles [P][BM][kFoldLd] of the
+// fold reuse the ring.
+template <int P>
+struct Ring {
+  static constexpr int stage = kXBytes + P * kWTile;  // a multiple of 1024
+  static constexpr int fold = P * BM * kFoldLd * 4;
+  static constexpr int ring = kStages * stage > fold ? kStages * stage : fold;
+  static constexpr int bars = ring;
+  static constexpr int total = 1024 + ring + kStages * 8;  // 1024: room to align the base
+};
+
+// byte offset of the 16-byte unit (row r, unit c) of an x tile as TMA
+// writes it: rows of 64 bytes (4 units) in the 64-byte swizzle
+__device__ __forceinline__ unsigned x_off(int r, int c) {
+  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// c1 * u + c2 * v on bf16 pairs, in the storage dtype: each scaled term
+// rounded once, their sum rounded once
+__device__ __forceinline__ unsigned combo2(unsigned u, unsigned v, __nv_bfloat162 c1,
+                                           __nv_bfloat162 c2) {
+  const __nv_bfloat162 t1 = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&u), c1);
+  const __nv_bfloat162 t2 = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&v), c2);
+  const __nv_bfloat162 s = __hadd2(t1, t2);
+  return *reinterpret_cast<const unsigned*>(&s);
+}
+
+// Each product's input components, compiled in (a one-term product repeats
+// its term, as make_scheme does): V8's nonzeros and X_COMBO's; the host
+// checks the scheme it is passed against them
+template <int P>
+__host__ __device__ constexpr int term(int p, int i);
+template <>
+__host__ __device__ constexpr int term<8>(int p, int i) {
+  constexpr int t[8][2] = {{1, 3}, {0, 1}, {0, 2}, {2, 3}, {0, 2}, {0, 1}, {1, 3}, {2, 3}};
+  return t[p][i];
+}
+template <>
+__host__ __device__ constexpr int term<10>(int p, int i) {
+  constexpr int t[10][2] = {{0, 0}, {1, 1}, {2, 2}, {3, 3}, {0, 1},
+                            {2, 3}, {0, 2}, {1, 3}, {0, 3}, {1, 2}};
+  return t[p][i];
+}
+
+// The shared-memory descriptor of a product's weights for one 16-deep step:
+// N contiguous (MN-major), rows of 128 bytes in the 128-byte swizzle, K
+// advancing by groups of 8 rows (the stride byte offset, 16-byte units); a
+// single 64-wide atom along N (the leading byte offset unused)
+constexpr unsigned kDescLbo = 1;
+constexpr unsigned kDescSbo = 64;
+__device__ __forceinline__ unsigned long long w_desc(unsigned addr) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) | ((unsigned long long)kDescLbo << 16) |
+         ((unsigned long long)kDescSbo << 32) | (1ull << 62);
+}
+
+// d (this warpgroup's 64 x 64 f32) += a (this warp's 16 rows x 16 of K, bf16
+// registers in mma.sync's A layout) . B (16 x 64 bf16 at desc, transposed)
+__device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], const unsigned (&a)[4],
+                                               unsigned long long desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// A warpgroup's H = P/2 products over the block's 64 x 64 tile: warp wr of
+// the group holds rows wr*16 .. +16 of each; acc[j][i] is product G*H + j
+// at row wr*16 + lane/4 (+8 for i%4 >= 2), column (i/4)*8 + 2*(lane%4) + i%2
+template <int P>
+struct WgProducts {
+  static_assert(P % 2 == 0, "two warpgroups share the products");
+  static constexpr int H = P / 2;
+  float acc[H][32];
+  __nv_bfloat162 c1[H], c2[H];
+
+  template <int G>
+  __device__ void init(const Scheme<P>& s) {
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      c1[j] = __float2bfloat162_rn(s.in_c[G * H + j][0]);
+      c2[j] = __float2bfloat162_rn(s.in_c[G * H + j][1]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.0f;
+    }
+  }
+
+  // one chunk: xs the stage's x, ws its weights (shared addresses)
+  template <int G>
+  __device__ void chunk(unsigned xs, unsigned ws, int wr, int lane) {
+    const int lr = lane % 16, lu = lane / 16;
+#pragma unroll
+    for (int kk = 0; kk < kKc / 16; ++kk) {
+      // the four components' fragments of this warp's rows: lanes 0-15 rows
+      // 0-15 at unit 0, lanes 16-31 the same rows 8 elements on
+      unsigned f[4][4];
+      const unsigned off = x_off(wr * 16 + lr, kk * 2 + lu);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) ldsm_x4(f[a], xs + a * kXTile + off);
+      unsigned A[H][4];
+#pragma unroll
+      for (int j = 0; j < H; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          A[j][q] = combo2(f[term<P>(G * H + j, 0)][q], f[term<P>(G * H + j, 1)][q], c1[j],
+                           c2[j]);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < H; ++j)
+        wgmma_64x64x16(acc[j], A[j], w_desc(ws + (G * H + j) * kWTile + kk * 16 * 128));
+    }
+    wgmma_commit();
+    wgmma_wait0();  // the stage is read and the registers free before it is refilled
+  }
+
+  // this warpgroup's products into the fold's tiles fs [P][BM][kFoldLd]
+  template <int G>
+  __device__ void store(float* fs, int wr, int lane) const {
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int j = 0; j < H; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int row = wr * 16 + g + ((i % 4) / 2) * 8, col = (i / 4) * 8 + 2 * t;
+        *reinterpret_cast<float2*>(fs + ((G * H + j) * BM + row) * kFoldLd + col) =
+            make_float2(acc[j][i], acc[j][i + 1]);
+      }
+  }
+};
+
+template <int P>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+qgemm_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap wmap, __nv_bfloat16* __restrict__ y4,
+                  int M, int K, int N, Scheme<P> sch) {
+  using R = Ring<P>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* buf = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const unsigned base = smem_u32(buf);
+  const unsigned bars = base + R::bars;  // the full barrier of stage s at bars + 8 s
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int nchunks = (K + kKc - 1) / kKc;
+
+  // chunk `chunk` into its stage (thread 0): the x box and the P weight
+  // boxes, zero past M, K and N
+  auto issue = [&](int chunk) {
+    const int s = chunk % kStages, k0 = chunk * kKc;
+    const unsigned xs = base + s * R::stage, bar = bars + 8 * s;
+    mbar_expect_tx(bar, R::stage);
+    tma_load_3d(xs, &xmap, bar, k0, m0, 0);
+    for (int p = 0; p < P; ++p) tma_load_3d(xs + kXBytes + p * kWTile, &wmap, bar, n0, k0, p);
+  };
+
+  // warpgroup G runs products G*P/2 .. +P/2; its warp wr holds rows wr*16 ..
+  const int G = warp / 4, wr = warp % 4;
+  WgProducts<P> wg;
+  if (G == 0)
+    wg.template init<0>(sch);
+  else
+    wg.template init<1>(sch);
+  auto compute = [&](int s) {
+    const unsigned xs = base + s * R::stage;
+    if (G == 0)
+      wg.template chunk<0>(xs, xs + kXBytes, wr, lane);
+    else
+      wg.template chunk<1>(xs, xs + kXBytes, wr, lane);
+  };
+
+  // ---- the main loop: one barrier a chunk
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kStages && i < nchunks; ++i) issue(i);
+  for (int i = 0; i < nchunks; ++i) {
+    mbar_wait(bars + 8 * (i % kStages), (i / kStages) & 1);
+    compute(i % kStages);
+    __syncthreads();  // every warp is done with chunk i: refill its stage
+    if (threadIdx.x == 0 && i + kStages < nchunks) issue(i + kStages);
+  }
+
+  // ---- the fold, once: y_b = sum_p O[b,p] prod_p in f32, product order
+  // (every copy has landed and every warp is done with the ring)
+  float* fs = reinterpret_cast<float*>(buf);  // [P][BM][kFoldLd]
+  if (G == 0)
+    wg.template store<0>(fs, wr, lane);
+  else
+    wg.template store<1>(fs, wr, lane);
+  __syncthreads();
+  for (int e = threadIdx.x; e < BM * BN / 2; e += kThreadsBf16) {
+    const int r = e / (BN / 2), c = (e % (BN / 2)) * 2;
+    const int m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;  // N % 8 == 0: n < N means n + 1 < N
+    float y[4][2];
+#pragma unroll
+    for (int bo = 0; bo < 4; ++bo) y[bo][0] = y[bo][1] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const float2 v = *reinterpret_cast<const float2*>(fs + (q * BM + r) * kFoldLd + c);
+#pragma unroll
+      for (int bo = 0; bo < 4; ++bo) {
+        y[bo][0] += sch.out[bo][q] * v.x;
+        y[bo][1] += sch.out[bo][q] * v.y;
+      }
+    }
+#pragma unroll
+    for (int bo = 0; bo < 4; ++bo)
+      *reinterpret_cast<__nv_bfloat162*>(y4 + ((size_t)bo * M + m) * N + n) =
+          __floats2bfloat162_rn(y[bo][0], y[bo][1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, fetched once (null when missing)
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// A 3-D bf16 tensor map: dims innermost first, strides (bytes) of dims 1
+// and 2, the box, zero fill out of bounds. Returns 0 or -1.
+inline int encode_3d(CUtensorMap* map, const void* ptr, cuuint64_t d0, cuuint64_t d1,
+                     cuuint64_t d2, cuuint32_t b0, cuuint32_t b1, cuuint32_t b2,
+                     CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return -1;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  const cuuint32_t box[3] = {b0, b1, b2};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0
+             : -1;
+}
+
+template <int P>
+int launch_f32(const void* x4, const void* wc, void* y4, int M, int K, int N,
+               const Scheme<P>& s, cudaStream_t stream) {
+  const int bytes = Layout<float, kKcF32, P>(BM, 1).total;
+  // once per instantiation (one device a process)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      qgemm_f32_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  qgemm_kernel<T, P><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x4), static_cast<const T*>(wc), static_cast<T*>(y4), M, K, N, s);
+  qgemm_f32_kernel<P><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(x4), static_cast<const float*>(wc), static_cast<float*>(y4), M,
+      K, N, s);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_bf16(const void* x4, const void* wc, void* y4, int M, int K, int N,
+                const Scheme<P>& s, cudaStream_t stream) {
+  constexpr int smem = Ring<P>::total;
+  static_assert(smem <= kMaxSmem, "the GEMM's ring exceeds a block's shared memory");
+  // once per instantiation (one device a process)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      qgemm_bf16_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap xmap, wmap;
+  if (encode_3d(&xmap, x4, K, M, 4, kKc, BM, 4, CU_TENSOR_MAP_SWIZZLE_64B) != 0 ||
+      encode_3d(&wmap, wc, N, K, P, BN, kKc, 1, CU_TENSOR_MAP_SWIZZLE_128B) != 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  qgemm_bf16_kernel<P><<<grid, kThreadsBf16, smem, stream>>>(
+      xmap, wmap, static_cast<__nv_bfloat16*>(y4), M, K, N, s);
   return (int)cudaGetLastError();
 }
 
@@ -137,10 +529,17 @@ int entry(const void* x4, const void* wc, void* y4, int M, int K, int N, int dty
           const float* v, const float* o, void* stream) {
   Scheme<P> s;
   if (make_scheme(v, o, &s) != 0) return (int)cudaErrorInvalidValue;
-  if (K % 8 || N % 8 || (M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)  // the bf16 kernel's input terms are compiled in
+    for (int p = 0; p < P; ++p)
+      if (s.in_a[p][0] != term<P>(p, 0) || s.in_a[p][1] != term<P>(p, 1))
+        return (int)cudaErrorInvalidValue;
+  if (M < 1 || K % 8 || N % 8 || (M + BM - 1) / BM > 65535 ||
+      reinterpret_cast<uintptr_t>(x4) % 16 || reinterpret_cast<uintptr_t>(wc) % 16 ||
+      reinterpret_cast<uintptr_t>(y4) % 16)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, P>(x4, wc, y4, M, K, N, s, st);
-  if (dtype == 1) return launch<__nv_bfloat16, P>(x4, wc, y4, M, K, N, s, st);
+  if (dtype == 0) return launch_f32<P>(x4, wc, y4, M, K, N, s, st);
+  if (dtype == 1) return launch_bf16<P>(x4, wc, y4, M, K, N, s, st);
   return (int)cudaErrorInvalidValue;
 }
 

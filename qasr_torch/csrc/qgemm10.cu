@@ -16,10 +16,13 @@
 // What bounds it on an H100: the dense layer K=3328 -> N=256 at M = 4096 is
 // 7.0e10 executed FLOP (ten products) against ~0.13 GB, ~540 FLOP/byte: the
 // tensor cores, just; the 256 -> 256 layers (~300 FLOP/byte) sit at the
-// ridge. The design is kernel B's (qgemm.cuh with P = 10): the combos never
-// reach device memory, the four input components of a K chunk stay in
-// shared memory for all ten products, and the scheme's table is the only
-// part of the shared-memory layout that grows.
+// ridge; the im2col convs (M53248 K2304) carry ~9.8 GB of weight-tile and
+// ~3.9 GB of x-tile traffic through L2 at 64 x 64 tiles. The design is
+// kernel B's (qgemm.cuh with P = 10): two warpgroups of five products each
+// on wgmma, the combos (one or two components, coefficient 1: an add in
+// bf16) formed in registers, ten accumulators folded with OUT_COMBO once.
+// Its input terms are compiled in; the host checks the tables it is
+// passed against them.
 #include "qgemm.cuh"
 
 extern "C" {

@@ -12,14 +12,14 @@
 // What bounds it on an H100: at the QCNN-256 dense layers (M = B*T = 4096)
 // the K=3328 -> N=256 layer is 5.6e10 FLOP against ~0.13 GB, about 430
 // FLOP/byte, just above the bf16 ridge of ~295; the two 256 -> 256 layers are
-// near 240 FLOP/byte, at the ridge. The design is the TPU kernel's: the
-// 2-sparse V8 combos are formed in shared memory as each input chunk
-// arrives, so they never reach device memory. Each block owns a 64x64 tile
-// of all four components; per K chunk of 64 the four input components stay
-// in shared memory while the eight products run over them, each product's
-// weights arriving by cp.async one step ahead (mma.sync m16n8k16 bf16, f32
-// accumulators), and each product is folded into the four outputs with O8
-// in registers.
+// near 240 FLOP/byte, at the ridge. With 64 x 64 tiles, though, the x and
+// weight tiles cross L2 once per N and M tile (~1.3 GB at K3328), and that
+// traffic, not the products, bounds the call. The design (qgemm.cuh): two
+// warpgroups each run four of the eight products over the block's tile with
+// wgmma, the V8 combos formed in registers (each coefficient rounded to
+// bf16, each scaled term and their sum rounded once, as the TPU kernel's
+// _scaled and +), eight f32 accumulators folded with O8 once at the end,
+// and a four-stage TMA ring behind one barrier a chunk.
 #include "qgemm.cuh"
 
 extern "C" {

@@ -43,7 +43,7 @@ from qasr_torch.ops.initializers import quaternion_init
 from qasr_torch.ops.kernels.qgemm8 import qdense_pallas8
 from qasr_torch.ops.kernels.qlstm_scan import qlstm_scan_fast8
 from qasr_torch.ops.qlinalg import qdense
-from qasr_torch.ops.quaternion import O8, V8, combine_weights
+from qasr_torch.ops.quaternion import O8, V8, combine_weights, device_table
 
 # M = B * T from which the input projection takes the block product
 # (``qlstm.py:62-63``, measured on the TPU). On the H100 the block product is
@@ -127,8 +127,8 @@ def qlstm_fast8_scan(
     t, d, b, c16 = xs.shape
     hid = c16 // 16
     dt = xs.dtype
-    v8 = torch.as_tensor(V8, dtype=dt, device=xs.device)
-    o8 = torch.as_tensor(O8, dtype=torch.float32, device=xs.device)
+    v8 = device_table(V8, dt, xs.device)
+    o8 = device_table(O8, torch.float32, xs.device)
     wc = wc8.float()
     h = xs.new_zeros((d, b, 4 * hid))
     c = xs.new_zeros((d, b, 4 * hid))

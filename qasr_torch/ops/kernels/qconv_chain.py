@@ -30,6 +30,7 @@ from qasr_torch.ops.kernels.qconv_ft import (
     qconv_ft10,
     qconv_stacked_plain,
 )
+from qasr_torch.ops.quaternion import device_table
 
 # per scheme: the forward kernel's and the transposed kernel's wrappers
 _KERNELS = {"fast8": (qconv_ft8, qconv_dx8), "fast10": (qconv_ft10, qconv_dx10)}
@@ -49,7 +50,7 @@ def qconv_dw(x_st: torch.Tensor, dz: torch.Tensor, kernel_size, scheme: str = "f
     sc = SCHEMES[scheme]
     kh, kw = kernel_size
     cin, cout = x_st.shape[-1], dz.shape[-1]
-    o = torch.as_tensor(sc.o_mat, dtype=torch.float32, device=dz.device)
+    o = device_table(sc.o_mat, torch.float32, dz.device)
     dzc = torch.einsum("bqftn,qp->pbftn", dz.float(), o).to(dz.dtype)
     pad = ((kw - 1) // 2, (kh - 1) // 2)
     dwc = []
@@ -60,7 +61,7 @@ def qconv_dw(x_st: torch.Tensor, dz: torch.Tensor, kernel_size, scheme: str = "f
             padding=pad,
         )  # [Cout, Cin, kw (F), kh (T)]
         dwc.append(g.float().permute(3, 2, 1, 0))  # [kh, kw, Cin, Cout]
-    u = torch.as_tensor(sc.u, dtype=torch.float32, device=dz.device)
+    u = device_table(sc.u, torch.float32, dz.device)
     return torch.einsum("pa,phwkn->ahwkn", u, torch.stack(dwc))
 
 

@@ -43,7 +43,7 @@ from qasr_torch.ops.kernels.qconv_ft import (
     qconv_stacked_plain,
     supported,
 )
-from qasr_torch.ops.quaternion import combine_weights
+from qasr_torch.ops.quaternion import combine_weights, device_table
 
 
 def conj_transpose_w(w: torch.Tensor) -> torch.Tensor:
@@ -99,7 +99,7 @@ def qconv_dx10_rotated_plain(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for p, terms in enumerate(sc.dx_in):
         dzc = _combo(dz, terms)  # [B, F, T, Cout]
         prods.append(F.conv2d(dzc.permute(0, 3, 1, 2), wc[p], padding=pad).float())
-    v = torch.as_tensor(sc.v_mat, dtype=torch.float32, device=dz.device)
+    v = device_table(sc.v_mat, torch.float32, dz.device)
     return torch.einsum("pbnft,pa->baftn", torch.stack(prods), v).to(dz.dtype)
 
 

@@ -31,7 +31,16 @@ import torch
 import torch.nn.functional as F
 
 from qasr_torch.ops.kernels import _build
-from qasr_torch.ops.quaternion import O8, OUT_COMBO, U8, V8, W_COMBO, X_COMBO, combine_weights
+from qasr_torch.ops.quaternion import (
+    O8,
+    OUT_COMBO,
+    U8,
+    V8,
+    W_COMBO,
+    X_COMBO,
+    combine_weights,
+    device_table,
+)
 
 
 class _Scheme:
@@ -154,7 +163,7 @@ def qconv_stacked_plain(
         xc = _combo(x_st, terms)  # [B, F, T, Cin]
         y = F.conv2d(xc.permute(0, 3, 1, 2), wc[p], padding=pad)  # [B, Cout, F, T]
         prods.append(y.float())
-    o = torch.as_tensor(scheme.o_mat, dtype=torch.float32, device=x_st.device)
+    o = device_table(scheme.o_mat, torch.float32, x_st.device)
     out = torch.einsum("pbnft,qp->bqftn", torch.stack(prods), o)
     if bias is not None:
         out = out + bias.float().reshape(4, 1, 1, cout)

@@ -37,6 +37,7 @@ from qasr_torch.ops.quaternion import (
     W_COMBO,
     X_COMBO,
     combine_weights,
+    device_table,
 )
 
 #: the contraction length from which dW runs kernel I (``qgemm.py:310``)
@@ -90,7 +91,7 @@ def qgemm_stacked_plain(x4: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     xc = _x_combos(x4).float()
     wc = combine_weights(w, x4.dtype, W_COMBO).float()
     prods = torch.bmm(xc, wc)  # [10, M, N] f32
-    o = torch.as_tensor(OUT_COMBO, dtype=torch.float32, device=x4.device)
+    o = device_table(OUT_COMBO, torch.float32, x4.device)
     return torch.einsum("pmn,bp->bmn", prods, o).to(x4.dtype)
 
 
@@ -101,7 +102,7 @@ def qgemm_dw_plain(x4: torch.Tensor, dy4: torch.Tensor) -> torch.Tensor:
     xc = _x_combos(x4).float()
     dyc = _dy_combos(dy4).float()
     prods = torch.bmm(xc.transpose(1, 2), dyc)  # [10, K, N]
-    wt = torch.as_tensor(W_COMBO, dtype=torch.float32, device=x4.device)
+    wt = device_table(W_COMBO, torch.float32, x4.device)
     return torch.einsum("pkn,pa->akn", prods, wt)
 
 
@@ -110,7 +111,7 @@ def dw_einsum(x4: torch.Tensor, dy4: torch.Tensor) -> torch.Tensor:
     M: ``dw[c] = sum_{a,b: comp[a,b] = c} sign[a,b] x_a^T dy_b``, products in
     f32. ``[4, M, K]``, ``[4, M, N]`` -> ``[4, K, N]`` f32."""
     prods = torch.einsum("amk,bmn->abkn", x4.float(), dy4.float())
-    e = torch.as_tensor(HAMILTON_E, dtype=torch.float32, device=x4.device)
+    e = device_table(HAMILTON_E, torch.float32, x4.device)
     return torch.einsum("abkn,cab->ckn", prods, e)
 
 
@@ -118,12 +119,14 @@ def _pad8(v: int) -> int:
     return -(-v // 8) * 8
 
 
-def qgemm10_cuda(x4: torch.Tensor, wc: torch.Tensor, *, role: str = "fwd") -> torch.Tensor:
+def qgemm10_cuda(x4: torch.Tensor, wc: torch.Tensor, *, role: str = "fwd",
+                 lib=None) -> torch.Tensor:
     """Launch kernel H on ``x4 [4, M, K]`` and W_COMBO-combined ``wc [10, K,
     N]``: one CUDA device, contiguous, both f32 or both bf16, K and N
     multiples of 8. ``role`` ("fwd" or "dx") names the counter the launch
-    adds to. Raises on anything the kernel does not take, or when it fails
-    to build or launch."""
+    adds to; ``lib`` a kernel library other than the package's (a variant
+    built by ``qasr_torch.tools.ablate_qgemm``). Raises on anything the
+    kernel does not take, or when it fails to build or launch."""
     if x4.ndim != 3 or x4.shape[0] != 4 or wc.ndim != 3 or wc.shape[0] != 10:
         raise ValueError(
             f"expected x4 [4,M,K] and wc [10,K,N], got {tuple(x4.shape)} and {tuple(wc.shape)}"
@@ -138,7 +141,7 @@ def qgemm10_cuda(x4: torch.Tensor, wc: torch.Tensor, *, role: str = "fwd") -> to
     _check_cuda_tensor("wc", wc, x4.dtype, (10, k, n))
     if wc.device != x4.device:
         raise ValueError(f"wc is on {wc.device}, x4 on {x4.device}")
-    lib = _build.load_library()
+    lib = lib if lib is not None else _build.load_library()
     y4 = torch.empty((4, m, n), dtype=x4.dtype, device=x4.device)
     if y4.numel() == 0:
         return y4

@@ -2,10 +2,11 @@
 plain PyTorch version, and its gradient.
 
 Counterpart of ``qasr/ops/pallas/qgemm8.py``: the TPU kernel
-``_qgemm8_kernel`` becomes a hand-written CUDA kernel for Hopper that forms
-the 2-sparse V8 input combos in shared memory from each staged input chunk,
-accumulates the eight products in f32 and recombines them with O8 in
-registers. Layout: component-leading ``x4 [4, M, K]`` -> ``y4 [4, M, N]``;
+``_qgemm8_kernel`` becomes a hand-written CUDA kernel for Hopper
+(``csrc/qgemm.cuh``) in which warp p forms product p's 2-sparse V8 input
+combos in registers from each staged input chunk, accumulates it in f32
+over the whole contraction and the eight products are recombined with O8
+once at the end. Layout: component-leading ``x4 [4, M, K]`` -> ``y4 [4, M, N]``;
 ``qdense_pallas8`` wraps it for the packed ``[..., 4K]`` layout.
 
 :class:`QGemm8Fn` is the counterpart of ``qgemm8_cl``'s custom VJP. Its dx
@@ -25,25 +26,26 @@ import torch.nn.functional as F
 
 from qasr_torch.ops.kernels import _build
 from qasr_torch.ops.kernels.qconv_ft import _DTYPE_CODE, _O8_F32, _V8_F32, _check_cuda_tensor
-from qasr_torch.ops.quaternion import HAMILTON_E, O8, U8, V8, combine_weights
+from qasr_torch.ops.quaternion import HAMILTON_E, O8, O8_T, U8, V8, combine_weights, device_table
 
 
 def qgemm8_cl_plain(x4: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel B: ``qdense_fast8``'s einsums on ``[4, M, K]``
     with ``w [4, K, N]``; products in x's dtype, O8 recombination in f32."""
-    v8 = torch.as_tensor(V8, dtype=x4.dtype, device=x4.device)
-    xc = torch.einsum("amk,pa->pmk", x4, v8)
+    xc = torch.einsum("amk,pa->pmk", x4, device_table(V8, x4.dtype, x4.device))
     prods = torch.bmm(xc, combine_weights(w, x4.dtype)).float()  # [8, M, N]
-    o8 = torch.as_tensor(O8, dtype=torch.float32, device=x4.device)
+    o8 = device_table(O8, torch.float32, x4.device)
     return torch.einsum("pmn,bp->bmn", prods, o8).to(x4.dtype)
 
 
-def qgemm8_cuda(x4: torch.Tensor, wc8: torch.Tensor, *, role: str = "fwd") -> torch.Tensor:
+def qgemm8_cuda(x4: torch.Tensor, wc8: torch.Tensor, *, role: str = "fwd",
+                lib=None) -> torch.Tensor:
     """Launch kernel B on ``x4 [4, M, K]`` and U8-combined ``wc8 [8, K, N]``:
     one CUDA device, contiguous, both f32 or both bf16, K and N multiples of
-    8. ``role`` ("fwd" or "dx") names the counter the launch adds to. Raises
-    on anything the kernel does not take, or when it fails to build or
-    launch."""
+    8. ``role`` ("fwd" or "dx") names the counter the launch adds to;
+    ``lib`` a kernel library other than the package's (a variant built by
+    ``qasr_torch.tools.ablate_qgemm``). Raises on anything the kernel does
+    not take, or when it fails to build or launch."""
     if x4.ndim != 3 or x4.shape[0] != 4 or wc8.ndim != 3 or wc8.shape[0] != 8:
         raise ValueError(
             f"expected x4 [4,M,K] and wc8 [8,K,N], got {tuple(x4.shape)} and "
@@ -59,7 +61,7 @@ def qgemm8_cuda(x4: torch.Tensor, wc8: torch.Tensor, *, role: str = "fwd") -> to
     _check_cuda_tensor("wc8", wc8, x4.dtype, (8, k, n))
     if wc8.device != x4.device:
         raise ValueError(f"wc8 is on {wc8.device}, x4 on {x4.device}")
-    lib = _build.load_library()
+    lib = lib if lib is not None else _build.load_library()
     y4 = torch.empty((4, m, n), dtype=x4.dtype, device=x4.device)
     if y4.numel() == 0:
         return y4
@@ -121,14 +123,14 @@ def qgemm8_dw(x4: torch.Tensor, dy4: torch.Tensor) -> torch.Tensor:
     """
     k, n = x4.shape[2], dy4.shape[2]
     if k * n >= 1 << 20:
-        xc = torch.einsum("amk,pa->pmk", x4, torch.as_tensor(V8, dtype=x4.dtype, device=x4.device))
-        o8t = torch.as_tensor(O8.T, dtype=dy4.dtype, device=dy4.device)
+        xc = torch.einsum("amk,pa->pmk", x4, device_table(V8, x4.dtype, x4.device))
+        o8t = device_table(O8_T, dy4.dtype, dy4.device)
         dyc = torch.einsum("bmn,pb->pmn", dy4, o8t)
         dwc8 = torch.bmm(xc.transpose(1, 2), dyc).float()  # [8, K, N]
-        u8 = torch.as_tensor(U8, dtype=torch.float32, device=x4.device)
+        u8 = device_table(U8, torch.float32, x4.device)
         return torch.einsum("pkn,pa->akn", dwc8, u8)
     dw_big = torch.einsum("amk,bmn->akbn", x4, dy4).float()  # [4, K, 4, N]
-    e = torch.as_tensor(HAMILTON_E, dtype=torch.float32, device=x4.device)
+    e = device_table(HAMILTON_E, torch.float32, x4.device)
     return torch.einsum("akbn,cab->ckn", dw_big, e)
 
 

@@ -38,7 +38,7 @@ import torch
 
 from qasr_torch.ops.kernels import _build
 from qasr_torch.ops.kernels.qconv_ft import _DTYPE_CODE, _O8_F32, _V8_F32, _check_cuda_tensor
-from qasr_torch.ops.quaternion import O8, V8
+from qasr_torch.ops.quaternion import O8, V8, device_table
 
 # 2-sparse V8 rows as ((component, coefficient), (component, coefficient)),
 # the coefficients rounded to f32 as the kernel and the JAX twin use them
@@ -120,7 +120,7 @@ def qlstm_scan_fwd_plain(
         empty = xz_gm.new_zeros((0, d, b, h4))
         return empty, empty.clone(), xz_gm.new_zeros((0, d, b, c16))
     wc = wc8.to(dt).float()
-    o8 = torch.as_tensor(O8, dtype=torch.float32, device=xz_gm.device)
+    o8 = device_table(O8, torch.float32, xz_gm.device)
     mask = activity_mask(t, d, lengths, b, xz_gm.device)[..., None]  # [T, D, B, 1]
     h = xz_gm.new_zeros((d, b, h4))
     c = xz_gm.new_zeros((d, b, h4))
@@ -229,7 +229,7 @@ def qlstm_scan_bwd_plain(
     if t == 0:
         return torch.zeros_like(gates)
     wt = wc8.to(dt).float().transpose(-1, -2)  # [D, 8, 4H, H]
-    o8 = torch.as_tensor(O8, dtype=torch.float32, device=gates.device).view(4, 1, 8, 1, 1, 1)
+    o8 = device_table(O8, torch.float32, gates.device).view(4, 1, 8, 1, 1, 1)
     mask = activity_mask(t, d, lengths, b, gates.device)[..., None]  # [T, D, B, 1]
     dh = torch.zeros((d, b, h4), device=gates.device)
     dc = torch.zeros_like(dh)
@@ -360,8 +360,8 @@ def qlstm_scan_dw(hs: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
     t, d, b, h4 = hs.shape
     hid = h4 // 4
     h_prev = torch.cat([hs.new_zeros((1, d, b, h4)), hs[:-1]])
-    v8 = torch.as_tensor(V8, dtype=hs.dtype, device=hs.device)
-    o8 = torch.as_tensor(O8, dtype=dz.dtype, device=dz.device)
+    v8 = device_table(V8, hs.dtype, hs.device)
+    o8 = device_table(O8, dz.dtype, dz.device)
     hcp = torch.einsum("tdbak,pa->dptbk", h_prev.reshape(t, d, b, 4, hid), v8)
     dpr = torch.einsum("tdbgqh,qp->dptbgh", dz.reshape(t, d, b, 4, 4, hid), o8)
     hcp = hcp.reshape(d, 8, t * b, hid)

@@ -16,7 +16,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from qasr_torch.ops.quaternion import O8, V8, combine_weights, hamilton_expand
+from qasr_torch.ops.quaternion import O8, V8, combine_weights, device_table, hamilton_expand
 
 
 def qdense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -77,10 +77,10 @@ def qdense_fast8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"dense weights must be [4, Cin, Cout], got {tuple(w.shape)}")
     k = w.shape[1]
     xs = x.reshape(*x.shape[:-1], 4, k)
-    v8 = torch.as_tensor(V8, dtype=x.dtype, device=x.device)
+    v8 = device_table(V8, x.dtype, x.device)
     xc = torch.einsum("...ak,pa->...pk", xs, v8)
     wc = combine_weights(w, x.dtype)  # [8, K, N]
     prods = torch.einsum("...pk,pkn->...pn", xc, wc).float()
-    o8 = torch.as_tensor(O8, dtype=torch.float32, device=x.device)
+    o8 = device_table(O8, torch.float32, x.device)
     ys = torch.einsum("...pn,bp->...bn", prods, o8)
     return ys.reshape(*x.shape[:-1], 4 * w.shape[2]).to(x.dtype)

@@ -107,6 +107,31 @@ O8 = np.array([
 ], dtype=np.float64)
 
 
+# the transposes that call sites take of the tables, kept so that each is one
+# array (device_table's cache holds it)
+O8_T = np.ascontiguousarray(O8.T)
+HAMILTON_COMP_FLAT = HAMILTON_COMP.reshape(-1)
+
+# (id of the numpy table, dtype, device) -> (table, tensor)
+_DEVICE_TABLES: dict[tuple[int, torch.dtype, torch.device], tuple[np.ndarray, torch.Tensor]] = {}
+
+
+def device_table(table: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``table`` as a ``dtype`` tensor on ``device``, made once per (table,
+    dtype, device) and kept: after the first call no host-to-device copy
+    (which would synchronise the stream) happens again. ``table`` is a
+    module-level array that lives as long as the process (the cache holds
+    it, so its id is never reused); the tensor returned is shared, so
+    callers must not write to it."""
+    device = torch.device(device)
+    key = (id(table), dtype, device)
+    hit = _DEVICE_TABLES.get(key)
+    if hit is None:
+        hit = (table, torch.as_tensor(table, dtype=dtype, device=device))
+        _DEVICE_TABLES[key] = hit
+    return hit[1]
+
+
 def split_components(x: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """Split packed ``[..., 4C]`` into four ``[..., C]`` components (r,i,j,k)."""
     c4 = x.shape[-1]
@@ -126,9 +151,9 @@ def hamilton_expand(w: torch.Tensor, conjugate: bool = False) -> torch.Tensor:
     if conjugate:
         w = torch.cat([w[:1], -w[1:]], dim=0)
     n_sp = w.ndim - 3
-    comp = torch.as_tensor(HAMILTON_COMP.reshape(-1), dtype=torch.long, device=w.device)
+    comp = device_table(HAMILTON_COMP_FLAT, torch.long, w.device)
     wb = w.index_select(0, comp).reshape(4, 4, *w.shape[1:])
-    sign = torch.as_tensor(HAMILTON_SIGN, dtype=w.dtype, device=w.device)
+    sign = device_table(HAMILTON_SIGN, w.dtype, w.device)
     wb = wb * sign.reshape(4, 4, *([1] * (w.ndim - 1)))
     # [a, b, *sp, K, N] -> [*sp, a, K, b, N] -> [*sp, 4K, 4N]
     perm = tuple(range(2, 2 + n_sp)) + (0, 2 + n_sp, 1, 3 + n_sp)
@@ -153,6 +178,6 @@ def combine_weights(
 ) -> torch.Tensor:
     """Weight-side combos ``wc[p] = Σ_a table[p, a] w[a]``: ``[4, ...] ->
     [P, ...]``, summed in f32 and returned in ``dtype`` (default w's)."""
-    t = torch.as_tensor(table, dtype=torch.float32, device=w.device)
+    t = device_table(table, torch.float32, w.device)
     wc = torch.tensordot(t, w.float(), dims=([1], [0]))
     return wc.to(dtype or w.dtype)

@@ -389,6 +389,39 @@ def test_qgemm10_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,role", [("B", "fwd"), ("B", "dx"), ("H", "fwd"), ("H", "dx")])
+# M past a whole number of tiles and of a cluster's rows (18 tiles), M below
+# one tile, K a multiple of 8 but not of the 32-deep chunk, N a multiple of
+# 8 but not of the 64-wide tile, and whole tiles
+@pytest.mark.parametrize("m,k,n", [(1100, 200, 136), (5, 40, 72), (4096, 256, 256)])
+def test_qgemm_main_loop_edges_on_card(cuda_device, dtype, kernel, role, m, k, n):
+    """qgemm.cuh's main loop (kernel B, P = 8, and H, P = 10) through the
+    wrappers, both roles, against the plain versions at today's
+    tolerances, and the same bits twice."""
+    rng = np.random.default_rng(21)
+    w = _t(_rand(rng, 4, k, n, scale=k ** -0.5)).to(cuda_device)
+    if role == "fwd":
+        inp = _t(_rand(rng, 4, m, k, scale=0.5)).to(cuda_device, dtype)
+        ww = w
+    else:
+        inp = _t(_rand(rng, 4, m, n, scale=0.5)).to(cuda_device, dtype)
+        ww = qgemm8.conj_transpose_dense(w)
+    fns = {("B", "fwd"): qgemm8.qgemm8_cl, ("B", "dx"): qgemm8.qgemm8_dx,
+           ("H", "fwd"): qgemm.qgemm10, ("H", "dx"): qgemm.qgemm10_dx}
+    fn = fns[kernel, role]
+    plain = qgemm8.qgemm8_cl_plain if kernel == "B" else qgemm.qgemm_stacked_plain
+    before = fn.launches
+    got = fn(inp, w)
+    again = fn(inp, w)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert got.shape == (4, m, ww.shape[2])
+    torch.testing.assert_close(got.float(), plain(inp.float(), ww), **_tol(dtype))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(300, 72, 40), (1000, 13, 62), (256, 136, 200),
                                    (4096, 256, 256), (3990, 256, 256), (2000, 200, 136),
                                    (300, 1024, 1024)])

@@ -5,6 +5,7 @@ table holds the card's datasheet figures only, and the numerics hooks trap
 what they say they trap.
 """
 
+import math
 import os
 
 import numpy as np
@@ -55,14 +56,16 @@ def test_chips_hold_the_h100_only():
 def test_conv_roofline_keys_and_refusals():
     """At a tiny shape on the host (its times are the host's, not a device
     metric) the block path returns the JAX function's keys; the packed XLA
-    arms raise."""
+    arms raise. The times are difference quotients of host wall times, which
+    a loaded host can make zero or negative, so only their finiteness is
+    checked here; chip_smoke.py gates them positive on the card."""
     kw = dict(batch=1, t=4, f=3, cin=2, cout=2, dtype="float32", repeats=1)
     got = profiling.conv_roofline(device="cpu", variant="block", **kw)
     want = jprofiling.conv_roofline(chip="v5e", variant="block", **kw)
     assert set(got) == set(want)
     assert got["flops_per_step"] == want["flops_per_step"] == profiling.qconv_flops(1, 4, 3, 2, 2)
     assert got["variant"] == "block" and got["chip"] == "h100"
-    assert got["qconv_s"] > 0 and got["expanded_real_s"] > 0
+    assert math.isfinite(got["qconv_s"]) and math.isfinite(got["expanded_real_s"])
     for variant in ("fast", "fast10"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
             profiling.conv_roofline(device="cpu", variant=variant, **kw)
