@@ -1254,9 +1254,12 @@ def phase9_fast10(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: list) -
     st10 = create_train_state(tcfg, device=dev)
     st8 = create_train_state(tcfg8, device=dev)
     step10, step8 = _alternating(lambda: train_step(st10, batch), lambda: train_step(st8, batch), 3)
-    # kernel I: its split-M pass and, where S > 1, the second pass that sums
-    # the runs (qtile's reduce_splits; no other kernel of the step runs it)
-    named = {"kernel H": "qgemm_bf16_kernel<10",
+    # kernel G with its dalpha pass; kernel I: its split-M pass and, where S
+    # > 1, the second pass that sums the runs (qtile's reduce_splits; no
+    # other kernel of the step runs it)
+    named = {"kernel F": "qconv_wg_kernel<10, qconv::BiasStore",
+             "kernel G": ("qconv_wg_kernel<10, qconv::PreluBwdStore", "dalpha_reduce_kernel"),
+             "kernel H": "qgemm_bf16_kernel<10",
              "kernel I": ("qgemm10_dw_kernel<", "reduce_splits_kernel<float>")}
     prof_line = _profile(lambda: train_step(st10, batch),
                          f"one 10-product config 2 train step B{B}xT{T}", 9, smi, 10, named)
@@ -1563,11 +1566,16 @@ def phase10_dgt_real_cnn(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: 
 def time_kernels(tree: str) -> int:
     """``--time-kernels TREE``: of the ``qasr_torch`` under ``TREE``, bf16, on
     CUDA events: the rank-8 kernels A and C (with its epilogue) at phase 5's
-    shape; kernels B and H, forward and dx, at every path shape (config 2's
-    dense layers at M4096 K3328 and K256, config 4's M16384 K512 N256 and
-    M2048 K1664 N2048 for B, the im2col convs' M53248 K2304 for H), each as
-    the wrapper's call and as the launcher alone on ready inputs; kernel I
-    at phase 9's three shapes; and the rank-8, 10-product and
+    shape; the 10-product kernels F (with its PReLU prologue and bias) and G
+    (with and without its PReLU-backward epilogue) at the same shape, each
+    as the wrapper's call and as the launcher alone on ready weight combos
+    (F also without its prologue); kernels B and H, forward and dx, at every
+    path shape (config 2's dense layers at M4096 K3328 and K256, config 4's
+    M16384 K512 N256 and M2048 K1664 N2048 for B, the im2col convs' M53248
+    K2304 for H), each as the wrapper's call and as the launcher alone on
+    ready inputs, and ``torch.matmul`` on the Hamilton-expanded weight for
+    B at config 4's M16384 K512 N256 and B's dx at M4096 N256 -> K256;
+    kernel I at phase 9's three shapes; and the rank-8, 10-product and
     ``use_pallas`` train steps (B16 x T256). One JSON line of ms (I's
     entries name its split S where the tree has one). Run for two trees in
     turns (parent, change, change, parent) in one call on the card, it
@@ -1580,13 +1588,15 @@ def time_kernels(tree: str) -> int:
     from qasr_torch import qconv_dx8, qconv_ft8
     from qasr_torch.configs import get_config
     from qasr_torch.ops.kernels import qgemm
+    from qasr_torch.ops.kernels.qconv_dx import conj_transpose_w, qconv_dx10, qconv_dx_cuda
+    from qasr_torch.ops.kernels.qconv_ft import SCHEME10, qconv_ft10, qconv_ft_cuda
     from qasr_torch.ops.kernels.qgemm8 import (
         conj_transpose_dense,
         qgemm8_cl,
         qgemm8_cuda,
         qgemm8_dx,
     )
-    from qasr_torch.ops.quaternion import U8, W_COMBO, combine_weights
+    from qasr_torch.ops.quaternion import U8, W_COMBO, combine_weights, hamilton_expand
     from qasr_torch.train.state import create_train_state
     from qasr_torch.train.step import train_step
 
@@ -1608,7 +1618,32 @@ def time_kernels(tree: str) -> int:
         "qconv_dx8 B16 F13 T256 C256 epilogue": _time_ms(lambda: qconv_dx8(dz, w, x, slopes),
                                                          20, 3),
     }
-    del x, dz
+    # F and G: the wrapper's call (its weight combos included) and the
+    # launcher alone on ready combos
+    wc_f = combine_weights(w, bf16, SCHEME10.u).contiguous()
+    wc_g = combine_weights(conj_transpose_w(w), bf16, SCHEME10.u).contiguous()
+    for label, call, alone in (
+        ("qconv_ft10 B16 F13 T256 C256 prologue+bias", lambda: qconv_ft10(x, w, bias, alpha),
+         lambda: qconv_ft_cuda(x, wc_f, bias, alpha, scheme=SCHEME10)),
+        ("qconv_dx10 B16 F13 T256 C256", lambda: qconv_dx10(dz, w),
+         lambda: qconv_dx_cuda(dz, wc_g, scheme=SCHEME10)),
+        ("qconv_dx10 B16 F13 T256 C256 epilogue", lambda: qconv_dx10(dz, w, x, slopes),
+         lambda: qconv_dx_cuda(dz, wc_g, x, slopes, scheme=SCHEME10)),
+    ):
+        times[label] = _time_ms(call, 20, 3)
+        times[f"{label} alone"] = _time_ms(alone, 20, 3)
+    times["qconv_ft10 B16 F13 T256 C256 alone"] = _time_ms(
+        lambda: qconv_ft_cuda(x, wc_f, scheme=SCHEME10), 20, 3)
+    del x, dz, wc_f, wc_g
+    # library calls of rows 4 and 4b: one torch.matmul on the Hamilton-
+    # expanded (adjoint) weight over the packed input
+    for label, m, k, n, role in (("qgemm8 M16384 K512 N256 library", 16384, 512, 256, "fwd"),
+                                 ("qgemm8_dx M4096 N256 -> K256 library", 4096, 256, 256, "dx")):
+        wg = rnd(4, k, n, scale=k ** -0.5)
+        w_lib = hamilton_expand(wg if role == "fwd" else conj_transpose_dense(wg)).to(bf16)
+        inp = rnd(m, w_lib.shape[0], scale=0.5).to(bf16)
+        times[label] = _time_ms(lambda: torch.matmul(inp, w_lib), 20, 3)
+        del wg, w_lib, inp
     # B and H: (kernel, M, K, N, roles); dx maps [4, M, N] -> [4, M, K]
     gemms = [("qgemm8", 4096, 3328, 256, ("fwd", "dx")), ("qgemm8", 4096, 256, 256, ("fwd", "dx")),
              ("qgemm8", 16384, 512, 256, ("fwd",)), ("qgemm8", 2048, 1664, 2048, ("fwd",)),

@@ -1,4 +1,4 @@
-// The stacked quaternion conv main loop of P products, shared by kernels A
+// The stacked quaternion conv main loops of P products, shared by kernels A
 // and F (qconv_ft8.cu, qconv_ft10.cu: the forward, with bias) and kernels C
 // and G (qconv_dx8.cu, qconv_dx10.cu: the transposed conv of the backward,
 // with the PReLU backward). A and C run the rank-8 scheme (P = 8), F and G
@@ -14,11 +14,33 @@
 // Out-of-range taps read as zero (SAME padding, odd kernels).
 //
 // One block: a 64-step time tile of one (b, f) row x 64 output channels, an
-// implicit GEMM. Per Cin chunk, the four input components over the
-// kw x (64+kh-1) halo window stay in shared memory for all P products;
-// per product, the weights of all kh*kw taps arrive by cp.async one step
-// ahead, and the combos formed from the window are reused by all taps.
+// implicit GEMM whose contraction walks (Cin chunk, tap). Two loops:
+//
+// - qconv_kernel (A and C in both dtypes, F and G in f32): per Cin chunk,
+//   the four input components over the kw x (64+kh-1) halo window stay in
+//   shared memory for all P products; per product, the weights of all taps
+//   arrive by cp.async one step ahead, the product's combos are formed from
+//   the window into shared memory, its mma.sync runs over all taps and is
+//   folded at once into four accumulators. Copies, combos and products run
+//   in series, a barrier between each.
+// - qconv_wg_kernel (F and G in bf16): the window of a 32-deep Cin chunk
+//   and, per (chunk, tap), the P weight tiles arrive by TMA into a ring
+//   behind mbarriers, one block barrier a stage; two warpgroups each run
+//   half the products on wgmma with the combos formed in registers from
+//   ldmatrix fragments of the window at the tap's row offset; each
+//   product's f32 accumulator stays in registers for the whole contraction
+//   and the fold with O runs once, at the end. It is qgemm.cuh's loop
+//   (kernel H) with the window in place of the x tile.
+//
+// What bounds the bf16 wgmma loop on an H100 (F at B16 F13 T256 C256 3x3,
+// 6.3e11 FLOP, 0.64 ms of tensor-core work): the P f32 accumulators of a
+// 64 x 64 tile take 160 registers a thread, so one block an SM and no larger
+// tile; every block then pulls all P * taps * Cin * 64 weights from L2 (2.95
+// MB, 9.8 GB over the layer's 3328 blocks), ~1.1 ms at the ~9 TB/s into the
+// SMs that kernel H reaches: the copies, as in H.
 #pragma once
+
+#include <type_traits>
 
 #include "qtile.cuh"
 
@@ -146,6 +168,293 @@ qconv_kernel(const T* __restrict__ x, const T* __restrict__ wc,
   epi.template store<Prod>(y, smem, Tile{b, f, t0, n0, F, T_len, Cout});
 }
 
+// ---------------------------------------------------------------------------
+// bf16, P = 10 (kernels F and G): TMA, wgmma, the combos in registers
+// ---------------------------------------------------------------------------
+
+constexpr int kWgKc = 32;                   // Cin a chunk: two 16-deep steps
+constexpr int kWgWTile = kWgKc * BN * 2;    // one product's weights of a tap: 32 rows of 128 B
+constexpr int kWgThreads = 2 * 128;         // two warpgroups
+constexpr int kWgMaxStages = 4;
+constexpr int kWgBars = 2 + kWgMaxStages;  // the windows' and the stages' full barriers
+
+// The shared memory of one block, from its 1024-aligned base: nwin window
+// buffers (a Cin chunk's four components over kw frequency rows and rows =
+// BM + kh - 1 time rows, [4][kw][rows][kWgKc], rows of 64 bytes), then nst
+// weight stages (one tap of a chunk for all P products, [P][kWgKc][BN],
+// rows of 128 bytes), then the barriers. Two windows and three stages fit
+// up to 5x3; a kernel five frequency taps wide takes one window (refilled
+// after the chunk's last stage, its copy then not hidden). At the end the
+// fold's P f32 tiles [P][BM][kFoldLd] reuse the start.
+template <int P>
+struct WgRing {
+  int rows, xbytes, win, nwin, nst, stages, bars, total;
+  __host__ __device__ WgRing(int kh, int kw) {
+    constexpr int stage = P * kWgWTile, fixed = 1024 + kWgBars * 8;
+    rows = BM + kh - 1;
+    xbytes = 4 * kw * rows * kWgKc * 2;
+    win = (xbytes + 1023) / 1024 * 1024;
+    nwin = fixed + 2 * win + 3 * stage <= kMaxSmem ? 2 : 1;
+    nst = (kMaxSmem - fixed - nwin * win) / stage;
+    if (nst > kWgMaxStages) nst = kWgMaxStages;
+    stages = nwin * win;
+    const int ring = stages + nst * stage, fold = P * BM * kFoldLd * 4;
+    bars = ring > fold ? ring : fold;
+    total = 1024 + bars + kWgBars * 8;
+  }
+};
+
+// u + v on bf16 pairs, rounded once (the two-term combos of X_COMBO, whose
+// coefficients are 1). form_combos forms c1 * u + c2 * v in f32 and rounds
+// that to bf16: the f32 sum of two bf16 values is exact unless their
+// exponents differ by more than 16, and then both roundings give the larger,
+// so the bits are the same.
+__device__ __forceinline__ unsigned add_bf2(unsigned u, unsigned v) {
+  const __nv_bfloat162 s = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&u),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&v));
+  return *reinterpret_cast<const unsigned*>(&s);
+}
+
+// The previous layer's split PReLU, in place on a window as TMA wrote it
+// (4 * rows_a rows of 64 bytes in the 64-byte swizzle), with prelu_chunk's
+// arithmetic. Thread i takes component i / 64 and, of its rows, those 16
+// apart from row (i % 64) / 4 at 16-byte unit i % 4: the swizzle then maps
+// its units to one set of 8 channels, whose slopes it reads once. Channels
+// past Cin were zero-filled and are skipped; rows out of range are zeros
+// and stay so.
+__device__ inline void prelu_window(unsigned char* win, int rows_a,
+                                    const float* __restrict__ alpha, int Cin, int c0) {
+  static_assert(kWgThreads == 4 * 64, "64 threads a component");
+  const int a = threadIdx.x / 64, u = threadIdx.x % 4, r0 = (threadIdx.x % 64) / 4;
+  const int r = a * rows_a + r0;  // the first row; the rest are 16 apart
+  const int c = c0 + 8 * (u ^ ((r >> 1) & 3));
+  if (c >= Cin) return;
+  float al[8];
+  *reinterpret_cast<float4*>(al) = *reinterpret_cast<const float4*>(alpha + a * Cin + c);
+  *reinterpret_cast<float4*>(al + 4) = *reinterpret_cast<const float4*>(alpha + a * Cin + c + 4);
+  unsigned char* p = win + r * 64 + u * 16;
+#pragma unroll 4
+  for (int k = r0; k < rows_a; k += 16, p += 16 * 64) {
+    float v[8];
+    load_vec(reinterpret_cast<__nv_bfloat16*>(p), v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = v[e] < 0.0f ? v[e] * al[e] : v[e];
+    store_vec(reinterpret_cast<__nv_bfloat16*>(p), v);
+  }
+}
+
+// A warpgroup's H = P/2 products over the block's 64 x 64 tile, each in
+// f32 registers for the whole contraction (acc[j] is product G*H + j, as
+// wg_store lays it out)
+template <int P>
+struct WgConv {
+  static_assert(P % 2 == 0, "two warpgroups share the products");
+  static constexpr int H = P / 2;
+  float acc[H][32];
+
+  __device__ void zero() {
+#pragma unroll
+    for (int j = 0; j < H; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.0f;
+  }
+
+  // One tap of one chunk. win: the window; rows_a: its rows a component;
+  // r0: this lane's row of component 0 at the tap's offsets (lanes 0-15
+  // rows 0-15 of the warp's 16 output rows, lanes 16-31 the same rows 8
+  // channels on), its swizzle taken from the true row, so any offset reads
+  // conflict-free; ws: the stage's weights, landed when full's phase of
+  // parity `parity` completes. The first step's combos are formed before
+  // that wait.
+  template <int G>
+  __device__ void tap(unsigned win, int rows_a, int r0, unsigned ws, unsigned full,
+                      unsigned parity, int lane) {
+#pragma unroll
+    for (int kk = 0; kk < kWgKc / 16; ++kk) {
+      unsigned f[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        ldsm_x4(f[a], win + x_off(a * rows_a + r0, kk * 2 + lane / 16));
+      unsigned A[H][4];
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        const int p = G * H + j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          A[j][q] = term<P>(p, 0) == term<P>(p, 1)
+                        ? f[term<P>(p, 0)][q]
+                        : add_bf2(f[term<P>(p, 0)][q], f[term<P>(p, 1)][q]);
+      }
+      if (kk == 0) mbar_wait(full, parity);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < H; ++j)
+        wgmma_64x64x16(acc[j], A[j], w_desc(ws + (G * H + j) * kWgWTile + kk * 16 * 128));
+    }
+    wgmma_commit();
+    wgmma_wait0();  // the stage is read and the registers free
+  }
+};
+
+// The main loop, bf16: an implicit GEMM whose K walks (Cin chunk, tap).
+// Per chunk the window arrives by one TMA box (zero outside F, T and Cin:
+// SAME padding and the Cin tail for free) and, when alpha is given, is
+// activated in place before the chunk's last barrier; per (chunk, tap) the
+// P weight tiles arrive by one TMA box into a ring of stages, each behind a
+// full barrier (TMA's bytes). One block barrier a stage, as in qgemm.cuh:
+// every warp has read it, thread 0 refills it (empty barriers with thread
+// 0 or the last warp done refilling measured 5-19% slower, PERF.md §6).
+// Then the P products are folded with O once, through shared memory, into
+// the four outputs in Product<bf16>'s layout for the epilogue.
+template <int P, typename Epi>
+__global__ void __launch_bounds__(kWgThreads, 1)
+qconv_wg_kernel(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap wmap, const float* __restrict__ alpha,
+                int F, int T_len, int Cin, int Cout, int kh, int kw, Scheme<P> sch, Epi epi) {
+  const WgRing<P> L(kh, kw);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* buf = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const unsigned base = smem_u32(buf);
+  const unsigned win_full = base + L.bars;                 // window buffer w: + 8 w
+  const unsigned w_full = win_full + 16;                   // stage s: + 8 s
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int G = warp / 4, wr = warp % 4;
+  const int n0 = blockIdx.x * BN, t0 = blockIdx.y * BM;
+  const int f = blockIdx.z % F, b = blockIdx.z / F;
+  const int pw = (kw - 1) / 2, ph = (kh - 1) / 2;
+  const int taps = kh * kw, rows_a = kw * L.rows;
+  const int nchunks = (Cin + kWgKc - 1) / kWgKc;
+  const int nsteps = nchunks * taps;  // step = chunk * taps + tap
+
+  // copies (thread 0): chunk c's window; step's weights of all P products
+  auto issue_window = [&](int c) {
+    const unsigned bar = win_full + 8 * (c % L.nwin);
+    mbar_expect_tx(bar, L.xbytes);
+    tma_load_5d(base + (c % L.nwin) * L.win, &xmap, bar, c * kWgKc, t0 - ph, f - pw, 0, b);
+  };
+  auto issue_weights = [&](int step) {
+    const int s = step % L.nst, c = step / taps;
+    mbar_expect_tx(w_full + 8 * s, P * kWgWTile);
+    tma_load_4d(base + L.stages + s * P * kWgWTile, &wmap, w_full + 8 * s, n0, c * kWgKc,
+                step - c * taps, 0);
+  };
+  // chunk c's window landed, then activated
+  auto activate = [&](int c) {
+    mbar_wait(win_full + 8 * (c % L.nwin), (c / L.nwin) & 1);
+    if (alpha != nullptr) {
+      prelu_window(buf + (c % L.nwin) * L.win, rows_a, alpha, Cin, c * kWgKc);
+      fence_proxy_async();  // the pass's writes before TMA refills the buffer
+    }
+  };
+
+  WgConv<P> wg;
+  wg.zero();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) mbar_init(win_full + 8 * i, 1);
+    for (int s = 0; s < L.nst; ++s) mbar_init(w_full + 8 * s, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    issue_window(0);
+    if (L.nwin == 2 && nchunks > 1) issue_window(1);
+    for (int i = 0; i < L.nst && i < nsteps; ++i) issue_weights(i);
+  }
+  activate(0);
+  __syncthreads();
+
+  int step = 0;
+  for (int c = 0; c < nchunks; ++c) {
+    // chunk c - 1's last barrier freed its window's buffer
+    if (threadIdx.x == 0 && L.nwin == 2 && c >= 1 && c + 1 < nchunks) issue_window(c + 1);
+    const unsigned win = base + (c % L.nwin) * L.win;
+    for (int t = 0; t < taps; ++t, ++step) {
+      const int s = step % L.nst, dt = t / kw, df = t - dt * kw;
+      const unsigned parity = (step / L.nst) & 1;
+      const unsigned ws = base + L.stages + s * P * kWgWTile;
+      const int r0 = df * L.rows + dt + wr * 16 + lane % 16;
+      if (G == 0)
+        wg.template tap<0>(win, rows_a, r0, ws, w_full + 8 * s, parity, lane);
+      else
+        wg.template tap<1>(win, rows_a, r0, ws, w_full + 8 * s, parity, lane);
+      __syncthreads();  // every warp has read the stage (and, the chunk's last, the window)
+      if (threadIdx.x == 0 && step + L.nst < nsteps) issue_weights(step + L.nst);
+    }
+    if (c + 1 < nchunks) {
+      if (L.nwin == 1 && threadIdx.x == 0) issue_window(c + 1);
+      activate(c + 1);
+      if (alpha != nullptr) __syncthreads();  // the window is activated
+    }
+  }
+
+  // ---- the fold, once: y_b = sum_p O[b,p] prod_p in f32, product order
+  // (every copy has landed and every warp is done with the ring)
+  float* fs = reinterpret_cast<float*>(buf);  // [P][BM][kFoldLd]
+  if (G == 0)
+    wg_store<WgConv<P>::H, 0>(wg.acc, fs, wr, lane);
+  else
+    wg_store<WgConv<P>::H, 1>(wg.acc, fs, wr, lane);
+  __syncthreads();
+  using Prod = Product<__nv_bfloat16, 16>;  // the epilogues' layout of y
+  float y[4][kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int r = Prod::row(j), col = Prod::col(j);
+#pragma unroll
+    for (int bo = 0; bo < 4; ++bo) y[bo][j] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      const float v = fs[(q * BM + r) * kFoldLd + col];
+#pragma unroll
+      for (int bo = 0; bo < 4; ++bo) y[bo][j] += sch.out[bo][q] * v;
+    }
+  }
+  epi.template store<Prod>(y, buf, Tile{b, f, t0, n0, F, T_len, Cout});
+}
+
+// Whether a bf16 scheme is the one wgmma's loop compiles in: each
+// product's terms (term<P>) with coefficient 1 (0 for a one-term product's
+// repeat)
+template <int P>
+bool wg_scheme_ok(const Scheme<P>& s) {
+  for (int p = 0; p < P; ++p) {
+    const bool one = term<P>(p, 0) == term<P>(p, 1);
+    if (s.in_a[p][0] != term<P>(p, 0) || s.in_a[p][1] != term<P>(p, 1) ||
+        s.in_c[p][0] != 1.0f || s.in_c[p][1] != (one ? 0.0f : 1.0f))
+      return false;
+  }
+  return true;
+}
+
+template <int P, typename Epi>
+int launch_wg(const void* x, const void* wc, const float* alpha, int B, int F, int T_len,
+              int Cin, int Cout, int kh, int kw, const Scheme<P>& s, const Epi& epi,
+              int epi_bytes, cudaStream_t stream) {
+  const WgRing<P> L(kh, kw);
+  if (L.nst < 2 || L.total > kMaxSmem || epi_bytes > L.bars || !wg_scheme_ok(s) ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(wc) % 16)
+    return (int)cudaErrorInvalidValue;
+  // once per instantiation (one device a process): the most any launch asks
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      qconv_wg_kernel<P, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  // x [B,4,F,T,Cin] in boxes of one chunk's window; wc [P,kh*kw,Cin,Cout]
+  // in boxes of one (chunk, tap) for all P products
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[5] = {(cuuint64_t)Cin, (cuuint64_t)T_len, (cuuint64_t)F, 4,
+                               (cuuint64_t)B};
+  const cuuint32_t xbox[5] = {kWgKc, (cuuint32_t)L.rows, (cuuint32_t)kw, 4, 1};
+  const cuuint64_t wdims[4] = {(cuuint64_t)Cout, (cuuint64_t)Cin, (cuuint64_t)(kh * kw), P};
+  const cuuint32_t wbox[4] = {BN, kWgKc, 1, P};
+  if (encode_bf16(&xmap, x, 5, xdims, xbox, CU_TENSOR_MAP_SWIZZLE_64B) != 0 ||
+      encode_bf16(&wmap, wc, 4, wdims, wbox, CU_TENSOR_MAP_SWIZZLE_128B) != 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((Cout + BN - 1) / BN, (T_len + BM - 1) / BM, B * F);
+  qconv_wg_kernel<P, Epi><<<grid, kWgThreads, L.total, stream>>>(xmap, wmap, alpha, F, T_len,
+                                                                 Cin, Cout, kh, kw, s, epi);
+  return (int)cudaGetLastError();
+}
+
 // Dynamic shared memory of one block: the main loop's layout, or more when
 // the epilogue asks for it (epi_bytes, from the start of shared memory).
 template <typename T, int P>
@@ -154,11 +463,11 @@ int smem_for(int kh, int kw, int epi_bytes = 0) {
   return main > epi_bytes ? main : epi_bytes;
 }
 
-// Launch one instantiation over the grid (Cout tiles, T tiles, B*F).
+// Launch qconv_kernel over the grid (Cout tiles, T tiles, B*F).
 template <typename T, int P, typename Epi>
-int launch(const void* x, const void* wc, const float* alpha, int B, int F, int T_len,
-           int Cin, int Cout, int kh, int kw, const Scheme<P>& s, const Epi& epi,
-           int epi_bytes, cudaStream_t stream) {
+int launch_steps(const void* x, const void* wc, const float* alpha, int B, int F, int T_len,
+                 int Cin, int Cout, int kh, int kw, const Scheme<P>& s, const Epi& epi,
+                 int epi_bytes, cudaStream_t stream) {
   const int smem = smem_for<T, P>(kh, kw, epi_bytes);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   // once per instantiation (one device a process): the most any launch asks
@@ -170,6 +479,20 @@ int launch(const void* x, const void* wc, const float* alpha, int B, int F, int 
       static_cast<const T*>(x), static_cast<const T*>(wc), alpha, F, T_len, Cin, Cout,
       kh, kw, s, epi);
   return (int)cudaGetLastError();
+}
+
+// Launch one instantiation: bf16 with P = 10 (kernels F and G) on the wgmma
+// loop, the rest (A and C, and f32) on qconv_kernel.
+template <typename T, int P, typename Epi>
+int launch(const void* x, const void* wc, const float* alpha, int B, int F, int T_len,
+           int Cin, int Cout, int kh, int kw, const Scheme<P>& s, const Epi& epi,
+           int epi_bytes, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && P == 10)
+    return launch_wg<P>(x, wc, alpha, B, F, T_len, Cin, Cout, kh, kw, s, epi, epi_bytes,
+                        stream);
+  else
+    return launch_steps<T, P>(x, wc, alpha, B, F, T_len, Cin, Cout, kh, kw, s, epi,
+                              epi_bytes, stream);
 }
 
 // The shape checks every C entry makes (the Python wrappers check first).

@@ -13,7 +13,7 @@
 // (qasr/ops/pallas/qconv_ft.py:_conj_transpose_w). The Python wrapper forms
 // the W_COMBO combos of those weights, and this runs kernel F's main loop
 // (qconv.cuh, P = 10, the forward's X_COMBO input combos and OUT_COMBO
-// recombination) with kernel C's epilogue:
+// recombination; in bf16 the wgmma loop) with kernel C's epilogue:
 //
 //   g       = convT(dz)                                 [B, 4, F, T, Cin]
 //   dx      = z_prev < 0 ? alpha * g : g
@@ -25,8 +25,9 @@
 // X_COMBO's columns); both compute the same transposed conv.
 //
 // What bounds it on an H100: kernel F's work (6.3e11 FLOP a QCNN-256 layer
-// at B16 F13 T256 C256 3x3): the tensor cores. The epilogue reads z_prev
-// once and writes dx once.
+// at B16 F13 T256 C256 3x3) on kernel F's loop, whose weight copies bound
+// it. The epilogue reads z_prev once and writes dx once; the partials'
+// time tile is the loop's (64 steps), so their row count is kernel C's.
 #include "qconv.cuh"
 
 extern "C" {

@@ -19,12 +19,14 @@
 // recombination runs in f32 registers, as _ft_kernel does.
 //
 // What bounds it on an H100: at the QCNN-256 layer (B16 F13 T256 C256, 3x3)
-// one layer executes 6.3e11 FLOP (ten products against kernel A's eight)
-// against ~0.23 GB moved, ~2,700 FLOP/byte: the tensor cores. The design is
-// kernel A's main loop (qconv.cuh) with P = 10: the four input components
-// of a Cin chunk stay in shared memory for all ten products; the scheme's
-// table is the only part of the shared-memory layout that grows, so two
-// blocks still fit an SM in bf16.
+// one layer executes 6.3e11 FLOP (0.64 ms of tensor-core work) against ~0.23
+// GB moved. In bf16 it runs qconv.cuh's wgmma loop (qconv_wg_kernel: TMA
+// windows and weight stages, two warpgroups of five products on wgmma with
+// the combos formed in registers, one fold); at one block an SM every block
+// pulls all the weights of its 64 output channels from L2, ~9.8 GB a layer:
+// the copies bound it, as they bound kernel H. The prologue activates each
+// chunk's window in place once, before the chunk's barrier. In f32 it runs
+// kernel A's loop (qconv_kernel) with P = 10.
 #include "qconv.cuh"
 
 extern "C" {

@@ -46,8 +46,6 @@
 // chunk, folded into four accumulators): it is on no timed path.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: the encoder is fetched at run time)
-
 #include "qtile.cuh"
 
 namespace qgemm {
@@ -143,72 +141,6 @@ qgemm_f32_kernel(const float* __restrict__ x4, const float* __restrict__ wc,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: shared-memory barriers, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-// the barriers' initialisation visible to the async proxy (TMA)
-__device__ __forceinline__ void fence_mbar_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// this thread's arrival, and bytes more for the phase to wait for
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// until the phase of parity `parity` has completed; a wait that never ends
-// (a fault in the ring's protocol) traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  for (long long spin = 0;; ++spin) {
-    unsigned done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin > (1ll << 26)) __trap();
-  }
-}
-
-// a 3-D box of the tensor map into this block's shared memory at dst,
-// completing on bar
-__device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map, unsigned bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// ---------------------------------------------------------------------------
 // bf16: the ring and the products
 // ---------------------------------------------------------------------------
 
@@ -217,7 +149,6 @@ constexpr int kStages = 4;   // the ring's stages
 constexpr int kXTile = BM * kKc * 2;     // one component of a chunk: 64 rows of 64 bytes
 constexpr int kXBytes = 4 * kXTile;      // 16 KB
 constexpr int kWTile = kKc * BN * 2;     // one product's weights: 32 rows of 128 bytes
-constexpr int kFoldLd = BN + 8;          // f32 row stride of the fold's product tiles
 constexpr int kThreadsBf16 = 2 * 128;    // two warpgroups
 
 // Offsets from the block's 1024-aligned base: the stages, each the chunk's
@@ -233,12 +164,6 @@ struct Ring {
   static constexpr int total = 1024 + ring + kStages * 8;  // 1024: room to align the base
 };
 
-// byte offset of the 16-byte unit (row r, unit c) of an x tile as TMA
-// writes it: rows of 64 bytes (4 units) in the 64-byte swizzle
-__device__ __forceinline__ unsigned x_off(int r, int c) {
-  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
-}
-
 // c1 * u + c2 * v on bf16 pairs, in the storage dtype: each scaled term
 // rounded once, their sum rounded once
 __device__ __forceinline__ unsigned combo2(unsigned u, unsigned v, __nv_bfloat162 c1,
@@ -247,54 +172,6 @@ __device__ __forceinline__ unsigned combo2(unsigned u, unsigned v, __nv_bfloat16
   const __nv_bfloat162 t2 = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&v), c2);
   const __nv_bfloat162 s = __hadd2(t1, t2);
   return *reinterpret_cast<const unsigned*>(&s);
-}
-
-// Each product's input components, compiled in (a one-term product repeats
-// its term, as make_scheme does): V8's nonzeros and X_COMBO's; the host
-// checks the scheme it is passed against them
-template <int P>
-__host__ __device__ constexpr int term(int p, int i);
-template <>
-__host__ __device__ constexpr int term<8>(int p, int i) {
-  constexpr int t[8][2] = {{1, 3}, {0, 1}, {0, 2}, {2, 3}, {0, 2}, {0, 1}, {1, 3}, {2, 3}};
-  return t[p][i];
-}
-template <>
-__host__ __device__ constexpr int term<10>(int p, int i) {
-  constexpr int t[10][2] = {{0, 0}, {1, 1}, {2, 2}, {3, 3}, {0, 1},
-                            {2, 3}, {0, 2}, {1, 3}, {0, 3}, {1, 2}};
-  return t[p][i];
-}
-
-// The shared-memory descriptor of a product's weights for one 16-deep step:
-// N contiguous (MN-major), rows of 128 bytes in the 128-byte swizzle, K
-// advancing by groups of 8 rows (the stride byte offset, 16-byte units); a
-// single 64-wide atom along N (the leading byte offset unused)
-constexpr unsigned kDescLbo = 1;
-constexpr unsigned kDescSbo = 64;
-__device__ __forceinline__ unsigned long long w_desc(unsigned addr) {
-  return (unsigned long long)((addr & 0x3FFFF) >> 4) | ((unsigned long long)kDescLbo << 16) |
-         ((unsigned long long)kDescSbo << 32) | (1ull << 62);
-}
-
-// d (this warpgroup's 64 x 64 f32) += a (this warp's 16 rows x 16 of K, bf16
-// registers in mma.sync's A layout) . B (16 x 64 bf16 at desc, transposed)
-__device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], const unsigned (&a)[4],
-                                               unsigned long long desc) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 // A warpgroup's H = P/2 products over the block's 64 x 64 tile: warp wr of
@@ -349,15 +226,7 @@ struct WgProducts {
   // this warpgroup's products into the fold's tiles fs [P][BM][kFoldLd]
   template <int G>
   __device__ void store(float* fs, int wr, int lane) const {
-    const int g = lane / 4, t = lane % 4;
-#pragma unroll
-    for (int j = 0; j < H; ++j)
-#pragma unroll
-      for (int i = 0; i < 32; i += 2) {
-        const int row = wr * 16 + g + ((i % 4) / 2) * 8, col = (i / 4) * 8 + 2 * t;
-        *reinterpret_cast<float2*>(fs + ((G * H + j) * BM + row) * kFoldLd + col) =
-            make_float2(acc[j][i], acc[j][i + 1]);
-      }
+    wg_store<H, G>(acc, fs, wr, lane);
   }
 };
 
@@ -450,43 +319,6 @@ qgemm_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
 // host side
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, fetched once (null when missing)
-inline EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// A 3-D bf16 tensor map: dims innermost first, strides (bytes) of dims 1
-// and 2, the box, zero fill out of bounds. Returns 0 or -1.
-inline int encode_3d(CUtensorMap* map, const void* ptr, cuuint64_t d0, cuuint64_t d1,
-                     cuuint64_t d2, cuuint32_t b0, cuuint32_t b1, cuuint32_t b2,
-                     CUtensorMapSwizzle swizzle) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return -1;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
-  const cuuint32_t box[3] = {b0, b1, b2};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? 0
-             : -1;
-}
-
 template <int P>
 int launch_f32(const void* x4, const void* wc, void* y4, int M, int K, int N,
                const Scheme<P>& s, cudaStream_t stream) {
@@ -512,8 +344,11 @@ int launch_bf16(const void* x4, const void* wc, void* y4, int M, int K, int N,
       qgemm_bf16_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap xmap, wmap;
-  if (encode_3d(&xmap, x4, K, M, 4, kKc, BM, 4, CU_TENSOR_MAP_SWIZZLE_64B) != 0 ||
-      encode_3d(&wmap, wc, N, K, P, BN, kKc, 1, CU_TENSOR_MAP_SWIZZLE_128B) != 0)
+  const cuuint64_t xdims[3] = {(cuuint64_t)K, (cuuint64_t)M, 4};
+  const cuuint64_t wdims[3] = {(cuuint64_t)N, (cuuint64_t)K, P};
+  const cuuint32_t xbox[3] = {kKc, BM, 4}, wbox[3] = {BN, kKc, 1};
+  if (encode_bf16(&xmap, x4, 3, xdims, xbox, CU_TENSOR_MAP_SWIZZLE_64B) != 0 ||
+      encode_bf16(&wmap, wc, 3, wdims, wbox, CU_TENSOR_MAP_SWIZZLE_128B) != 0)
     return (int)cudaErrorInvalidValue;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   qgemm_bf16_kernel<P><<<grid, kThreadsBf16, smem, stream>>>(

@@ -1,7 +1,10 @@
 // Shared machinery of the quaternion conv and GEMM kernels (qconv.cuh,
 // qgemm.cuh; the QLSTM kernels use its tiles and the rank-8 scheme):
 // cp.async staging, the per-product accumulation on the staged tiles, and
-// the recombination into the four output components.
+// the recombination into the four output components; and, at the end, the
+// Hopper pieces of the bf16 wgmma loops (mbarriers, TMA boxes and their
+// tensor maps, ldmatrix, wgmma with A from registers, each scheme's
+// compiled-in input terms, the fold's store).
 //
 // A scheme of P products (qasr/ops/quaternion.py: the rank-8 U8/V8/O8, P = 8,
 // or the 10-product W_COMBO/X_COMBO/OUT_COMBO, P = 10):
@@ -28,6 +31,7 @@
 // recombination and the epilogue are shared.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: the encoder is fetched at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -425,6 +429,210 @@ inline int reduce_splits(const float* part, T* out, int splits, size_t count,
   reduce_splits_kernel<T><<<(unsigned)blocks, kReduceThreads, 0, stream>>>(part, out, splits,
                                                                            count);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Hopper (bf16 main loops of qgemm.cuh and qconv.cuh): shared-memory
+// barriers, TMA, ldmatrix, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+// the barriers' initialisation visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// this thread's generic-proxy writes to shared memory ordered before later
+// async-proxy (TMA) writes to the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// this thread's arrival, and bytes more for the phase to wait for
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed; a wait that never ends
+// (a fault in the ring's protocol) traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  for (long long spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > (1ll << 26)) __trap();
+  }
+}
+
+// a box of the tensor map (coordinates innermost first) into this block's
+// shared memory at dst, completing on bar
+__device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_5d(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// byte offset of the 16-byte unit (row r, unit c) of a tile of 64-byte rows
+// (32 bf16) as TMA writes it in the 64-byte swizzle; r counts rows from a
+// 512-byte aligned start
+__device__ __forceinline__ unsigned x_off(int r, int c) {
+  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// Each product's input components, compiled in (a one-term product repeats
+// its term, as make_scheme does): V8's nonzeros and X_COMBO's; the host
+// checks the scheme it is passed against them
+template <int P>
+__host__ __device__ constexpr int term(int p, int i);
+template <>
+__host__ __device__ constexpr int term<8>(int p, int i) {
+  constexpr int t[8][2] = {{1, 3}, {0, 1}, {0, 2}, {2, 3}, {0, 2}, {0, 1}, {1, 3}, {2, 3}};
+  return t[p][i];
+}
+template <>
+__host__ __device__ constexpr int term<10>(int p, int i) {
+  constexpr int t[10][2] = {{0, 0}, {1, 1}, {2, 2}, {3, 3}, {0, 1},
+                            {2, 3}, {0, 2}, {1, 3}, {0, 3}, {1, 2}};
+  return t[p][i];
+}
+
+// The shared-memory descriptor of a product's weights for one 16-deep step:
+// N contiguous (MN-major), rows of 128 bytes in the 128-byte swizzle, K
+// advancing by groups of 8 rows (the stride byte offset, 16-byte units); a
+// single 64-wide atom along N (the leading byte offset unused)
+constexpr unsigned kDescLbo = 1;
+constexpr unsigned kDescSbo = 64;
+__device__ __forceinline__ unsigned long long w_desc(unsigned addr) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) | ((unsigned long long)kDescLbo << 16) |
+         ((unsigned long long)kDescSbo << 32) | (1ull << 62);
+}
+
+// d (this warpgroup's 64 x 64 f32) += a (this warp's 16 rows x 16 of K, bf16
+// registers in mma.sync's A layout) . B (16 x 64 bf16 at desc, transposed)
+__device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], const unsigned (&a)[4],
+                                               unsigned long long desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// The fold's product tiles: f32 [P][BM][kFoldLd], padded rows
+constexpr int kFoldLd = BN + 8;
+
+// Warpgroup G's H products of a 64 x 64 tile on wgmma (acc[j] is product
+// G*H + j; warp wr of the group holds rows wr*16 .. +16: row wr*16 + lane/4
+// (+8 for i%4 >= 2), column (i/4)*8 + 2*(lane%4) + i%2 of element i) into
+// the fold's tiles fs
+template <int H, int G>
+__device__ __forceinline__ void wg_store(const float (&acc)[H][32], float* fs, int wr, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < H; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = wr * 16 + g + ((i % 4) / 2) * 8, col = (i / 4) * 8 + 2 * t;
+      *reinterpret_cast<float2*>(fs + ((G * H + j) * BM + row) * kFoldLd + col) =
+          make_float2(acc[j][i], acc[j][i + 1]);
+    }
+}
+
+// host: tensor maps
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, fetched once (null when missing)
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// A tensor map of a contiguous bf16 array of `rank` (<= 5) dims, innermost
+// first, read in boxes of `box`, zero fill out of bounds. Returns 0 or -1.
+inline int encode_bf16(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr || rank < 1 || rank > 5) return -1;
+  cuuint64_t strides[4];
+  cuuint64_t stride = 2;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = stride *= dims[i];
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0
+             : -1;
 }
 
 }  // namespace qtile

@@ -114,13 +114,15 @@ def qconv_dx_cuda(
     alpha: torch.Tensor | None = None,
     *,
     scheme: _Scheme = SCHEME8,
+    lib=None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Launch kernel C (``SCHEME8``) or G (``SCHEME10``). ``dz
     [B,4,F,T,Cout]`` and ``wc [P,kh,kw,Cout,Cin]`` (the scheme's weight
     combos of :func:`conj_transpose_w`) on one CUDA device, contiguous, both
     f32 or both bf16; ``z_prev [B,4,F,T,Cin]`` in dz's dtype and ``alpha
-    [4*Cin]`` f32, or both None. Raises on anything the kernel does not
-    take, or when it fails to build or launch."""
+    [4*Cin]`` f32, or both None; ``lib`` as :func:`qconv_ft_cuda`'s. Raises
+    on anything the kernel does not take, or when it fails to build or
+    launch."""
     letter, entry = _DX_KERNELS[scheme.name]
     n_prods = scheme.n_prods
     if dz.ndim != 5 or dz.shape[1] != 4 or wc.ndim != 5 or wc.shape[0] != n_prods:
@@ -148,7 +150,7 @@ def qconv_dx_cuda(
         for name, v in (("z_prev", z_prev), ("alpha", alpha)):
             if v.device != dz.device:
                 raise ValueError(f"{name} is on {v.device}, dz on {dz.device}")
-    lib = _build.load_library()
+    lib = lib if lib is not None else _build.load_library()
     dx = torch.empty((b, 4, f, t, cin), dtype=dz.dtype, device=dz.device)
     dalpha = partials = None
     if z_prev is not None:

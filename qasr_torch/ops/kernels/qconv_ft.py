@@ -5,9 +5,10 @@ plain PyTorch version.
 
 Counterpart of ``qasr/ops/pallas/qconv_ft.py``: the TPU kernel ``_ft_kernel``
 (forward role, with either scheme) becomes hand-written CUDA kernels for
-Hopper, one main loop (``csrc/qconv.cuh``) instantiated for P = 8 and P = 10
-products, and ``_qconv_stacked_xla`` (P plain convs on the input combos)
-becomes the plain version the CPU path and the card's parity checks use.
+Hopper on the main loops of ``csrc/qconv.cuh`` (P = 8 and P = 10
+products; kernel F in bf16 on its TMA + wgmma loop), and
+``_qconv_stacked_xla`` (P plain convs on the input combos) becomes the
+plain version the CPU path and the card's parity checks use.
 
 Layout: ``x [B, 4, F, T, C]`` (component slices lead; F-major), weights
 ``w [4, kh, kw, Cin, Cout]`` with kh over time and kw over frequency — the
@@ -194,12 +195,15 @@ def qconv_ft_cuda(
     alpha: torch.Tensor | None = None,
     *,
     scheme: _Scheme = SCHEME8,
+    lib=None,
 ) -> torch.Tensor:
     """Launch kernel A (``SCHEME8``) or F (``SCHEME10``). ``x_st
     [B,4,F,T,Cin]`` and ``wc [P,kh,kw,Cin,Cout]`` (the scheme's weight
     combos) on one CUDA device, contiguous, both f32 or both bf16; ``bias
-    [4*Cout]`` / ``alpha [4*Cin]`` f32 or None. Raises on anything the kernel
-    does not take, or when it fails to build or launch."""
+    [4*Cout]`` / ``alpha [4*Cin]`` f32 or None; ``lib`` a kernel library
+    other than the package's (a variant built by
+    ``qasr_torch.tools.ablate_qconv``). Raises on anything the kernel does
+    not take, or when it fails to build or launch."""
     letter, entry = _FWD_KERNELS[scheme.name]
     n_prods = scheme.n_prods
     if x_st.ndim != 5 or x_st.shape[1] != 4 or wc.ndim != 5 or wc.shape[0] != n_prods:
@@ -224,7 +228,7 @@ def qconv_ft_cuda(
                 raise ValueError(f"{name} is on {v.device}, x on {x_st.device}")
     if wc.device != x_st.device:
         raise ValueError(f"wc is on {wc.device}, x on {x_st.device}")
-    lib = _build.load_library()
+    lib = lib if lib is not None else _build.load_library()
     out = torch.empty((b, 4, f, t, cout), dtype=x_st.dtype, device=x_st.device)
     if out.numel() == 0:
         return out

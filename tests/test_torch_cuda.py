@@ -368,6 +368,61 @@ def test_qconv_dx10_kernel_matches_plain_on_card(cuda_device, dtype, epilogue, k
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["F", "F prologue+bias", "G", "G epilogue"])
+# Cin not a multiple of the 32-deep chunk and Cout not of the 64-wide tile
+# (G chunks over 72 and tiles over 40); F = 1, where only the centre
+# frequency tap is in range; T below one tile and over several; 3x5 and 5x5
+# kernels (one window buffer at five frequency taps); the path's 256 -> 256
+@pytest.mark.parametrize("b,nf,t,cin,cout,kernel_size", [
+    (2, 5, 70, 40, 72, (3, 3)), (2, 1, 100, 48, 64, (3, 3)), (3, 4, 5, 64, 64, (3, 3)),
+    (2, 3, 200, 64, 128, (3, 3)), (2, 5, 33, 40, 24, (3, 5)), (2, 5, 20, 16, 72, (5, 5)),
+    (2, 13, 256, 256, 256, (3, 3))])
+def test_qconv10_main_loop_edges_on_card(cuda_device, kernel, b, nf, t, cin, cout, kernel_size):
+    """qconv.cuh's wgmma loop (kernels F and G in bf16) through the
+    wrappers, with and without F's PReLU prologue and bias and G's
+    PReLU-backward epilogue (dalpha too, for signed slopes), against the
+    plain versions at today's tolerance, and the same bits twice."""
+    tol = _tol(torch.bfloat16)
+    rng = np.random.default_rng(22)
+    kh, kw = kernel_size
+    w = _t(_rand(rng, 4, kh, kw, cin, cout, scale=(kh * kw * cin) ** -0.5)).to(cuda_device)
+    if kernel.startswith("F"):
+        x = _t(_rand(rng, b, 4, nf, t, cin, scale=0.5)).to(cuda_device, torch.bfloat16)
+        bias = _t(_rand(rng, 4 * cout, scale=0.1)).to(cuda_device) if "prologue" in kernel else None
+        alpha = (_t(np.abs(_rand(rng, 4 * cin, scale=0.25))).to(cuda_device)
+                 if "prologue" in kernel else None)
+        before = qconv_ft.qconv_ft10.launches
+        got = qconv_ft.qconv_ft10(x, w, bias, alpha)
+        again = qconv_ft.qconv_ft10(x, w, bias, alpha)
+        torch.cuda.synchronize()
+        assert qconv_ft.qconv_ft10.launches == before + 2
+        assert got.shape == (b, 4, nf, t, cout) and torch.equal(got, again)
+        want = qconv_ft.qconv_stacked_plain(x.float(), w, bias, alpha, scheme=qconv_ft.SCHEME10)
+        torch.testing.assert_close(got.float(), want, **tol)
+        return
+    dz = _t(_rand(rng, b, 4, nf, t, cout, scale=0.5)).to(cuda_device, torch.bfloat16)
+    epi = kernel == "G epilogue"
+    z = _t(_rand(rng, b, 4, nf, t, cin, scale=0.5)).to(cuda_device, torch.bfloat16) if epi else None
+    alpha = _t(_rand(rng, 4 * cin, scale=0.25)).to(cuda_device) if epi else None
+    before = qconv_dx.qconv_dx10.launches
+    dx, dalpha = qconv_dx.qconv_dx10(dz, w, z, alpha)
+    dx2, dalpha2 = qconv_dx.qconv_dx10(dz, w, z, alpha)
+    torch.cuda.synchronize()
+    assert qconv_dx.qconv_dx10.launches == before + 2
+    assert dx.shape == (b, 4, nf, t, cin) and torch.equal(dx, dx2)
+    want_dx, want_da = qconv_dx.qconv_dx_plain(
+        dz.float(), w, None if z is None else z.float(), alpha, scheme=qconv_ft.SCHEME10
+    )
+    torch.testing.assert_close(dx.float(), want_dx, **tol)
+    if epi:
+        assert torch.equal(dalpha, dalpha2)
+        scale = want_da.abs().max().item()
+        torch.testing.assert_close(dalpha, want_da, rtol=tol["rtol"], atol=tol["atol"] * scale)
+    else:
+        assert dalpha is None
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(100, 72, 40), (7, 13, 62)])
 def test_qgemm10_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
