@@ -15,9 +15,11 @@ few):
   3. parity   each kernel (A: the conv, B: the GEMM and its dx role, C: the
               transposed conv with the PReLU backward) against its plain
               PyTorch version on the card, at the paths' shapes, f32
-              (tight) and bf16 (loose), gated; then no host-to-device copy
-              in a warmed-up call of kernel B or H, forward or dx (gated,
-              torch.profiler)
+              (tight) and bf16 (loose; A and C also against the bf16 plain
+              version), gated; the rank-8 input combos of A, C and B bit for
+              bit against the plain versions' (gated); then no
+              host-to-device copy in a warmed-up call of kernel B or H,
+              forward or dx (gated, torch.profiler)
   4. serving  a Transcriber on four synthetic 1-3 s waveforms, greedy and
               beam; kernel launch counts per forward; kernel-path logits
               against the plain path's, gated
@@ -301,6 +303,99 @@ def _train_batch(tcfg) -> dict:
         "label_lengths": np.full(16, 40, np.int32),
         "real_rows": np.ones(16, bool),
     }
+
+
+def _qlstm_train_batch(cfg):
+    """Config 4's training configuration and fixed batch (phase 8): synthetic
+    data (the corpus does not ship with the repo), one 512-frame bucket, a
+    2-step warmup and the 1e-4 peak rate of phase 6; the preset's 32
+    utterances, ragged, 128-512 frames (zero past each length, as batching
+    pads), one character label per 8 frames."""
+    T, B = cfg.data.bucket_sizes[0], cfg.data.batch_size
+    tcfg = cfg.override(**{"data.dataset": "synthetic", "data.bucket_sizes": (T,),
+                           "data.max_label_len": T // 8, "train.warmup_steps": 2,
+                           "train.learning_rate": 1e-4})
+    brng = np.random.default_rng(SEED + 8)
+    flen = brng.integers(T // 4, T + 1, size=B).astype(np.int32)
+    flen[0] = T
+    feats = brng.standard_normal((B, T, tcfg.data.n_mels, 4)).astype(np.float32)
+    feats[np.arange(T)[None, :] >= flen[:, None]] = 0.0
+    batch = {
+        "features": feats, "feature_lengths": flen,
+        "labels": brng.integers(1, tcfg.model.vocab, size=(B, T // 8)).astype(np.int32),
+        "label_lengths": (flen // 8).astype(np.int32), "real_rows": np.ones(B, bool),
+    }
+    return tcfg, batch
+
+
+def _wg_registers(log: str) -> list[str]:
+    """ptxas's registers and spill stores of each instantiation of the bf16
+    wgmma loops (``qconv_wg_kernel``: A, C, F, G; ``qgemm_bf16_kernel``: B,
+    H), from an ``nvcc -Xptxas -v`` log, as "loop<P, epilogue> N registers,
+    S bytes spilled"."""
+    import re
+
+    out, name, spill = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN\w+?(qconv_wg_kernel|qgemm_bf16_kernel)"
+                      r"ILi(\d+)E(?:NS_\d+(\w+?)I)?", line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}{', ' + m.group(3) if m.group(3) else ''}>"
+            continue
+        if name and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            out.append(f"{name} {m.group(1)} registers, {spill} bytes spilled")
+            name = None
+    return out
+
+
+def _rank8_combo(x: torch.Tensor, terms, dim: int) -> torch.Tensor:
+    """A rank-8 input combo as the JAX package forms it (``_scaled``): each
+    coefficient rounded to x's dtype, each scaled term rounded once, then
+    the sum rounded once. Written out here, so that it holds any tree's
+    kernels to the same rule."""
+    out = None
+    for a, c in terms:
+        t = x.select(dim, a) * torch.tensor(c, dtype=x.dtype).item()
+        out = t if out is None else out + t
+    return out
+
+
+def _combo_mismatches(dev: torch.device) -> dict:
+    """The rank-8 kernels' input combos (A, C and B in bf16, of the
+    ``qasr_torch`` imported) against :func:`_rank8_combo`, for each of V8's
+    products: product p's weight combos are the identity (the conv's centre
+    tap), the rest zero, so each output is O8[b, p] * combo_p rounded once
+    to bf16. Returns, per kernel, how many of its outputs over the eight
+    products differ from that."""
+    from qasr_torch.ops.kernels.qconv_dx import qconv_dx_cuda
+    from qasr_torch.ops.kernels.qconv_ft import _O8_F32, SCHEME8, qconv_ft_cuda
+    from qasr_torch.ops.kernels.qgemm8 import qgemm8_cuda
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    bf16, c = torch.bfloat16, 72  # past a 64-wide tile and a 32-deep chunk
+    o8 = torch.from_numpy(_O8_F32).to(dev)
+    # values over 2^-6 .. 2^6, both signs
+    x = (torch.randn(2, 4, 5, 70, c, generator=g, device=dev)
+         * 2.0 ** torch.randint(-6, 6, (2, 4, 5, 70, c), generator=g, device=dev)).to(bf16)
+    x4 = x[0].reshape(4, 350, c).contiguous()
+    eye = torch.eye(c, device=dev, dtype=bf16)
+    bad = {"A": 0, "C": 0, "B": 0}
+    for p, terms in enumerate(SCHEME8.fwd_in):
+        wc = torch.zeros(8, 3, 3, c, c, device=dev, dtype=bf16)
+        wc[p, 1, 1] = eye
+        wc8 = torch.zeros(8, c, c, device=dev, dtype=bf16)
+        wc8[p] = eye
+        cx, c4 = _rank8_combo(x, terms, 1).float(), _rank8_combo(x4, terms, 0).float()
+        want_x = torch.stack([o8[b, p] * cx for b in range(4)], 1).to(bf16)
+        want_4 = torch.stack([o8[b, p] * c4 for b in range(4)]).to(bf16)
+        for name, got, want in (("A", qconv_ft_cuda(x, wc), want_x),
+                                ("C", qconv_dx_cuda(x, wc)[0], want_x),
+                                ("B", qgemm8_cuda(x4, wc8), want_4)):
+            bad[name] += (got != want).sum().item()
+    return bad
 
 
 def _cudnn_lstm(layer, dtype) -> torch.nn.LSTM:
@@ -748,23 +843,8 @@ def phase8_qlstm_train(dev: torch.device, smi: str) -> dict:
     torch.cuda.empty_cache()
 
     # The training configuration: librispeech_qlstm at full width on
-    # synthetic data (the corpus does not ship with the repo), one 512-frame
-    # bucket, a 2-step warmup and the 1e-4 peak rate of phase 6. The fixed
-    # batch: the preset's 32 utterances, ragged, 128-512 frames (zero past
-    # each length, as batching pads), one character label per 8 frames.
-    tcfg = cfg.override(**{"data.dataset": "synthetic", "data.bucket_sizes": (T,),
-                           "data.max_label_len": T // 8, "train.warmup_steps": 2,
-                           "train.learning_rate": 1e-4})
-    brng = np.random.default_rng(SEED + 8)
-    flen = brng.integers(T // 4, T + 1, size=B).astype(np.int32)
-    flen[0] = T
-    feats = brng.standard_normal((B, T, tcfg.data.n_mels, 4)).astype(np.float32)
-    feats[np.arange(T)[None, :] >= flen[:, None]] = 0.0
-    batch = {
-        "features": feats, "feature_lengths": flen,
-        "labels": brng.integers(1, tcfg.model.vocab, size=(B, T // 8)).astype(np.int32),
-        "label_lengths": (flen // 8).astype(np.int32), "real_rows": np.ones(B, bool),
-    }
+    # synthetic data, with its fixed batch (_qlstm_train_batch)
+    tcfg, batch = _qlstm_train_batch(cfg)
     audio_s = B * T * FRAME_S
 
     # Error model: phase 6's (rounding at each layer boundary, forward and
@@ -1565,18 +1645,22 @@ def phase10_dgt_real_cnn(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: 
 
 def time_kernels(tree: str) -> int:
     """``--time-kernels TREE``: of the ``qasr_torch`` under ``TREE``, bf16, on
-    CUDA events: the rank-8 kernels A and C (with its epilogue) at phase 5's
-    shape; the 10-product kernels F (with its PReLU prologue and bias) and G
-    (with and without its PReLU-backward epilogue) at the same shape, each
-    as the wrapper's call and as the launcher alone on ready weight combos
-    (F also without its prologue); kernels B and H, forward and dx, at every
+    CUDA events: the conv kernels at phase 5's shape, the rank-8 A (with its
+    PReLU prologue and bias) and C (with and without its PReLU-backward
+    epilogue) and the 10-product F and G likewise, each as the wrapper's
+    call and as the launcher alone on ready weight combos (A and F also
+    without the prologue); A and C at config 4's three stacked shapes (B32
+    F13 T512, as its train step calls them) with cuDNN's ``F.conv2d`` on the
+    expanded (adjoint) weight beside them; kernels B and H, forward and dx, at every
     path shape (config 2's dense layers at M4096 K3328 and K256, config 4's
     M16384 K512 N256 and M2048 K1664 N2048 for B, the im2col convs' M53248
     K2304 for H), each as the wrapper's call and as the launcher alone on
     ready inputs, and ``torch.matmul`` on the Hamilton-expanded weight for
     B at config 4's M16384 K512 N256 and B's dx at M4096 N256 -> K256;
     kernel I at phase 9's three shapes; and the rank-8, 10-product and
-    ``use_pallas`` train steps (B16 x T256). One JSON line of ms (I's
+    ``use_pallas`` train steps (B16 x T256) and config 4's (B32 x T512,
+    ragged). One JSON line of ms, and how many outputs of A, C and B in the
+    rank-8 combo check (:func:`_combo_mismatches`) differ (I's
     entries name its split S where the tree has one). Run for two trees in
     turns (parent, change, change, parent) in one call on the card, it
     compares two commits' kernels; each tree builds its own at first use."""
@@ -1589,7 +1673,7 @@ def time_kernels(tree: str) -> int:
     from qasr_torch.configs import get_config
     from qasr_torch.ops.kernels import qgemm
     from qasr_torch.ops.kernels.qconv_dx import conj_transpose_w, qconv_dx10, qconv_dx_cuda
-    from qasr_torch.ops.kernels.qconv_ft import SCHEME10, qconv_ft10, qconv_ft_cuda
+    from qasr_torch.ops.kernels.qconv_ft import SCHEME8, SCHEME10, qconv_ft10, qconv_ft_cuda
     from qasr_torch.ops.kernels.qgemm8 import (
         conj_transpose_dense,
         qgemm8_cl,
@@ -1613,28 +1697,52 @@ def time_kernels(tree: str) -> int:
     dz = rnd(16, 4, 13, 256, 256).to(bf16)
     w = rnd(4, 3, 3, 256, 256, scale=0.02)
     bias, alpha, slopes = rnd(1024, scale=0.1), rnd(1024, scale=0.25).abs(), rnd(1024, scale=0.25)
-    times = {
-        "qconv_ft8 B16 F13 T256 C256": _time_ms(lambda: qconv_ft8(x, w, bias, alpha), 20, 3),
-        "qconv_dx8 B16 F13 T256 C256 epilogue": _time_ms(lambda: qconv_dx8(dz, w, x, slopes),
-                                                         20, 3),
-    }
-    # F and G: the wrapper's call (its weight combos included) and the
+    times = {}
+    # A, C, F and G: the wrapper's call (its weight combos included) and the
     # launcher alone on ready combos
-    wc_f = combine_weights(w, bf16, SCHEME10.u).contiguous()
-    wc_g = combine_weights(conj_transpose_w(w), bf16, SCHEME10.u).contiguous()
-    for label, call, alone in (
-        ("qconv_ft10 B16 F13 T256 C256 prologue+bias", lambda: qconv_ft10(x, w, bias, alpha),
-         lambda: qconv_ft_cuda(x, wc_f, bias, alpha, scheme=SCHEME10)),
-        ("qconv_dx10 B16 F13 T256 C256", lambda: qconv_dx10(dz, w),
-         lambda: qconv_dx_cuda(dz, wc_g, scheme=SCHEME10)),
-        ("qconv_dx10 B16 F13 T256 C256 epilogue", lambda: qconv_dx10(dz, w, x, slopes),
-         lambda: qconv_dx_cuda(dz, wc_g, x, slopes, scheme=SCHEME10)),
-    ):
-        times[label] = _time_ms(call, 20, 3)
-        times[f"{label} alone"] = _time_ms(alone, 20, 3)
-    times["qconv_ft10 B16 F13 T256 C256 alone"] = _time_ms(
-        lambda: qconv_ft_cuda(x, wc_f, scheme=SCHEME10), 20, 3)
-    del x, dz, wc_f, wc_g
+    for sc, fwd, bwd, name in ((SCHEME8, qconv_ft8, qconv_dx8, "8"),
+                               (SCHEME10, qconv_ft10, qconv_dx10, "10")):
+        wc_f = combine_weights(w, bf16, sc.u).contiguous()
+        wc_g = combine_weights(conj_transpose_w(w), bf16, sc.u).contiguous()
+        for label, call, alone in (
+            (f"qconv_ft{name} B16 F13 T256 C256 prologue+bias", lambda: fwd(x, w, bias, alpha),
+             lambda: qconv_ft_cuda(x, wc_f, bias, alpha, scheme=sc)),
+            (f"qconv_dx{name} B16 F13 T256 C256", lambda: bwd(dz, w),
+             lambda: qconv_dx_cuda(dz, wc_g, scheme=sc)),
+            (f"qconv_dx{name} B16 F13 T256 C256 epilogue", lambda: bwd(dz, w, x, slopes),
+             lambda: qconv_dx_cuda(dz, wc_g, x, slopes, scheme=sc)),
+        ):
+            times[label] = _time_ms(call, 20, 3)
+            times[f"{label} alone"] = _time_ms(alone, 20, 3)
+        times[f"qconv_ft{name} B16 F13 T256 C256 alone"] = _time_ms(
+            lambda: qconv_ft_cuda(x, wc_f, scheme=sc), 20, 3)
+        del wc_f, wc_g
+    del x, dz
+    # A and C at config 4's stacked shapes as its train step calls them (the
+    # first stacked layer without the PReLU prologue and backward), and
+    # cuDNN's F.conv2d on the Hamilton-expanded (adjoint) weight over the
+    # packed NCHW input
+    for cin, cout in ((64, 64), (64, 128), (128, 128)):
+        first = (cin, cout) == (64, 64)
+        w4 = rnd(4, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+        x4 = rnd(32, 4, 13, 512, cin, scale=0.5).to(bf16)
+        dz4 = rnd(32, 4, 13, 512, cout).to(bf16)
+        b4, a4, s4 = rnd(4 * cout, scale=0.1), rnd(4 * cin, scale=0.25).abs(), rnd(4 * cin, scale=0.25)
+        pro, epi = (None, None) if first else (a4, (x4, s4))
+        shape = f"B32 F13 T512 C{cin}->{cout}"
+        times[f"qconv_ft8 {shape}"] = _time_ms(lambda: qconv_ft8(x4, w4, b4, pro), 10, 3)
+        times[f"qconv_dx8 {shape}"] = _time_ms(
+            lambda: qconv_dx8(dz4, w4, *(epi or (None, None))), 10, 3)
+        x_lib = x4.permute(0, 1, 4, 2, 3).reshape(32, 4 * cin, 13, 512).contiguous()
+        w_lib = hamilton_expand(w4).permute(3, 2, 1, 0).contiguous().to(bf16)
+        times[f"qconv_ft8 {shape} library"] = _time_ms(
+            lambda: F.conv2d(x_lib, w_lib, padding=1), 10, 3)
+        dz_lib = dz4.permute(0, 1, 4, 2, 3).reshape(32, 4 * cout, 13, 512).contiguous()
+        wt_lib = hamilton_expand(conj_transpose_w(w4)).permute(3, 2, 1, 0).contiguous().to(bf16)
+        times[f"qconv_dx8 {shape} library"] = _time_ms(
+            lambda: F.conv2d(dz_lib, wt_lib, padding=1), 10, 3)
+        del w4, x4, dz4, x_lib, w_lib, dz_lib, wt_lib
+    torch.cuda.empty_cache()
     # library calls of rows 4 and 4b: one torch.matmul on the Hamilton-
     # expanded (adjoint) weight over the packed input
     for label, m, k, n, role in (("qgemm8 M16384 K512 N256 library", 16384, 512, 256, "fwd"),
@@ -1684,7 +1792,12 @@ def time_kernels(tree: str) -> int:
         times[f"train step {name} B16 T256"] = _time_ms(lambda: train_step(state, batch), 3, 2)
         del state
         torch.cuda.empty_cache()
-    _line(tree=tree, **times)
+    tcfg4, batch4 = _qlstm_train_batch(get_config("librispeech_qlstm"))
+    state = create_train_state(tcfg4, device=dev)
+    times["train step config 4 B32 T512"] = _time_ms(lambda: train_step(state, batch4), 3, 2)
+    del state
+    torch.cuda.empty_cache()
+    _line(tree=tree, combos_differing=_combo_mismatches(dev), **times)
     return 0
 
 
@@ -1728,6 +1841,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"phase 2 build: {build_s:.2f} s (nvcc {_build.build_seconds:.2f} s) "
           f"-> {_build.LIB_PATH}", flush=True)
+    if _build.build_log:  # this run built the library: ptxas's report of the wgmma loops
+        print("phase 2 registers: " + "; ".join(_wg_registers(_build.build_log)), flush=True)
 
     # 3. parity against the plain versions, same inputs
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -1753,6 +1868,9 @@ def main() -> int:
                 ref = qconv_stacked_plain(x.float(), w, bb, aa)
                 err = _errors(got, ref)
                 _report(f"qconv_ft8 {shape} {dname} prologue+bias={bb is not None}", err, tol)
+                if dtype == torch.bfloat16:  # and against the bf16 plain version
+                    _report(f"qconv_ft8 {shape} bf16 prologue+bias={bb is not None} vs bf16 "
+                            "plain", _errors(got, qconv_stacked_plain(x, w, bb, aa)), tol)
                 if (t, dtype, bb is not None) == (256, torch.bfloat16, True):
                     results["qconv_ft8"] = err["max_abs_err"]
             for epi in (False, True):
@@ -1761,6 +1879,9 @@ def main() -> int:
                 ref, ref_da = qconv_dx_plain(dz.float(), w, None if zz is None else zz.float(), sl)
                 err = _errors(got, ref)
                 _report(f"qconv_dx8 {shape} {dname} epilogue={epi} dx", err, tol)
+                if dtype == torch.bfloat16:
+                    _report(f"qconv_dx8 {shape} bf16 epilogue={epi} dx vs bf16 plain",
+                            _errors(got, qconv_dx_plain(dz, w, zz, sl)[0]), tol)
                 if epi:
                     da_err = _errors(got_da, ref_da)
                     _report(f"qconv_dx8 {shape} {dname} epilogue=True dalpha", da_err, tol)
@@ -1787,6 +1908,14 @@ def main() -> int:
             _report(f"qgemm8_dx M{m} N{n} -> K{k} {dname}", err, tol)
             if (m, k, dtype) == (4096, 3328, torch.bfloat16):
                 results["qgemm8_dx"] = err["max_abs_err"]
+
+    # the rank-8 input combos bit for bit (gated)
+    mism = _combo_mismatches(dev)
+    if any(mism.values()):
+        raise RuntimeError(f"rank-8 combos differ from the JAX package's rounding: {mism}")
+    print("phase 3 combos: kernels A, C and B in bf16 form every V8 combo bit for bit as the "
+          "JAX package rounds it (B2 F5 T70 C72, M350 K72; one-hot weight combos, 8 products, "
+          f"elements differing {mism})", flush=True)
 
     # no host-to-device copy in a warmed-up call of B or H, forward or dx:
     # such a copy from pageable memory synchronises the stream (gated; the
@@ -2053,7 +2182,7 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description="Smoke run of qasr_torch on one CUDA card.")
     ap.add_argument("--time-kernels", metavar="TREE",
-                    help="only time kernels A, B, C, H and I and the train steps of the "
-                         "qasr_torch under TREE")
+                    help="only time kernels A, B, C, F, G, H and I and the train steps of "
+                         "the qasr_torch under TREE")
     args = ap.parse_args()
     sys.exit(main() if args.time_kernels is None else time_kernels(args.time_kernels))

@@ -16,28 +16,31 @@
 // One block: a 64-step time tile of one (b, f) row x 64 output channels, an
 // implicit GEMM whose contraction walks (Cin chunk, tap). Two loops:
 //
-// - qconv_kernel (A and C in both dtypes, F and G in f32): per Cin chunk,
-//   the four input components over the kw x (64+kh-1) halo window stay in
-//   shared memory for all P products; per product, the weights of all taps
-//   arrive by cp.async one step ahead, the product's combos are formed from
-//   the window into shared memory, its mma.sync runs over all taps and is
-//   folded at once into four accumulators. Copies, combos and products run
-//   in series, a barrier between each.
-// - qconv_wg_kernel (F and G in bf16): the window of a 32-deep Cin chunk
-//   and, per (chunk, tap), the P weight tiles arrive by TMA into a ring
-//   behind mbarriers, one block barrier a stage; two warpgroups each run
-//   half the products on wgmma with the combos formed in registers from
-//   ldmatrix fragments of the window at the tap's row offset; each
+// - qconv_wg_kernel (bf16: A, C, F and G): the window of a 32-deep Cin
+//   chunk and, per (chunk, tap), the P weight tiles arrive by TMA into a
+//   ring behind mbarriers, one block barrier a stage; two warpgroups each
+//   run half the products on wgmma with the combos formed in registers from
+//   ldmatrix fragments of the window at the tap's row offset (the rank-8
+//   scheme's by combo2, X_COMBO's unit sums by one addition); each
 //   product's f32 accumulator stays in registers for the whole contraction
 //   and the fold with O runs once, at the end. It is qgemm.cuh's loop
-//   (kernel H) with the window in place of the x tile.
+//   (kernels B and H) with the window in place of the x tile.
+// - qconv_kernel (f32 only: its CUDA-core products keep f32 accuracy, which
+//   the f32 gradient checks need): per Cin chunk, the four input components
+//   over the kw x (64+kh-1) halo window stay in shared memory for all P
+//   products; per product, the weights of all taps arrive by cp.async one
+//   step ahead, the product's combos are formed from the window into
+//   shared memory, its products run over all taps and are folded at once
+//   into four accumulators. Copies, combos and products run in series, a
+//   barrier between each.
 //
-// What bounds the bf16 wgmma loop on an H100 (F at B16 F13 T256 C256 3x3,
-// 6.3e11 FLOP, 0.64 ms of tensor-core work): the P f32 accumulators of a
-// 64 x 64 tile take 160 registers a thread, so one block an SM and no larger
-// tile; every block then pulls all P * taps * Cin * 64 weights from L2 (2.95
-// MB, 9.8 GB over the layer's 3328 blocks), ~1.1 ms at the ~9 TB/s into the
-// SMs that kernel H reaches: the copies, as in H.
+// What bounds the bf16 wgmma loop on an H100 (at B16 F13 T256 C256 3x3: F
+// 6.3e11 FLOP, 0.64 ms of tensor-core work; A 5.0e11, 0.51 ms): the P f32
+// accumulators of a 64 x 64 tile take 32 P registers a thread, so one block
+// an SM and no larger tile; every block then pulls all P * taps * Cin * 64
+// weights from L2 (F 2.95 MB, 9.8 GB over the layer's 3328 blocks, ~1.1 ms
+// at the ~9 TB/s into the SMs that kernel H reaches; A 2.36 MB, 7.9 GB,
+// ~0.9 ms): the copies, as in H.
 #pragma once
 
 #include <type_traits>
@@ -48,18 +51,7 @@ namespace qconv {
 
 using namespace qtile;
 
-// Cin chunk per step; two blocks fit on an SM at the 3x3 bf16 layer (the
-// scheme's size is the only part of the layout that grows with P)
-template <typename T>
-struct ConvCfg;
-template <>
-struct ConvCfg<__nv_bfloat16> {
-  static constexpr int KC = 16, kMinBlocks = 2;
-};
-template <>
-struct ConvCfg<float> {
-  static constexpr int KC = 8, kMinBlocks = 1;
-};
+constexpr int kStepKc = 8;  // qconv_kernel's Cin chunk a step (f32)
 
 // Where an output tile sits, handed to the epilogue.
 struct Tile {
@@ -74,11 +66,12 @@ struct Tile {
 // It may use the block's shared memory (after a __syncthreads()), and every
 // thread of the block calls it.
 template <typename T, int P, typename Epi>
-__global__ void __launch_bounds__(kThreads, ConvCfg<T>::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, 1)
 qconv_kernel(const T* __restrict__ x, const T* __restrict__ wc,
              const float* __restrict__ alpha, int F, int T_len, int Cin, int Cout,
              int kh, int kw, Scheme<P> scheme, Epi epi) {
-  constexpr int V = Elem<T>::kVec, KC = ConvCfg<T>::KC;
+  static_assert(std::is_same<T, float>::value, "bf16 runs qconv_wg_kernel");
+  constexpr int V = Elem<T>::kVec, KC = kStepKc;
   constexpr int LDA = Layout<T, KC, P>::lda, LDB = Layout<T, KC, P>::ldb;
   using Prod = Product<T, KC>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -169,7 +162,8 @@ qconv_kernel(const T* __restrict__ x, const T* __restrict__ wc,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, P = 10 (kernels F and G): TMA, wgmma, the combos in registers
+// bf16 (kernels A, C: P = 8; F, G: P = 10): TMA, wgmma, the combos in
+// registers
 // ---------------------------------------------------------------------------
 
 constexpr int kWgKc = 32;                   // Cin a chunk: two 16-deep steps
@@ -182,10 +176,11 @@ constexpr int kWgBars = 2 + kWgMaxStages;  // the windows' and the stages' full 
 // buffers (a Cin chunk's four components over kw frequency rows and rows =
 // BM + kh - 1 time rows, [4][kw][rows][kWgKc], rows of 64 bytes), then nst
 // weight stages (one tap of a chunk for all P products, [P][kWgKc][BN],
-// rows of 128 bytes), then the barriers. Two windows and three stages fit
-// up to 5x3; a kernel five frequency taps wide takes one window (refilled
-// after the chunk's last stage, its copy then not hidden). At the end the
-// fold's P f32 tiles [P][BM][kFoldLd] reuse the start.
+// rows of 128 bytes: 32 KB at P = 8, 40 KB at P = 10), then the barriers.
+// Two windows and three stages fit up to 5x3; a kernel five frequency taps
+// wide takes one window (refilled after the chunk's last stage, its copy
+// then not hidden) and four stages. At the end the fold's P f32 tiles
+// [P][BM][kFoldLd] reuse the start.
 template <int P>
 struct WgRing {
   int rows, xbytes, win, nwin, nst, stages, bars, total;
@@ -203,17 +198,6 @@ struct WgRing {
     total = 1024 + bars + kWgBars * 8;
   }
 };
-
-// u + v on bf16 pairs, rounded once (the two-term combos of X_COMBO, whose
-// coefficients are 1). form_combos forms c1 * u + c2 * v in f32 and rounds
-// that to bf16: the f32 sum of two bf16 values is exact unless their
-// exponents differ by more than 16, and then both roundings give the larger,
-// so the bits are the same.
-__device__ __forceinline__ unsigned add_bf2(unsigned u, unsigned v) {
-  const __nv_bfloat162 s = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&u),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&v));
-  return *reinterpret_cast<const unsigned*>(&s);
-}
 
 // The previous layer's split PReLU, in place on a window as TMA wrote it
 // (4 * rows_a rows of 64 bytes in the 64-byte swizzle), with prelu_chunk's
@@ -243,21 +227,11 @@ __device__ inline void prelu_window(unsigned char* win, int rows_a,
   }
 }
 
-// A warpgroup's H = P/2 products over the block's 64 x 64 tile, each in
-// f32 registers for the whole contraction (acc[j] is product G*H + j, as
-// wg_store lays it out)
+// A warpgroup's H = P/2 products over the block's 64 x 64 tile (WgAcc),
+// fed tap by tap
 template <int P>
-struct WgConv {
-  static_assert(P % 2 == 0, "two warpgroups share the products");
-  static constexpr int H = P / 2;
-  float acc[H][32];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int j = 0; j < H; ++j)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[j][i] = 0.0f;
-  }
+struct WgConv : WgAcc<P> {
+  using WgAcc<P>::H, WgAcc<P>::acc, WgAcc<P>::c1, WgAcc<P>::c2;
 
   // One tap of one chunk. win: the window; rows_a: its rows a component;
   // r0: this lane's row of component 0 at the tap's offsets (lanes 0-15
@@ -277,14 +251,9 @@ struct WgConv {
         ldsm_x4(f[a], win + x_off(a * rows_a + r0, kk * 2 + lane / 16));
       unsigned A[H][4];
 #pragma unroll
-      for (int j = 0; j < H; ++j) {
-        const int p = G * H + j;
+      for (int j = 0; j < H; ++j)
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          A[j][q] = term<P>(p, 0) == term<P>(p, 1)
-                        ? f[term<P>(p, 0)][q]
-                        : add_bf2(f[term<P>(p, 0)][q], f[term<P>(p, 1)][q]);
-      }
+        for (int q = 0; q < 4; ++q) A[j][q] = wg_combo<P>(f, G * H + j, q, c1[j], c2[j]);
       if (kk == 0) mbar_wait(full, parity);
       wgmma_fence();
 #pragma unroll
@@ -348,7 +317,10 @@ qconv_wg_kernel(const __grid_constant__ CUtensorMap xmap,
   };
 
   WgConv<P> wg;
-  wg.zero();
+  if (G == 0)
+    wg.template init<0>(sch);
+  else
+    wg.template init<1>(sch);
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) mbar_init(win_full + 8 * i, 1);
     for (int s = 0; s < L.nst; ++s) mbar_init(w_full + 8 * s, 1);
@@ -412,20 +384,6 @@ qconv_wg_kernel(const __grid_constant__ CUtensorMap xmap,
   epi.template store<Prod>(y, buf, Tile{b, f, t0, n0, F, T_len, Cout});
 }
 
-// Whether a bf16 scheme is the one wgmma's loop compiles in: each
-// product's terms (term<P>) with coefficient 1 (0 for a one-term product's
-// repeat)
-template <int P>
-bool wg_scheme_ok(const Scheme<P>& s) {
-  for (int p = 0; p < P; ++p) {
-    const bool one = term<P>(p, 0) == term<P>(p, 1);
-    if (s.in_a[p][0] != term<P>(p, 0) || s.in_a[p][1] != term<P>(p, 1) ||
-        s.in_c[p][0] != 1.0f || s.in_c[p][1] != (one ? 0.0f : 1.0f))
-      return false;
-  }
-  return true;
-}
-
 template <int P, typename Epi>
 int launch_wg(const void* x, const void* wc, const float* alpha, int B, int F, int T_len,
               int Cin, int Cout, int kh, int kw, const Scheme<P>& s, const Epi& epi,
@@ -455,20 +413,16 @@ int launch_wg(const void* x, const void* wc, const float* alpha, int B, int F, i
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of one block: the main loop's layout, or more when
-// the epilogue asks for it (epi_bytes, from the start of shared memory).
-template <typename T, int P>
-int smem_for(int kh, int kw, int epi_bytes = 0) {
-  const int main = Layout<T, ConvCfg<T>::KC, P>(kw * (BM + kh - 1), kh * kw).total;
-  return main > epi_bytes ? main : epi_bytes;
-}
-
-// Launch qconv_kernel over the grid (Cout tiles, T tiles, B*F).
+// Launch qconv_kernel (f32) over the grid (Cout tiles, T tiles, B*F), with
+// the main loop's shared memory, or more when the epilogue asks for it
+// (epi_bytes, from the start of shared memory).
 template <typename T, int P, typename Epi>
 int launch_steps(const void* x, const void* wc, const float* alpha, int B, int F, int T_len,
                  int Cin, int Cout, int kh, int kw, const Scheme<P>& s, const Epi& epi,
                  int epi_bytes, cudaStream_t stream) {
-  const int smem = smem_for<T, P>(kh, kw, epi_bytes);
+  static_assert(std::is_same<T, float>::value, "bf16 runs qconv_wg_kernel");
+  const int main = Layout<T, kStepKc, P>(kw * (BM + kh - 1), kh * kw).total;
+  const int smem = main > epi_bytes ? main : epi_bytes;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   // once per instantiation (one device a process): the most any launch asks
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -481,13 +435,14 @@ int launch_steps(const void* x, const void* wc, const float* alpha, int B, int F
   return (int)cudaGetLastError();
 }
 
-// Launch one instantiation: bf16 with P = 10 (kernels F and G) on the wgmma
-// loop, the rest (A and C, and f32) on qconv_kernel.
+// Launch one instantiation: bf16 (kernels A, C, F and G) on the wgmma loop,
+// f32 on qconv_kernel. Nothing falls back: a shape or scheme the wgmma loop
+// refuses comes back as its error.
 template <typename T, int P, typename Epi>
 int launch(const void* x, const void* wc, const float* alpha, int B, int F, int T_len,
            int Cin, int Cout, int kh, int kw, const Scheme<P>& s, const Epi& epi,
            int epi_bytes, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && P == 10)
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
     return launch_wg<P>(x, wc, alpha, B, F, T_len, Cin, Cout, kh, kw, s, epi, epi_bytes,
                         stream);
   else

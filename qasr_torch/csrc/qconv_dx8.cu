@@ -26,10 +26,11 @@
 // rows in order. Without z_prev (the first stacked layer) dx = g and
 // neither happens.
 //
-// What bounds it on an H100: the same work as kernel A (5.0e11 FLOP a
-// QCNN-256 layer at B16 F13 T256 C256 3x3, ~2,000 FLOP/byte): the tensor
-// cores. The epilogue reads z_prev once and writes dx once (~0.14 GB in
-// bf16 at that shape), and the partials are 3.4 MB.
+// What bounds it on an H100: the same main loop as kernel A (qconv.cuh's
+// wgmma loop in bf16, qconv_kernel in f32) and the same work (5.0e11 FLOP a
+// QCNN-256 layer at B16 F13 T256 C256 3x3): the copies of the weight tiles
+// into the SMs. The epilogue reads z_prev once and writes dx once (~0.14 GB
+// in bf16 at that shape), and the partials are 3.4 MB.
 #include "qconv.cuh"
 
 extern "C" {

@@ -15,14 +15,13 @@
 // frequency), out [B,4,F,T,Cout]; act is x>=0 ? x : alpha*x per real channel.
 //
 // What bounds it on an H100: at the QCNN-256 layer (B16 F13 T256 C256, 3x3)
-// one layer is 5.0e11 FLOP against ~0.23 GB moved, about 2,000 FLOP/byte, far
-// above the bf16 ridge of ~295: the tensor cores bound it. The main loop
-// (qconv.cuh) is an implicit GEMM per block (one 64-step time tile of one
-// (b, f) row x 64 output channels): per Cin chunk of 16 the four input
-// components over the halo window stay in shared memory for all eight
-// products; per product the weights of all taps arrive by cp.async one step
-// ahead (mma.sync m16n8k16 bf16, f32 accumulators). No wgmma or TMA yet;
-// those are the next steps.
+// one layer is 5.0e11 FLOP (0.51 ms of tensor-core work) against ~0.23 GB
+// moved. In bf16 it runs qconv.cuh's wgmma loop (qconv_wg_kernel: TMA
+// windows and weight stages, two warpgroups of four products on wgmma with
+// the V8 combos formed in registers by combo2, one fold); at one block an
+// SM every block pulls all the weights of its 64 output channels from L2,
+// ~7.9 GB a layer: the copies bound it, as they bound kernels F and H. In
+// f32 it runs qconv_kernel (CUDA-core products, f32 accuracy).
 #include "qconv.cuh"
 
 extern "C" {

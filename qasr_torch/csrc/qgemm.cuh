@@ -24,10 +24,12 @@
 //   accumulator stays in registers for the whole run and the fold with O
 //   runs once, at the end, through shared memory. A warp forms the combos
 //   of its 16 rows in registers from the ldmatrix fragments of the four
-//   components, in the storage dtype as the TPU kernel forms them (each
-//   term scaled by its coefficient rounded to bf16, each scaled term and
-//   their sum rounded once): no combo reaches shared memory. Each product's
-//   input terms are compiled in (the host checks the tables it is passed).
+//   components, in the storage dtype as the TPU kernel forms them (qtile's
+//   wg_combo: B's V8 combos by combo2, each term scaled by its coefficient
+//   rounded to bf16, each scaled term and their sum rounded once; H's unit
+//   combos by one addition, the same bits): no combo reaches shared memory.
+//   Each product's input terms are compiled in (the host checks the tables
+//   it is passed).
 // - One barrier a K chunk of 32: the chunk's four components and its P
 //   weight tiles arrive by TMA in a ring of four stages, all but the one
 //   being read in flight, each stage behind a full-barrier (mbarrier).
@@ -164,36 +166,13 @@ struct Ring {
   static constexpr int total = 1024 + ring + kStages * 8;  // 1024: room to align the base
 };
 
-// c1 * u + c2 * v on bf16 pairs, in the storage dtype: each scaled term
-// rounded once, their sum rounded once
-__device__ __forceinline__ unsigned combo2(unsigned u, unsigned v, __nv_bfloat162 c1,
-                                           __nv_bfloat162 c2) {
-  const __nv_bfloat162 t1 = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&u), c1);
-  const __nv_bfloat162 t2 = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&v), c2);
-  const __nv_bfloat162 s = __hadd2(t1, t2);
-  return *reinterpret_cast<const unsigned*>(&s);
-}
-
-// A warpgroup's H = P/2 products over the block's 64 x 64 tile: warp wr of
-// the group holds rows wr*16 .. +16 of each; acc[j][i] is product G*H + j
-// at row wr*16 + lane/4 (+8 for i%4 >= 2), column (i/4)*8 + 2*(lane%4) + i%2
+// A warpgroup's H = P/2 products over the block's 64 x 64 tile (WgAcc):
+// warp wr of the group holds rows wr*16 .. +16 of each; acc[j][i] is
+// product G*H + j at row wr*16 + lane/4 (+8 for i%4 >= 2), column (i/4)*8 +
+// 2*(lane%4) + i%2
 template <int P>
-struct WgProducts {
-  static_assert(P % 2 == 0, "two warpgroups share the products");
-  static constexpr int H = P / 2;
-  float acc[H][32];
-  __nv_bfloat162 c1[H], c2[H];
-
-  template <int G>
-  __device__ void init(const Scheme<P>& s) {
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-      c1[j] = __float2bfloat162_rn(s.in_c[G * H + j][0]);
-      c2[j] = __float2bfloat162_rn(s.in_c[G * H + j][1]);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[j][i] = 0.0f;
-    }
-  }
+struct WgProducts : WgAcc<P> {
+  using WgAcc<P>::H, WgAcc<P>::acc, WgAcc<P>::c1, WgAcc<P>::c2;
 
   // one chunk: xs the stage's x, ws its weights (shared addresses)
   template <int G>
@@ -211,9 +190,7 @@ struct WgProducts {
 #pragma unroll
       for (int j = 0; j < H; ++j)
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          A[j][q] = combo2(f[term<P>(G * H + j, 0)][q], f[term<P>(G * H + j, 1)][q], c1[j],
-                           c2[j]);
+        for (int q = 0; q < 4; ++q) A[j][q] = wg_combo<P>(f, G * H + j, q, c1[j], c2[j]);
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < H; ++j)
@@ -364,10 +341,8 @@ int entry(const void* x4, const void* wc, void* y4, int M, int K, int N, int dty
           const float* v, const float* o, void* stream) {
   Scheme<P> s;
   if (make_scheme(v, o, &s) != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 1)  // the bf16 kernel's input terms are compiled in
-    for (int p = 0; p < P; ++p)
-      if (s.in_a[p][0] != term<P>(p, 0) || s.in_a[p][1] != term<P>(p, 1))
-        return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && !wg_scheme_ok(s))  // the bf16 kernel's input terms are compiled in
+    return (int)cudaErrorInvalidValue;
   if (M < 1 || K % 8 || N % 8 || (M + BM - 1) / BM > 65535 ||
       reinterpret_cast<uintptr_t>(x4) % 16 || reinterpret_cast<uintptr_t>(wc) % 16 ||
       reinterpret_cast<uintptr_t>(y4) % 16)

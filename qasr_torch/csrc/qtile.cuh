@@ -506,6 +506,20 @@ __device__ __forceinline__ void tma_load_5d(unsigned dst, const CUtensorMap* map
       : "memory");
 }
 
+// c1 * u + c2 * v on bf16 pairs, in the storage dtype, as the JAX package
+// forms a rank-8 combo (qasr/ops/pallas/qconv_ft.py, qgemm8.py: _scaled):
+// each scaled term rounded once, their sum rounded once. The explicit .rn
+// keeps ptxas from contracting a multiply and the add into one fma, which
+// would round once where the rule rounds twice.
+__device__ __forceinline__ unsigned combo2(unsigned u, unsigned v, __nv_bfloat162 c1,
+                                           __nv_bfloat162 c2) {
+  unsigned t1, t2, s;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(t1) : "r"(u), "r"(*reinterpret_cast<unsigned*>(&c1)));
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(t2) : "r"(v), "r"(*reinterpret_cast<unsigned*>(&c2)));
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(s) : "r"(t1), "r"(t2));
+  return s;
+}
+
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -544,6 +558,50 @@ __host__ __device__ constexpr int term<10>(int p, int i) {
   constexpr int t[10][2] = {{0, 0}, {1, 1}, {2, 2}, {3, 3}, {0, 1},
                             {2, 3}, {0, 2}, {1, 3}, {0, 3}, {1, 2}};
   return t[p][i];
+}
+
+// Whether a scheme's input coefficients are all 1 (X_COMBO's, P = 10): its
+// combos are sums; the rank-8 scheme's (V8) are not, and take combo2
+template <int P>
+constexpr bool kUnitCombos = P == 10;
+
+// u + v on bf16 pairs, rounded once: combo2's bits with unit coefficients,
+// without its two multiplies. The f32 sum of two bf16 values that the plain
+// version rounds is exact unless their exponents differ by more than 16,
+// and then both roundings give the larger, so the bits are the same.
+__device__ __forceinline__ unsigned add_bf2(unsigned u, unsigned v) {
+  const __nv_bfloat162 s = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&u),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&v));
+  return *reinterpret_cast<const unsigned*>(&s);
+}
+
+// Register q of product p's input combo, from the four components'
+// ldmatrix fragments f: the one term or a sum where the coefficients are 1,
+// else combo2 with the product's bf16 coefficients c1, c2 (p a compile-time
+// constant after unrolling, so the terms are compiled in)
+template <int P>
+__device__ __forceinline__ unsigned wg_combo(const unsigned (&f)[4][4], int p, int q,
+                                             __nv_bfloat162 c1, __nv_bfloat162 c2) {
+  if constexpr (kUnitCombos<P>)
+    return term<P>(p, 0) == term<P>(p, 1) ? f[term<P>(p, 0)][q]
+                                          : add_bf2(f[term<P>(p, 0)][q], f[term<P>(p, 1)][q]);
+  else
+    return combo2(f[term<P>(p, 0)][q], f[term<P>(p, 1)][q], c1, c2);
+}
+
+// Whether a scheme is one the bf16 wgmma loops compile in: each product's
+// terms (term<P>), with coefficient 1 (0 for a one-term product's repeat)
+// where the loop forms sums (kUnitCombos), else two nonzero coefficients
+template <int P>
+bool wg_scheme_ok(const Scheme<P>& s) {
+  for (int p = 0; p < P; ++p) {
+    if (s.in_a[p][0] != term<P>(p, 0) || s.in_a[p][1] != term<P>(p, 1)) return false;
+    const bool one = term<P>(p, 0) == term<P>(p, 1);
+    if (kUnitCombos<P> ? (s.in_c[p][0] != 1.0f || s.in_c[p][1] != (one ? 0.0f : 1.0f))
+                       : (s.in_c[p][0] == 0.0f || s.in_c[p][1] == 0.0f))
+      return false;
+  }
+  return true;
 }
 
 // The shared-memory descriptor of a product's weights for one 16-deep step:
@@ -596,6 +654,30 @@ __device__ __forceinline__ void wg_store(const float (&acc)[H][32], float* fs, i
           make_float2(acc[j][i], acc[j][i + 1]);
     }
 }
+
+// A warpgroup's H = P/2 products over a block's 64 x 64 tile, each in f32
+// registers for the whole contraction (acc[j] is product G*H + j, as
+// wg_store lays it out), and their input coefficients in bf16 (wg_combo's
+// c1, c2): the state of the bf16 loops' products (qgemm.cuh's WgProducts,
+// qconv.cuh's WgConv)
+template <int P>
+struct WgAcc {
+  static_assert(P % 2 == 0, "two warpgroups share the products");
+  static constexpr int H = P / 2;
+  float acc[H][32];
+  __nv_bfloat162 c1[H], c2[H];
+
+  template <int G>
+  __device__ void init(const Scheme<P>& s) {
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      c1[j] = __float2bfloat162_rn(s.in_c[G * H + j][0]);
+      c2[j] = __float2bfloat162_rn(s.in_c[G * H + j][1]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.0f;
+    }
+  }
+};
 
 // host: tensor maps
 

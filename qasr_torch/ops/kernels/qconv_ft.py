@@ -26,6 +26,7 @@ the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -122,12 +123,21 @@ def _prelu_stacked(x_st: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return torch.where(x_st >= 0, x_st, a * x_st)
 
 
-def _combo(x_st: torch.Tensor, terms) -> torch.Tensor:
-    """``sum_a c_a * x_st[:, a]`` over a scheme's (index, coefficient) terms,
-    term by term in the storage dtype (as ``_qconv_stacked_xla`` forms it)."""
+@functools.lru_cache(maxsize=None)
+def _coef(c: float, dtype: torch.dtype) -> float:
+    """``c`` rounded to ``dtype``, as the JAX package's ``_scaled`` rounds a
+    coefficient (``val.dtype.type(coef)``)."""
+    return torch.tensor(c, dtype=dtype).item()
+
+
+def _combo(x: torch.Tensor, terms, dim: int = 1) -> torch.Tensor:
+    """``sum_a c_a * x.select(dim, a)`` over a scheme's (index, coefficient)
+    terms, in the storage dtype as ``qasr/ops/pallas/qconv_ft.py:_scaled``
+    forms it: each coefficient rounded to x's dtype, each scaled term
+    rounded once, then the terms added, rounded once."""
     out = None
     for a, c in terms:
-        t = x_st[:, a] * c
+        t = x.select(dim, a) * _coef(c, x.dtype)
         out = t if out is None else out + t
     return out
 

@@ -25,14 +25,29 @@ import torch
 import torch.nn.functional as F
 
 from qasr_torch.ops.kernels import _build
-from qasr_torch.ops.kernels.qconv_ft import _DTYPE_CODE, _O8_F32, _V8_F32, _check_cuda_tensor
+from qasr_torch.ops.kernels.qconv_ft import (
+    _DTYPE_CODE,
+    _O8_F32,
+    _V8_F32,
+    SCHEME8,
+    _check_cuda_tensor,
+    _combo,
+)
 from qasr_torch.ops.quaternion import HAMILTON_E, O8, O8_T, U8, V8, combine_weights, device_table
 
 
+def combos8(x4: torch.Tensor) -> torch.Tensor:
+    """The eight V8 input combos ``[8, M, K]`` of ``x4 [4, M, K]``, each
+    formed term by term in x's dtype as ``_qgemm8_kernel`` forms them
+    (``qasr/ops/pallas/qgemm8.py:_scaled``)."""
+    return torch.stack([_combo(x4, terms, dim=0) for terms in SCHEME8.fwd_in])
+
+
 def qgemm8_cl_plain(x4: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel B: ``qdense_fast8``'s einsums on ``[4, M, K]``
-    with ``w [4, K, N]``; products in x's dtype, O8 recombination in f32."""
-    xc = torch.einsum("amk,pa->pmk", x4, device_table(V8, x4.dtype, x4.device))
+    """Plain version of kernel B: ``qdense_fast8`` on ``[4, M, K]`` with ``w
+    [4, K, N]``; the input combos as :func:`combos8`, products in x's dtype,
+    O8 recombination in f32."""
+    xc = combos8(x4)
     prods = torch.bmm(xc, combine_weights(w, x4.dtype)).float()  # [8, M, N]
     o8 = device_table(O8, torch.float32, x4.device)
     return torch.einsum("pmn,bp->bmn", prods, o8).to(x4.dtype)

@@ -116,10 +116,11 @@ def check_parity(what: str, got: torch.Tensor, ref: torch.Tensor) -> None:
 
 
 def main(module: str, tool: str, versions: dict, sources: tuple[str, ...], kernel_match: str,
-         names: list[str]) -> None:
+         names: list[str], run_args: tuple[str, ...] = ()) -> None:
     """Build every version named (all of ``versions`` when none is; all
     nvcc runs at once), print their registers, then run each as ``python3
-    -m module --run NAME PATH`` in turns, first to last and back."""
+    -m module --run NAME PATH *run_args`` in turns, first to last and
+    back."""
     if not torch.cuda.is_available():
         raise RuntimeError(f"{tool} needs a CUDA device")
     names = names or list(versions)
@@ -134,7 +135,7 @@ def main(module: str, tool: str, versions: dict, sources: tuple[str, ...], kerne
     for name in names:
         print(f"{name}: " + "; ".join(registers(paths[name], kernel_match)), flush=True)
     for name in names + names[::-1]:
-        proc = subprocess.run([sys.executable, "-m", module, "--run", name, paths[name]],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, "-m", module, "--run", name, paths[name],
+                               *run_args], capture_output=True, text=True)
         print(proc.stdout.strip() or f"{name}: rc {proc.returncode} {proc.stderr[-800:]}",
               flush=True)

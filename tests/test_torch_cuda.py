@@ -8,8 +8,16 @@ JAX, so it runs on a machine with the card and no JAX:
 (``--noconftest`` because tests/conftest.py configures JAX.) Tolerances: f32
 runs the kernels' CUDA-core path, where only the summation order differs
 (1e-4); bf16 rounds the input and weight combos to bf16 before the f32
-products (3e-2).
+products (3e-2). In bf16 the rank-8 kernels (A, B, C) are held against the
+plain version in bf16, whose input combos round as the kernels' and the JAX
+package's do (each coefficient, each scaled term and the sum rounded to
+bf16; ``test_rank8_combos_bit_exact_on_card``): three roundings a combo,
+which the f32 plain version does not make, so against it the error grows
+with the output's scale. The plain version in bf16 rounds each product to
+bf16 before its f32 fold instead; within 3e-2 at these scales.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -51,8 +59,8 @@ def test_qconv_kernel_matches_plain_on_card(cuda_device, dtype, kernel, t):
     got = qconv_ft.qconv_ft8(x, w, bias, alpha)
     torch.cuda.synchronize()
     assert qconv_ft.qconv_ft8.launches == before + 1
-    want = qconv_ft.qconv_stacked_plain(x.float(), w, bias, alpha)
-    torch.testing.assert_close(got.float(), want, **tol)
+    want = qconv_ft.qconv_stacked_plain(x, w, bias, alpha)  # in x's dtype
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 @pytest.mark.cuda
@@ -67,8 +75,8 @@ def test_qgemm8_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
     got = qgemm8.qgemm8_cl(x4, w)
     torch.cuda.synchronize()
     assert qgemm8.qgemm8_cl.launches == before + 1
-    want = qgemm8.qgemm8_cl_plain(x4.float(), w)
-    torch.testing.assert_close(got.float(), want, **tol)
+    want = qgemm8.qgemm8_cl_plain(x4, w)  # in x's dtype
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 @pytest.mark.cuda
@@ -88,10 +96,8 @@ def test_qconv_dx8_kernel_matches_plain_on_card(cuda_device, dtype, epilogue, ke
     dx, dalpha = qconv_dx.qconv_dx8(dz, w, z, alpha)
     torch.cuda.synchronize()
     assert qconv_dx.qconv_dx8.launches == before + 1
-    want_dx, want_da = qconv_dx.qconv_dx_plain(
-        dz.float(), w, None if z is None else z.float(), alpha
-    )
-    torch.testing.assert_close(dx.float(), want_dx, **tol)
+    want_dx, want_da = qconv_dx.qconv_dx_plain(dz, w, z, alpha)  # in dz's dtype
+    torch.testing.assert_close(dx.float(), want_dx.float(), **tol)
     if epilogue:
         # a sum over B*F*T: held relative to its largest element
         scale = want_da.abs().max().item()
@@ -112,8 +118,8 @@ def test_qgemm8_dx_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
     got = qgemm8.qgemm8_dx(dy4, w)
     torch.cuda.synchronize()
     assert qgemm8.qgemm8_dx.launches == before + 1
-    want = qgemm8.qgemm8_cl_plain(dy4.float(), qgemm8.conj_transpose_dense(w))
-    torch.testing.assert_close(got.float(), want, **tol)
+    want = qgemm8.qgemm8_cl_plain(dy4, qgemm8.conj_transpose_dense(w))  # in dy's dtype
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 @pytest.mark.cuda
@@ -368,58 +374,145 @@ def test_qconv_dx10_kernel_matches_plain_on_card(cuda_device, dtype, epilogue, k
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["F", "F prologue+bias", "G", "G epilogue"])
+@pytest.mark.parametrize("kernel", ["F", "F prologue+bias", "G", "G epilogue",
+                                    "A", "A prologue+bias", "C", "C epilogue"])
 # Cin not a multiple of the 32-deep chunk and Cout not of the 64-wide tile
 # (G chunks over 72 and tiles over 40); F = 1, where only the centre
 # frequency tap is in range; T below one tile and over several; 3x5 and 5x5
-# kernels (one window buffer at five frequency taps); the path's 256 -> 256
+# kernels (one window buffer at five frequency taps); config 4's stacked
+# layers (64 -> 64: one N tile, two chunks; 64 -> 128; 128 -> 128) at F13
+# T512; the config-2 path's 256 -> 256
 @pytest.mark.parametrize("b,nf,t,cin,cout,kernel_size", [
     (2, 5, 70, 40, 72, (3, 3)), (2, 1, 100, 48, 64, (3, 3)), (3, 4, 5, 64, 64, (3, 3)),
     (2, 3, 200, 64, 128, (3, 3)), (2, 5, 33, 40, 24, (3, 5)), (2, 5, 20, 16, 72, (5, 5)),
-    (2, 13, 256, 256, 256, (3, 3))])
+    (2, 13, 512, 64, 64, (3, 3)), (2, 13, 512, 64, 128, (3, 3)),
+    (2, 13, 512, 128, 128, (3, 3)), (2, 13, 256, 256, 256, (3, 3))])
 def test_qconv10_main_loop_edges_on_card(cuda_device, kernel, b, nf, t, cin, cout, kernel_size):
-    """qconv.cuh's wgmma loop (kernels F and G in bf16) through the
-    wrappers, with and without F's PReLU prologue and bias and G's
-    PReLU-backward epilogue (dalpha too, for signed slopes), against the
-    plain versions at today's tolerance, and the same bits twice."""
+    """qconv.cuh's wgmma loop in bf16, in both schemes (kernels F and G,
+    P = 10; A and C, P = 8), through the wrappers, with and without the
+    forward's PReLU prologue and bias and the transpose's PReLU-backward
+    epilogue (dalpha too, for signed slopes), against the plain versions at
+    today's tolerance (F and G in f32; A and C in bf16, as the module's
+    docstring says), and the same bits twice."""
     tol = _tol(torch.bfloat16)
     rng = np.random.default_rng(22)
     kh, kw = kernel_size
+    scheme = qconv_ft.SCHEME8 if kernel[0] in "AC" else qconv_ft.SCHEME10
+    fwd = qconv_ft.qconv_ft8 if scheme is qconv_ft.SCHEME8 else qconv_ft.qconv_ft10
+    bwd = qconv_dx.qconv_dx8 if scheme is qconv_ft.SCHEME8 else qconv_dx.qconv_dx10
+    # the plain version's dtype: bf16 for the rank-8 kernels
+    ref = (lambda v: v) if scheme is qconv_ft.SCHEME8 else (lambda v: None if v is None else v.float())
     w = _t(_rand(rng, 4, kh, kw, cin, cout, scale=(kh * kw * cin) ** -0.5)).to(cuda_device)
-    if kernel.startswith("F"):
+    if kernel[0] in "AF":
         x = _t(_rand(rng, b, 4, nf, t, cin, scale=0.5)).to(cuda_device, torch.bfloat16)
         bias = _t(_rand(rng, 4 * cout, scale=0.1)).to(cuda_device) if "prologue" in kernel else None
         alpha = (_t(np.abs(_rand(rng, 4 * cin, scale=0.25))).to(cuda_device)
                  if "prologue" in kernel else None)
-        before = qconv_ft.qconv_ft10.launches
-        got = qconv_ft.qconv_ft10(x, w, bias, alpha)
-        again = qconv_ft.qconv_ft10(x, w, bias, alpha)
+        before = fwd.launches
+        got = fwd(x, w, bias, alpha)
+        again = fwd(x, w, bias, alpha)
         torch.cuda.synchronize()
-        assert qconv_ft.qconv_ft10.launches == before + 2
+        assert fwd.launches == before + 2
         assert got.shape == (b, 4, nf, t, cout) and torch.equal(got, again)
-        want = qconv_ft.qconv_stacked_plain(x.float(), w, bias, alpha, scheme=qconv_ft.SCHEME10)
-        torch.testing.assert_close(got.float(), want, **tol)
+        want = qconv_ft.qconv_stacked_plain(ref(x), w, bias, alpha, scheme=scheme)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
         return
     dz = _t(_rand(rng, b, 4, nf, t, cout, scale=0.5)).to(cuda_device, torch.bfloat16)
-    epi = kernel == "G epilogue"
+    epi = kernel.endswith("epilogue")
     z = _t(_rand(rng, b, 4, nf, t, cin, scale=0.5)).to(cuda_device, torch.bfloat16) if epi else None
     alpha = _t(_rand(rng, 4 * cin, scale=0.25)).to(cuda_device) if epi else None
-    before = qconv_dx.qconv_dx10.launches
-    dx, dalpha = qconv_dx.qconv_dx10(dz, w, z, alpha)
-    dx2, dalpha2 = qconv_dx.qconv_dx10(dz, w, z, alpha)
+    before = bwd.launches
+    dx, dalpha = bwd(dz, w, z, alpha)
+    dx2, dalpha2 = bwd(dz, w, z, alpha)
     torch.cuda.synchronize()
-    assert qconv_dx.qconv_dx10.launches == before + 2
+    assert bwd.launches == before + 2
     assert dx.shape == (b, 4, nf, t, cin) and torch.equal(dx, dx2)
-    want_dx, want_da = qconv_dx.qconv_dx_plain(
-        dz.float(), w, None if z is None else z.float(), alpha, scheme=qconv_ft.SCHEME10
-    )
-    torch.testing.assert_close(dx.float(), want_dx, **tol)
+    want_dx, want_da = qconv_dx.qconv_dx_plain(ref(dz), w, ref(z), alpha, scheme=scheme)
+    torch.testing.assert_close(dx.float(), want_dx.float(), **tol)
     if epi:
         assert torch.equal(dalpha, dalpha2)
         scale = want_da.abs().max().item()
         torch.testing.assert_close(dalpha, want_da, rtol=tol["rtol"], atol=tol["atol"] * scale)
     else:
         assert dalpha is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["A", "C", "B"])
+@pytest.mark.parametrize("p", range(8))
+def test_rank8_combos_bit_exact_on_card(cuda_device, kernel, p):
+    """The rank-8 kernels' input combos (``combo2`` in ``qtile.cuh``) equal
+    the plain versions' (``qconv_ft._combo``, ``qgemm8.combos8``, the JAX
+    package's rounding) bit for bit. The weight combos are product p's
+    identity (the conv's centre tap), the rest zero, so each output is
+    ``O8[b, p] * combo_p`` rounded once to bf16: every other term the
+    kernel adds is an exact zero."""
+    rng = np.random.default_rng(30 + p)
+    bf16 = torch.bfloat16
+    o8 = _t(qconv_ft._O8_F32).to(cuda_device)
+    c = 72  # past a 64-wide tile and a 32-deep chunk
+    if kernel == "B":
+        m = 300
+        x4 = _rand(rng, 4, m, c) * 2.0 ** rng.integers(-6, 6, (4, m, c))
+        x4 = _t(x4.astype(np.float32)).to(cuda_device, bf16)
+        wc8 = torch.zeros(8, c, c, device=cuda_device, dtype=bf16)
+        wc8[p] = torch.eye(c, device=cuda_device, dtype=bf16)
+        got = qgemm8.qgemm8_cuda(x4, wc8)
+        combo = qgemm8.combos8(x4)[p]
+    else:
+        x = _rand(rng, 2, 4, 5, 70, c) * 2.0 ** rng.integers(-6, 6, (2, 4, 5, 70, c))
+        x = _t(x.astype(np.float32)).to(cuda_device, bf16)
+        wc = torch.zeros(8, 3, 3, c, c, device=cuda_device, dtype=bf16)
+        wc[p, 1, 1] = torch.eye(c, device=cuda_device, dtype=bf16)
+        if kernel == "A":
+            got = qconv_ft.qconv_ft_cuda(x, wc)
+        else:
+            got = qconv_dx.qconv_dx_cuda(x, wc)[0]
+        combo = qconv_ft._combo(x, qconv_ft.SCHEME8.fwd_in[p])
+    torch.cuda.synchronize()
+    want = torch.stack([(o8[b, p] * combo.float()).to(bf16) for b in range(4)],
+                       dim=0 if kernel == "B" else 1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["qasr_qconv_ft8", "qasr_qconv_dx8"])
+@pytest.mark.parametrize("edit", ["rows swapped", "a zero coefficient"])
+def test_rank8_wg_loop_refuses_other_schemes_on_card(cuda_device, entry, edit):
+    """Kernels A and C in bf16 compile V8's terms in: handed a rank-8 table
+    whose terms differ, the entry returns cudaErrorInvalidValue (the wrapper
+    then raises); nothing falls back to another loop."""
+    from qasr_torch.ops.kernels import _build
+
+    lib = _build.load_library()
+    v = qconv_ft._V8_F32.copy()
+    if edit == "rows swapped":
+        v[[0, 1]] = v[[1, 0]]
+    else:
+        v[2, np.flatnonzero(v[2])[0]] = 0.0
+    v = np.ascontiguousarray(v)
+    o = qconv_ft._O8_F32
+    b, nf, t, ch = 1, 3, 64, 32
+    x = torch.ones(b, 4, nf, t, ch, device=cuda_device, dtype=torch.bfloat16)
+    wc = torch.zeros(8, 3, 3, ch, ch, device=cuda_device, dtype=torch.bfloat16)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    vp, op = v.ctypes.data_as(ctypes.c_void_p), o.ctypes.data_as(ctypes.c_void_p)
+    if entry == "qasr_qconv_ft8":
+        err = lib.qasr_qconv_ft8(x.data_ptr(), wc.data_ptr(), None, None, out.data_ptr(),
+                                 b, nf, t, ch, ch, 3, 3, 1, vp, op, stream)
+    else:
+        err = lib.qasr_qconv_dx8(x.data_ptr(), wc.data_ptr(), None, None, out.data_ptr(),
+                                 None, None, b, nf, t, ch, ch, 3, 3, 1, vp, op, stream)
+    assert err == 1  # cudaErrorInvalidValue
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _build.check(lib, err, entry)
+    # the V8 table itself launches
+    err = lib.qasr_qconv_ft8(x.data_ptr(), wc.data_ptr(), None, None, out.data_ptr(),
+                             b, nf, t, ch, ch, 3, 3, 1,
+                             qconv_ft._V8_F32.ctypes.data_as(ctypes.c_void_p), op, stream)
+    torch.cuda.synchronize()
+    assert err == 0 and not out.any()
 
 
 @pytest.mark.cuda
