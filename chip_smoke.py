@@ -331,8 +331,9 @@ def _qlstm_train_batch(cfg):
 def _wg_registers(log: str) -> list[str]:
     """ptxas's registers and spill stores of each instantiation of the bf16
     wgmma loops (``qconv_wg_kernel``: A, C, F, G; ``qgemm_bf16_kernel``: B,
-    H), from an ``nvcc -Xptxas -v`` log, as "loop<P, epilogue> N registers,
-    S bytes spilled"."""
+    H) and of the recurrence's kernels (``qlstm_scan8_kernel``: D,
+    ``qlstm_scan8_bwd_kernel``: E, bf16 and f32), from an ``nvcc -Xptxas
+    -v`` log, as "loop<P, epilogue> N registers, S bytes spilled"."""
     import re
 
     out, name, spill = [], None, None
@@ -341,6 +342,11 @@ def _wg_registers(log: str) -> list[str]:
                       r"ILi(\d+)E(?:NS_\d+(\w+?)I)?", line)
         if m:
             name = f"{m.group(1)}<{m.group(2)}{', ' + m.group(3) if m.group(3) else ''}>"
+            continue
+        m = re.search(r"Compiling entry function '\S*?\d(qlstm_scan8_kernel|qlstm_scan8_bwd_kernel)"
+                      r"I(13__nv_bfloat16|f)E", line)
+        if m:
+            name = f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}>"
             continue
         if name and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
@@ -1657,10 +1663,12 @@ def time_kernels(tree: str) -> int:
     K2304 for H), each as the wrapper's call and as the launcher alone on
     ready inputs, and ``torch.matmul`` on the Hamilton-expanded weight for
     B at config 4's M16384 K512 N256 and B's dx at M4096 N256 -> K256;
-    kernel I at phase 9's three shapes; and the rank-8, 10-product and
-    ``use_pallas`` train steps (B16 x T256) and config 4's (B32 x T512,
-    ragged). One JSON line of ms, and how many outputs of A, C and B in the
-    rank-8 combo check (:func:`_combo_mismatches`) differ (I's
+    kernel I at phase 9's three shapes; kernels D and E at config 4's shape
+    (T512 B32 H256, both directions, ragged lengths), the launchers alone on
+    ready inputs; and the rank-8, 10-product and ``use_pallas`` train steps
+    (B16 x T256), config 4's (B32 x T512, ragged) and config 4's encoder
+    forward (B32 x T512). One JSON line of ms, and how many outputs of A, C
+    and B in the rank-8 combo check (:func:`_combo_mismatches`) differ (I's
     entries name its split S where the tree has one). Run for two trees in
     turns (parent, change, change, parent) in one call on the card, it
     compares two commits' kernels; each tree builds its own at first use."""
@@ -1671,7 +1679,10 @@ def time_kernels(tree: str) -> int:
     import qasr_torch
     from qasr_torch import qconv_dx8, qconv_ft8
     from qasr_torch.configs import get_config
-    from qasr_torch.ops.kernels import qgemm
+    from qasr_torch.infer import Transcriber
+    from qasr_torch.models import build_model
+    from qasr_torch.ops.initializers import quaternion_init
+    from qasr_torch.ops.kernels import qgemm, qlstm_scan
     from qasr_torch.ops.kernels.qconv_dx import conj_transpose_w, qconv_dx10, qconv_dx_cuda
     from qasr_torch.ops.kernels.qconv_ft import SCHEME8, SCHEME10, qconv_ft10, qconv_ft_cuda
     from qasr_torch.ops.kernels.qgemm8 import (
@@ -1782,6 +1793,35 @@ def time_kernels(tree: str) -> int:
         times[f"qgemm10_dw M{m} K{k} N{n}{split}"] = _time_ms(lambda: qgemm.qgemm10_dw(xg, dyg),
                                                               5 if m > 4096 else 20, 3)
         del xg, dyg
+    torch.cuda.empty_cache()
+    # kernels D and E at config 4's shape, the launchers alone; E on the
+    # residuals of D's plain version
+    cfg4 = get_config("librispeech_qlstm")
+    t4, b4, h4 = cfg4.data.bucket_sizes[0], cfg4.data.batch_size, cfg4.model.lstm_features
+    lens = torch.randint(t4 // 4, t4 + 1, (b4,), generator=g, device=dev)
+    lens[0] = t4
+    xz = rnd(t4, 2, b4, 16 * h4, scale=0.5).to(bf16)
+    dhs = rnd(t4, 2, b4, 4 * h4).to(bf16)
+    wc = torch.stack([combine_weights(quaternion_init(
+        (4, h4, 4 * h4), generator=torch.Generator().manual_seed(SEED + d), device=dev))
+        for d in range(2)]).to(bf16)
+    _, cs, gates = qlstm_scan.qlstm_scan_fwd_plain(xz, wc, lens)
+    shape = f"T{t4} B{b4} H{h4} D2 ragged"
+    times[f"qlstm_scan8 {shape} alone"] = _time_ms(
+        lambda: qlstm_scan.qlstm_scan_cuda(xz, wc, lens), 20, 3)
+    times[f"qlstm_scan8_bwd {shape} alone"] = _time_ms(
+        lambda: qlstm_scan.qlstm_scan_bwd_cuda(wc, gates, cs, dhs, lens), 20, 3)
+    del xz, dhs, wc, cs, gates
+    # config 4's encoder forward, as phase 7 times it
+    params = build_model(cfg4, generator=torch.Generator().manual_seed(SEED),
+                         device=dev).state_dict()
+    enc = Transcriber(cfg=cfg4, params=params, device=dev).model
+    with torch.no_grad():
+        feats = rnd(b4, t4, cfg4.data.n_mels, 4)
+        full = torch.full((b4,), t4, device=dev)
+        times[f"encoder forward config 4 B{b4} T{t4}"] = _time_ms(
+            lambda: enc(feats, lengths=full), 5, 2)
+    del params, enc, feats
     torch.cuda.empty_cache()
     tcfg8 = get_config("timit_qcnn").override(**TRAIN_OVERRIDES)
     tcfg = tcfg8.override(**{"model.op_variant": "fused", "model.dense_variant": "pallas"})
@@ -2182,7 +2222,7 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description="Smoke run of qasr_torch on one CUDA card.")
     ap.add_argument("--time-kernels", metavar="TREE",
-                    help="only time kernels A, B, C, F, G, H and I and the train steps of "
-                         "the qasr_torch under TREE")
+                    help="only time kernels A, B, C, D, E, F, G, H and I, the train steps "
+                         "and config 4's encoder forward of the qasr_torch under TREE")
     args = ap.parse_args()
     sys.exit(main() if args.time_kernels is None else time_kernels(args.time_kernels))

@@ -1,5 +1,6 @@
 // Shared machinery of the quaternion conv and GEMM kernels (qconv.cuh,
-// qgemm.cuh; the QLSTM kernels use its tiles and the rank-8 scheme):
+// qgemm.cuh; the QLSTM kernels use its tiles, the rank-8 scheme, its
+// mbarriers and the direction barrier):
 // cp.async staging, the per-product accumulation on the staged tiles, and
 // the recombination into the four output components; and, at the end, the
 // Hopper pieces of the bf16 wgmma loops (mbarriers, TMA boxes and their
@@ -432,8 +433,9 @@ inline int reduce_splits(const float* part, T* out, int splits, size_t count,
 }
 
 // ---------------------------------------------------------------------------
-// Hopper (bf16 main loops of qgemm.cuh and qconv.cuh): shared-memory
-// barriers, TMA, ldmatrix, wgmma
+// Hopper (bf16 main loops of qgemm.cuh and qconv.cuh; the QLSTM kernels'
+// barriers): shared-memory barriers, a barrier across blocks, TMA, ldmatrix,
+// wgmma
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -475,6 +477,30 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
     if (done) return;
     if (spin > (1ll << 26)) __trap();
   }
+}
+
+// A barrier of the blocks of one group sharing `counter` (the QLSTM kernels
+// D and E: the blocks of one direction): the n-th call returns once every
+// block of the group has made its n-th call (target = n x the group's
+// blocks; the counter starts at 0). Every write before it is visible to
+// every block after it. A wait that never ends (a fault) traps instead of
+// hanging the card.
+__device__ inline void dir_barrier(unsigned* counter, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // the block's writes (ordered before by the block barrier) released,
+    // then the arrival without waiting for its answer
+    asm volatile("fence.acq_rel.gpu;\nred.relaxed.gpu.global.add.u32 [%0], %1;\n" ::"l"(counter),
+                 "r"(1u)
+                 : "memory");
+    for (long long spin = 0;; ++spin) {
+      unsigned v;
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(counter) : "memory");
+      if (v >= target) break;
+      if (spin > (1ll << 25)) __trap();
+    }
+  }
+  __syncthreads();
 }
 
 // a box of the tensor map (coordinates innermost first) into this block's

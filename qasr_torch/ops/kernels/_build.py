@@ -52,11 +52,11 @@ _ENTRIES = {
     "qasr_qconv_dx10": [_P] * 7 + [_I] * 8 + [_P, _P, _P],
     # B, F, T
     "qasr_qconv_dx8_partial_rows": [_I] * 3,
-    # xz, wc8, lengths, hs, cs, gates, T, D, B, H, dtype, v8, o8, stream
-    "qasr_qlstm_scan8": [_P] * 6 + [_I] * 5 + [_P] * 3,
-    # gates, cs, dhs, wc8, lengths, dz, xbuf, dh, dc, T, D, B, H, dtype, v8, o8,
-    # stream
-    "qasr_qlstm_scan8_bwd": [_P] * 9 + [_I] * 5 + [_P] * 3,
+    # xz, wc8, lengths, hs, cs, gates, xc, bar, T, D, B, H, dtype, v8, o8, stream
+    "qasr_qlstm_scan8": [_P] * 8 + [_I] * 5 + [_P] * 3,
+    # gates, cs, dhs, wc8, lengths, dz, part, dh, dc, bar, T, D, B, H, dtype, v8,
+    # o8, stream
+    "qasr_qlstm_scan8_bwd": [_P] * 10 + [_I] * 5 + [_P] * 3,
     # x, y, part, out, M, K, N, splits, rows, dtype, stream
     "qasr_dgt": [_P] * 4 + [_I] * 6 + [_P],
 }

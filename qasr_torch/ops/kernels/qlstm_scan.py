@@ -9,7 +9,9 @@ recurrence in one call with the rank-8 recurrent weights resident in VMEM.
 On Hopper no SM holds those weights (8.4 MB in bf16 at H=256), so both
 kernels are persistent and cooperative: each block keeps the weights of a
 few hidden indices of one direction in shared memory for the whole scan,
-and one grid barrier a step exchanges what every block needs. The plain
+and one barrier a step among a direction's blocks exchanges what they need
+(kernel D: the V8 combos of h in bf16, h in f32; kernel E: the blocks' f32
+partials of the recurrent gradient). The plain
 versions are ``_fwd_xla`` and ``_bwd_xla`` step by step: the same math
 (f32 within a step; h and c carried in the storage dtype forward, dh and dc
 in f32 backward) and the same layouts and outputs.
@@ -55,6 +57,9 @@ _V8_COLS = tuple(
 
 # hidden indices a kernel D block owns (kJ in csrc/qlstm_scan8.cu)
 _J = 4
+# hidden indices a kernel E block owns, by dtype (BwdOps<T>::kJ in
+# csrc/qlstm_scan8_bwd.cu)
+_BWD_J = {torch.bfloat16: 8, torch.float32: 4}
 H100_SMS = 132  # SMs of an H100 SXM: the bound where no card is at hand
 
 
@@ -78,8 +83,8 @@ def supported(hidden: int, dtype=torch.bfloat16, sms: int = H100_SMS) -> bool:
     16..256; 272 is the first refused (136 blocks). Kernel E's grid is half
     of D's in bf16 (8 hidden indices a block) and the same in f32, so D's
     bound holds for both. A block's shared memory admits more than the grid
-    does at both dtypes and in both kernels (E's: H <= 276 in bf16, 294 in
-    f32, past any Hopper card's 132 SMs); the launchers check it exactly.
+    does at both dtypes and in both kernels (D's: H <= 288, E's: H <= 416,
+    past any Hopper card's 132 SMs); the launchers check it exactly.
     """
     return dtype in _DTYPE_CODE and hidden >= 16 and hidden % 16 == 0 and 2 * hidden // _J <= sms
 
@@ -192,11 +197,18 @@ def qlstm_scan_cuda(
     gates = torch.empty_like(xz_gm)
     if hs.numel() == 0:
         return hs, cs, gates
+    # scratch: bf16 exchanges the V8 combos of h (ping-pong by the parity of
+    # t, rows padded by 8), f32 exchanges hs itself; the direction barriers'
+    # counters, zeroed
+    xc = (torch.empty((2, d, 8, b, hid + 8), dtype=xz_gm.dtype, device=xz_gm.device)
+          if xz_gm.dtype == torch.bfloat16 else None)
+    bar = torch.zeros(d, dtype=torch.int32, device=xz_gm.device)
     with torch.cuda.device(xz_gm.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.qasr_qlstm_scan8(
             xz_gm.data_ptr(), wc8.data_ptr(), None if lens is None else lens.data_ptr(),
-            hs.data_ptr(), cs.data_ptr(), gates.data_ptr(), t, d, b, hid,
+            hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
+            None if xc is None else xc.data_ptr(), bar.data_ptr(), t, d, b, hid,
             _DTYPE_CODE[xz_gm.dtype],
             _V8_F32.ctypes.data_as(ctypes.c_void_p),
             _O8_F32.ctypes.data_as(ctypes.c_void_p),
@@ -281,10 +293,12 @@ def qlstm_scan_bwd_cuda(
     """Launch kernel E: ``gates [T, 2, B, 16H]``, ``cs`` and ``dhs [T, 2, B,
     4H]``, ``wc8 [2, 8, H, 4H]`` on one CUDA device, contiguous, all f32 or
     all bf16; ``lengths [B]`` or None. Returns ``dz`` like ``gates``. The
-    wrapper allocates the exchange buffer ``[2, D, 8, B, 4H]`` (ping-pong by
-    the parity of t) and the f32 carry ``[2, D, B, 4H]`` as scratch. Raises
-    on anything the kernel does not take, when the cooperative grid cannot
-    be co-resident, or when it fails to build or launch."""
+    wrapper allocates the scratch: the blocks' f32 partials of the
+    recurrent gradient ``[2, D, H / kJ, B, 4H]`` (ping-pong by the parity of
+    t; kJ = 8 in bf16, 4 in f32), the f32 carry ``[2, D, B, 4H]`` of rows
+    past the first 32, and the two direction barriers' counters, zeroed.
+    Raises on anything the kernel does not take, when the cooperative grid
+    cannot be co-resident, or when it fails to build or launch."""
     if gates.ndim != 4 or gates.shape[-1] % 16:
         raise ValueError(f"expected gates [T, D, B, 16H], got {tuple(gates.shape)}")
     t, d, b, c16 = gates.shape
@@ -313,14 +327,17 @@ def qlstm_scan_bwd_cuda(
     dz = torch.empty_like(gates)
     if dz.numel() == 0:
         return dz
-    xbuf = torch.empty((2, d, 8, b, 4 * hid), dtype=dt, device=gates.device)
+    part = torch.empty((2, d, hid // _BWD_J[dt], b, 4 * hid), dtype=torch.float32,
+                       device=gates.device)
     carry = torch.empty((2, d, b, 4 * hid), dtype=torch.float32, device=gates.device)
+    bar = torch.zeros(d, dtype=torch.int32, device=gates.device)
     with torch.cuda.device(gates.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.qasr_qlstm_scan8_bwd(
             gates.data_ptr(), cs.data_ptr(), dhs.data_ptr(), wc8.data_ptr(),
-            None if lens is None else lens.data_ptr(), dz.data_ptr(), xbuf.data_ptr(),
-            carry[0].data_ptr(), carry[1].data_ptr(), t, d, b, hid, _DTYPE_CODE[dt],
+            None if lens is None else lens.data_ptr(), dz.data_ptr(), part.data_ptr(),
+            carry[0].data_ptr(), carry[1].data_ptr(), bar.data_ptr(), t, d, b, hid,
+            _DTYPE_CODE[dt],
             _V8_F32.ctypes.data_as(ctypes.c_void_p),
             _O8_F32.ctypes.data_as(ctypes.c_void_p),
             stream,

@@ -1,5 +1,5 @@
-"""Shared machinery of the main-loop ablations (``ablate_qgemm``,
-``ablate_qconv``): a version of the kernel library built by ``nvcc`` from
+"""Shared machinery of the ablations (``ablate_qgemm``, ``ablate_qconv``,
+``ablate_scan``): a version of the kernel library built by ``nvcc`` from
 copies of ``csrc``'s headers and of some sources, patched, under
 ``qasr_torch/_build/<tool>/<i>/``; its registers; CUDA-event times; and the
 run of every version in a process of its own (kernels that use TMA, loaded

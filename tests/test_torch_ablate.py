@@ -1,13 +1,14 @@
-"""The main-loop ablations' patches (``qasr_torch/tools/ablate_qgemm.py``,
-``ablate_qconv.py``) still apply to the kernels' sources: every version's
-edits find their lines in ``csrc`` and change them. (Building and timing
-the versions needs the card.)"""
+"""The ablations' patches (``qasr_torch/tools/ablate_qgemm.py``,
+``ablate_qconv.py``, ``ablate_scan.py``) still apply to the kernels'
+sources: every version's edits find their lines in ``csrc`` and change
+them. (Building and timing the versions needs the card.)"""
 
 import pytest
 
-from qasr_torch.tools import _ablate, ablate_qconv, ablate_qgemm
+from qasr_torch.tools import _ablate, ablate_qconv, ablate_qgemm, ablate_scan
 
-CASES = [(tool, name) for tool in (ablate_qgemm, ablate_qconv) for name in tool.VERSIONS]
+CASES = [(tool, name) for tool in (ablate_qgemm, ablate_qconv, ablate_scan)
+         for name in tool.VERSIONS]
 
 
 @pytest.mark.parametrize("tool,name", CASES,

@@ -173,9 +173,12 @@ def test_qgemm8_fn_dw_branches_on_card(cuda_device, m, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-# ragged B and T; B=40 spans several row tiles; H=256 is config 4's full grid
+# ragged B and T; B=40 spans several row tiles; H=256 is config 4's full grid;
+# H=16 the smallest grid (kernel E: two blocks a direction), H=48 the
+# products' partial warps
 @pytest.mark.parametrize("b,t,hid,use_lengths",
-                         [(3, 17, 32, True), (3, 17, 32, False), (40, 9, 48, True), (2, 5, 256, True)])
+                         [(3, 17, 32, True), (3, 17, 32, False), (40, 9, 48, True), (2, 5, 256, True),
+                          (40, 7, 16, True), (40, 6, 48, False), (40, 5, 256, True)])
 def test_qlstm_scan_kernel_matches_plain_on_card(cuda_device, dtype, b, t, hid, use_lengths):
     """Kernel D: hs, cs and gates against its plain version on signed inputs,
     in the same dtype (both carry h and c in it); two runs give the same
@@ -233,9 +236,12 @@ def test_qlstm_scan_kernel_refuses_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-# ragged B and T; B=40 spans two row tiles; H=256 is config 4's full grid
+# ragged B and T; B=40 spans two row tiles; H=256 is config 4's full grid;
+# H=16 the smallest grid (two blocks a direction), H=48 the products'
+# partial warps
 @pytest.mark.parametrize("b,t,hid,use_lengths",
-                         [(3, 17, 32, True), (3, 17, 32, False), (40, 9, 48, True), (2, 5, 256, True)])
+                         [(3, 17, 32, True), (3, 17, 32, False), (40, 9, 48, True), (2, 5, 256, True),
+                          (40, 7, 16, True), (40, 6, 48, False), (40, 5, 256, True)])
 def test_qlstm_scan_bwd_kernel_matches_plain_on_card(cuda_device, dtype, b, t, hid, use_lengths):
     """Kernel E: dz against its plain version on the residuals of a forward,
     signed dhs, in the same dtype (both carry dh and dc in f32 and round
