@@ -71,10 +71,10 @@ few):
               with its split S)
  10. dgt and  kernel J (the row-contracting x^T y of benchmarks/probe_dgt.py)
      real CNN against its plain version at the probe's shape (M 65536, K = N
-              = 256), both modes, f32 and bf16, the same bits across modes
-              and runs (gated); the probe (``qasr_torch.tools.probe_dgt``) in
-              this process with its launches counted, and once as a
-              subprocess; ``timit_real_cnn`` (config 3, the real-CNN
+              = 256) and a ragged one (M 65576, K 264, N 136), both modes,
+              f32 and bf16, the same bits across modes and runs (gated);
+              the probe (``qasr_torch.tools.probe_dgt``) in this process
+              with its launches counted, and once as a subprocess; ``timit_real_cnn`` (config 3, the real-CNN
               baseline) at full width: served greedy and beam with its bf16
               logits against f32, twenty steps, one ``train()`` whose
               checkpoint serves (gated; no port kernel runs); then, not
@@ -82,7 +82,7 @@ few):
               (``vs_baseline``) with a torch.profiler breakdown of one
               real-CNN step, ``conv_roofline`` (block path and
               ``use_pallas``) and kernel J against its plain version, its
-              bound and ``torch.matmul``
+              bound and ``torch.matmul`` (CUDA events and graph replays)
 
 then one JSON line with the per-kernel results, the nvidia-smi line and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -202,6 +202,29 @@ def _alternating(kernel_fn, plain_fn, n: int, n_plain: int | None = None,
     k2 = _time_ms(kernel_fn, n, warm)
     p2 = _time_ms(plain_fn, n_plain, warm)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _graph_ms(fn, n: int, reps: int = 5) -> float:
+    """ms a call of ``fn`` in replays of one CUDA graph of ``n`` calls (the
+    host's launch cost out): the least of ``reps`` replays on CUDA events,
+    after a warm call and a warm replay."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1) / n)
+    return best
 
 
 def _bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -331,9 +354,10 @@ def _qlstm_train_batch(cfg):
 def _wg_registers(log: str) -> list[str]:
     """ptxas's registers and spill stores of each instantiation of the bf16
     wgmma loops (``qconv_wg_kernel``: A, C, F, G; ``qgemm_bf16_kernel``: B,
-    H) and of the recurrence's kernels (``qlstm_scan8_kernel``: D,
-    ``qlstm_scan8_bwd_kernel``: E, bf16 and f32), from an ``nvcc -Xptxas
-    -v`` log, as "loop<P, epilogue> N registers, S bytes spilled"."""
+    H; ``dgt_wg_kernel``: J, rows and cols modes) and of the recurrence's
+    kernels (``qlstm_scan8_kernel``: D, ``qlstm_scan8_bwd_kernel``: E, bf16
+    and f32), from an ``nvcc -Xptxas -v`` log, as "loop<P, epilogue> N
+    registers, S bytes spilled"."""
     import re
 
     out, name, spill = [], None, None
@@ -347,6 +371,10 @@ def _wg_registers(log: str) -> list[str]:
                       r"I(13__nv_bfloat16|f)E", line)
         if m:
             name = f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}>"
+            continue
+        m = re.search(r"Compiling entry function '\S*?dgt_wg_kernelILb([01])E", line)
+        if m:
+            name = f"dgt_wg_kernel<{'rows' if m.group(1) == '1' else 'cols'}>"
             continue
         if name and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
@@ -1471,8 +1499,8 @@ def phase9_fast10(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: list) -
 def phase10_dgt_real_cnn(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: list) -> dict:
     """Kernel J and the real-CNN baseline. Kernel J (the row-contracting
     ``x^T y`` of ``benchmarks/probe_dgt.py``) against its plain version at
-    the probe's shape, both modes, f32 and bf16, the same bits across modes
-    and runs (gated); its main path, ``qasr_torch.tools.probe_dgt``, in this
+    the probe's shape and a ragged one, both modes, f32 and bf16, the same
+    bits across modes and runs (gated); its main path, ``qasr_torch.tools.probe_dgt``, in this
     process with its launches counted and once as a subprocess. Config 3,
     ``timit_real_cnn``, at full width: served greedy and beam, twenty steps,
     one ``train()`` whose checkpoint serves (gated; it launches none of the
@@ -1480,7 +1508,8 @@ def phase10_dgt_real_cnn(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: 
     QCNN's (``vs_baseline``) and a torch.profiler breakdown of one of its
     steps, ``conv_roofline`` on the block path and under
     ``use_pallas``, and kernel J's time against its plain version, its bound
-    and ``torch.matmul``. Returns kernel J's entry of the kernels line."""
+    and ``torch.matmul``, on CUDA events and in CUDA-graph replays. Returns
+    kernel J's entry of the kernels line."""
     from qasr_torch.configs import get_config
     from qasr_torch.infer import Transcriber
     from qasr_torch.models import build_model
@@ -1494,7 +1523,8 @@ def phase10_dgt_real_cnn(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: 
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     m, k, n = probe_dgt.M, probe_dgt.K, probe_dgt.N
 
-    # kernel J at the probe's shape against its plain version, gated as in
+    # kernel J at the probe's shape, and at a ragged one (M past a chunk, K
+    # and N over partial tiles), against its plain version, gated as in
     # phase 3: f32 differs in the summation order only (65536 terms a sum);
     # bf16 sums the exact products in f32 as the plain version does and
     # rounds once at the end (held against the f32 plain result, so the
@@ -1502,28 +1532,31 @@ def phase10_dgt_real_cnn(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: 
     # tensor cores (bf16) or the CUDA cores (f32) the same operands in the
     # same order: the same bits; and the split of M is summed in fixed
     # order: the same bits twice.
-    x32 = torch.randn((m, k), generator=g, device=dev)
-    y32 = torch.randn((m, n), generator=g, device=dev)
     j_err = None
-    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
-        x, y = x32.to(dtype), y32.to(dtype)
-        x_t = x.T.contiguous()
-        dname = str(dtype)[6:]
-        ref = dgt_plain(x.float(), y.float(), mode="dgt")
-        got = dgt(x, y, mode="dgt")
-        for mode, xx in (("dgt", x), ("plain", x_t)):
-            out = dgt(xx, y, mode=mode)
-            err = _errors(out, ref)
-            _report(f"dgt M{m} K{k} N{n} {dname} mode={mode}", err, tol, phase=10)
-            if not torch.equal(out, got):
-                raise RuntimeError(f"dgt {dname}: mode {mode} differs in bits from mode dgt")
-            if (dtype, mode) == (torch.bfloat16, "dgt"):
-                j_err = err["max_abs_err"]
-        if not torch.equal(dgt(x, y, mode="dgt"), got):
-            raise RuntimeError(f"dgt {dname} differs between two runs on the same inputs")
-    print(f"phase 10 parity dgt: the two modes and two runs give the same bits (f32, bf16)",
-          flush=True)
-    del x32, y32
+    for mm, kk, nn in ((m, k, n), (m + 40, 264, 136)):
+        x32 = torch.randn((mm, kk), generator=g, device=dev)
+        y32 = torch.randn((mm, nn), generator=g, device=dev)
+        for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+            x, y = x32.to(dtype), y32.to(dtype)
+            x_t = x.T.contiguous()
+            dname = str(dtype)[6:]
+            ref = dgt_plain(x.float(), y.float(), mode="dgt")
+            got = dgt(x, y, mode="dgt")
+            for mode, xx in (("dgt", x), ("plain", x_t)):
+                out = dgt(xx, y, mode=mode)
+                err = _errors(out, ref)
+                _report(f"dgt M{mm} K{kk} N{nn} {dname} mode={mode}", err, tol, phase=10)
+                if not torch.equal(out, got):
+                    raise RuntimeError(f"dgt M{mm} K{kk} N{nn} {dname}: mode {mode} differs in "
+                                       f"bits from mode dgt")
+                if (dtype, mode, mm) == (torch.bfloat16, "dgt", m):
+                    j_err = err["max_abs_err"]
+            if not torch.equal(dgt(x, y, mode="dgt"), got):
+                raise RuntimeError(f"dgt M{mm} K{kk} N{nn} {dname} differs between two runs on "
+                                   f"the same inputs")
+        del x32, y32, x, y, x_t
+    print(f"phase 10 parity dgt: the two modes and two runs give the same bits (f32, bf16; "
+          f"M{m} K{k} N{n} and M{m + 40} K264 N136)", flush=True)
 
     # kernel J's main path: the probe, in this process (its launches counted)
     # and as a user runs it
@@ -1630,6 +1663,10 @@ def phase10_dgt_real_cnn(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: 
                                  lambda: dgt_plain(x, y, mode="dgt"), 50)
     j_mode_plain = _time_ms(lambda: dgt(x_t, y, mode="plain"), 50)
     lib_j = _time_ms(lambda: torch.matmul(x.T, y), 50)
+    # and in CUDA-graph replays (the host's launch cost out), beside the library
+    j_graph = {"dgt": _graph_ms(lambda: dgt(x, y, mode="dgt"), 30),
+               "plain": _graph_ms(lambda: dgt(x_t, y, mode="plain"), 30),
+               "torch.matmul(x.T, y)": _graph_ms(lambda: torch.matmul(x.T, y), 30)}
     bound_j = _bound(2 * m * k * n, _nbytes(x, y) + k * n * x.element_size())
     print(f"phase 10 timing on {smi}: train step B16xT256 bf16 real CNN {step_r:.3f} ms "
           f"({audio_s / step_r * 1e3:.1f} audio-s/s), rank-8 QCNN {step_q:.3f} ms "
@@ -1641,7 +1678,8 @@ def phase10_dgt_real_cnn(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: 
                       f"{r['qconv_vs_expanded_real']:.3f}" for arm, r in roof.items())
           + f"; dgt M{m} K{k} N{n} bf16 mode dgt {j_ms:.4f} ms, mode plain {j_mode_plain:.4f} "
           f"ms, plain version {j_plain:.4f} ms, torch.matmul(x.T, y) {lib_j:.4f} ms, bound "
-          f"{bound_j[0]:.4f} ms ({bound_j[1]})", flush=True)
+          f"{bound_j[0]:.4f} ms ({bound_j[1]}); in CUDA-graph replays "
+          + ", ".join(f"{arm} {t:.5f} ms" for arm, t in j_graph.items()), flush=True)
     print(prof_r, flush=True)
     return {"name": "dgt", "route": "cuda", "source": "qasr_torch/csrc/dgt.cu",
             "replaces": "benchmarks/probe_dgt.py:23", "launches": probe_counts["dgt"],
@@ -1663,7 +1701,9 @@ def time_kernels(tree: str) -> int:
     K2304 for H), each as the wrapper's call and as the launcher alone on
     ready inputs, and ``torch.matmul`` on the Hamilton-expanded weight for
     B at config 4's M16384 K512 N256 and B's dx at M4096 N256 -> K256;
-    kernel I at phase 9's three shapes; kernels D and E at config 4's shape
+    kernel I at phase 9's three shapes; kernel J at the probe's shape in
+    both modes, on CUDA events and in CUDA-graph replays, with
+    ``torch.matmul(x.T, y)`` beside it; kernels D and E at config 4's shape
     (T512 B32 H256, both directions, ragged lengths), the launchers alone on
     ready inputs; and the rank-8, 10-product and ``use_pallas`` train steps
     (B16 x T256), config 4's (B32 x T512, ragged) and config 4's encoder
@@ -1683,6 +1723,7 @@ def time_kernels(tree: str) -> int:
     from qasr_torch.models import build_model
     from qasr_torch.ops.initializers import quaternion_init
     from qasr_torch.ops.kernels import qgemm, qlstm_scan
+    from qasr_torch.ops.kernels.dgt import dgt
     from qasr_torch.ops.kernels.qconv_dx import conj_transpose_w, qconv_dx10, qconv_dx_cuda
     from qasr_torch.ops.kernels.qconv_ft import SCHEME8, SCHEME10, qconv_ft10, qconv_ft_cuda
     from qasr_torch.ops.kernels.qgemm8 import (
@@ -1794,6 +1835,16 @@ def time_kernels(tree: str) -> int:
                                                               5 if m > 4096 else 20, 3)
         del xg, dyg
     torch.cuda.empty_cache()
+    # kernel J at the probe's shape, both modes: the wrapper's call on CUDA
+    # events and in CUDA-graph replays, and torch.matmul(x.T, y) beside it
+    xj, yj = rnd(65536, 256).to(bf16), rnd(65536, 256).to(bf16)
+    xj_t = xj.T.contiguous()
+    for arm, call in (("mode dgt", lambda: dgt(xj, yj, mode="dgt")),
+                      ("mode plain", lambda: dgt(xj_t, yj, mode="plain")),
+                      ("library", lambda: torch.matmul(xj.T, yj))):
+        times[f"dgt M65536 K256 N256 {arm}"] = _time_ms(call, 50, 3)
+        times[f"dgt M65536 K256 N256 {arm} graph"] = _graph_ms(call, 30)
+    del xj, yj, xj_t
     # kernels D and E at config 4's shape, the launchers alone; E on the
     # residuals of D's plain version
     cfg4 = get_config("librispeech_qlstm")
@@ -2222,7 +2273,7 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser(description="Smoke run of qasr_torch on one CUDA card.")
     ap.add_argument("--time-kernels", metavar="TREE",
-                    help="only time kernels A, B, C, D, E, F, G, H and I, the train steps "
-                         "and config 4's encoder forward of the qasr_torch under TREE")
+                    help="only time kernels A to J, the train steps and config 4's encoder "
+                         "forward of the qasr_torch under TREE")
     args = ap.parse_args()
     sys.exit(main() if args.time_kernels is None else time_kernels(args.time_kernels))

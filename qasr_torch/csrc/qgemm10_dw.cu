@@ -190,8 +190,8 @@ struct DwProducts<__nv_bfloat16> {
   __device__ void chunk(const T* xs, const T* ds) {
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     const int wm = warp / 4, wn = warp % 4;
-    // ldmatrix row addresses as ProductAT's: B (dy) rows m, A (x^T) rows m
-    // read transposed
+    // ldmatrix row addresses: B (dy) rows m; A (x^T) rows m read
+    // transposed, the four 8 x 8 matrices in the A registers' order
     const int lr = lane % 16, lc = (lane / 16) * 8;
     const int am = (lane / 16) * 8 + lane % 8, ak = ((lane / 8) % 2) * 8;
 #pragma unroll

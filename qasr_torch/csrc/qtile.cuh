@@ -1,6 +1,7 @@
 // Shared machinery of the quaternion conv and GEMM kernels (qconv.cuh,
 // qgemm.cuh; the QLSTM kernels use its tiles, the rank-8 scheme, its
-// mbarriers and the direction barrier):
+// mbarriers and the direction barrier; kernel J its TMA, ldmatrix and wgmma
+// pieces):
 // cp.async staging, the per-product accumulation on the staged tiles, and
 // the recombination into the four output components; and, at the end, the
 // Hopper pieces of the bf16 wgmma loops (mbarriers, TMA boxes and their
@@ -289,10 +290,11 @@ struct Product<T, KC, true> {
   }
 };
 
-// The product xc^T . dyc over one chunk of KC rows m (kernel J): A =
-// xc^T, read from xc [KC][kLdb] (rows m) transposed; B = dyc [KC][kLdb] as
-// Product's B. The accumulator layout is Product's, so row(j) indexes the
-// output's rows (K) and col(j) its columns (N).
+// The product xc^T . dyc over one chunk of KC rows m (kernel J in f32; its
+// bf16 loop is dgt.cu's own): A = xc^T, read from xc [KC][kLdb] (rows m)
+// transposed; B = dyc [KC][kLdb] as Product's B. The accumulator layout is
+// Product's, so row(j) indexes the output's rows (K) and col(j) its columns
+// (N).
 template <typename T, int KC, bool TC = Elem<T>::kTensorCore>
 struct ProductAT;
 
@@ -309,34 +311,6 @@ struct ProductAT<T, KC, false> : Product<T, KC, false> {
 #pragma unroll
       for (int j = 0; j < kPerThread; ++j)
         this->acc[j] += Elem<T>::to_f(xc[k * LD + r0 + j * dr]) * bv;
-    }
-  }
-};
-
-// bf16 on the tensor cores, the warp tiling of Product<T, KC, true>. The A
-// fragment (16 rows of K x 16 of M) comes from xc's rows m by
-// ldmatrix.trans: lane l addresses row (l/16)*8 + l%8 of the 16 m rows, at
-// K offset ((l/8)%2)*8, so the four 8x8 matrices arrive as (K 0-7, M 0-7),
-// (K 8-15, M 0-7), (K 0-7, M 8-15), (K 8-15, M 8-15): the A registers' order.
-template <typename T, int KC>
-struct ProductAT<T, KC, true> : Product<T, KC, true> {
-  __device__ void mma_t(const T* xc, const T* dc) {
-    constexpr int LD = Elem<T>::kLdb;
-    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-    const int wm = warp / 4, wn = warp % 4;
-    const int lr = lane % 16, lc = (lane / 16) * 8;  // B, as Product loads it
-    const int am = (lane / 16) * 8 + lane % 8, ak = ((lane / 8) % 2) * 8;
-#pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      unsigned b[4];
-      ldmatrix_x4_trans(b, dc + (kk * 16 + lr) * LD + wn * 16 + lc);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        unsigned a[4];
-        ldmatrix_x4_trans(a, xc + (kk * 16 + am) * LD + wm * 32 + mi * 16 + ak);
-        mma_bf16_16816(this->acc[mi * 2 + 0], a, b[0], b[1]);
-        mma_bf16_16816(this->acc[mi * 2 + 1], a, b[2], b[3]);
-      }
     }
   }
 };
@@ -433,9 +407,9 @@ inline int reduce_splits(const float* part, T* out, int splits, size_t count,
 }
 
 // ---------------------------------------------------------------------------
-// Hopper (bf16 main loops of qgemm.cuh and qconv.cuh; the QLSTM kernels'
-// barriers): shared-memory barriers, a barrier across blocks, TMA, ldmatrix,
-// wgmma
+// Hopper (bf16 main loops of qgemm.cuh, qconv.cuh and dgt.cu; the QLSTM
+// kernels' barriers): shared-memory barriers, a barrier across blocks, TMA,
+// ldmatrix, wgmma
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -505,6 +479,14 @@ __device__ inline void dir_barrier(unsigned* counter, unsigned target) {
 
 // a box of the tensor map (coordinates innermost first) into this block's
 // shared memory at dst, completing on bar
+__device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map, unsigned bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -548,6 +530,12 @@ __device__ __forceinline__ unsigned combo2(unsigned u, unsigned v, __nv_bfloat16
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }

@@ -24,12 +24,16 @@ from qasr_torch.ops.kernels import _build
 from qasr_torch.ops.kernels.qconv_ft import _DTYPE_CODE, _check_cuda_tensor
 
 MODES = ("dgt", "plain")
-# kernel J's rows of M a chunk (dgt.cu: DgtCfg) and its output tile
-_CHUNK = {torch.bfloat16: 32, torch.float32: 16}
-_TILE = 64
-# blocks of kernel J resident on an SM (dgt.cu: kMinBlocks): the split of M
-# aims at one full wave of them
-_BLOCKS_PER_SM = 4
+# kernel J's rows of M a chunk, its (K, N) output tile and its blocks
+# resident on an SM (dgt.cu: kChunk, kTileK, kTileN, kBlocks for bf16's
+# wgmma loop; kChunkF32, qtile's BM x BN and kBlocksF32 for f32's): the
+# split of M fills at most one wave of them
+_CHUNK = {torch.bfloat16: 64, torch.float32: 16}
+_TILE = {torch.bfloat16: (128, 256), torch.float32: (64, 64)}
+_BLOCKS_PER_SM = {torch.bfloat16: 1, torch.float32: 4}
+# the bf16 loop pairs runs in a cluster and sums their partials in shared
+# memory before the second pass (dgt.cu: kCluster)
+_CLUSTER = {torch.bfloat16: 2, torch.float32: 1}
 
 
 def _check_mode(mode: str) -> None:
@@ -70,12 +74,12 @@ def supported(m: int, k: int, n: int, dtype: torch.dtype, mode: str = "dgt") -> 
 
 def splits(m: int, k: int, n: int, *, chunk: int, tile: tuple[int, int], blocks_per_sm: int,
            sms: int) -> int:
-    """The number of runs S of M that a split-M kernel (J, and I in
-    ``qgemm.py``) sums apart, its grid ``(N/tile_n, K/tile_k, S)`` with
-    ``blocks_per_sm`` blocks resident on each of ``sms`` SMs: the whole
-    number of runs nearest one full wave, at least 1 (so S = 1 where the
-    tiles alone fill a wave), each run whole chunks of ``chunk`` rows and
-    none empty."""
+    """The number of runs S of M that kernel I (``qgemm.py``) sums apart, its
+    grid ``(N/tile_n, K/tile_k, S)`` with ``blocks_per_sm`` blocks resident
+    on each of ``sms`` SMs: the whole number of runs nearest one full wave,
+    at least 1 (so S = 1 where the tiles alone fill a wave), each run whole
+    chunks of ``chunk`` rows and none empty. (Kernel J's rule is
+    :func:`j_splits`.)"""
     chunks = math.ceil(m / chunk)
     tiles = math.ceil(k / tile[0]) * math.ceil(n / tile[1])
     slots = blocks_per_sm * sms
@@ -83,11 +87,33 @@ def splits(m: int, k: int, n: int, *, chunk: int, tile: tuple[int, int], blocks_
     return math.ceil(chunks / math.ceil(chunks / want))
 
 
-def dgt_cuda(x: torch.Tensor, y: torch.Tensor, *, mode: str) -> torch.Tensor:
+def j_splits(m: int, k: int, n: int, dtype: torch.dtype, sms: int) -> int:
+    """Kernel J's runs S of M on ``sms`` SMs: as many as its grid ``(N
+    tiles, K tiles, S)`` fits in one wave of its blocks (never a second,
+    partial one), at most one a chunk, and a multiple of the cluster where
+    there are that many. The kernel shares the chunks out as evenly as whole
+    chunks allow, so no run is empty."""
+    chunks = math.ceil(m / _CHUNK[dtype])
+    tiles = math.ceil(k / _TILE[dtype][0]) * math.ceil(n / _TILE[dtype][1])
+    s = max(1, min(chunks, _BLOCKS_PER_SM[dtype] * sms // tiles))
+    return s - s % _CLUSTER[dtype] if s >= _CLUSTER[dtype] else s
+
+
+def partials(s: int, dtype: torch.dtype) -> int:
+    """The f32 partials kernel J's second pass sums for S runs: one a
+    cluster, which pairs the runs in bf16 where S is even (dgt.cu:
+    cluster_of)."""
+    c = _CLUSTER[dtype]
+    return s // c if s % c == 0 else s
+
+
+def dgt_cuda(x: torch.Tensor, y: torch.Tensor, *, mode: str, lib=None) -> torch.Tensor:
     """Launch kernel J (its two passes) on CUDA ``x`` and ``y``: one device,
     contiguous, the same dtype, shapes :func:`supported` admits. Returns
-    ``[K, N]`` in x's dtype. Raises on anything the kernel does not take, or
-    when it fails to build or launch."""
+    ``[K, N]`` in x's dtype. ``lib`` is a kernel library other than the
+    package's (a variant built by ``qasr_torch.tools.ablate_dgt``). Raises on
+    anything the kernel does not take, or when it fails to build or
+    launch."""
     m, k, n = _dims(x, y, mode)
     if not supported(m, k, n, x.dtype, mode):
         raise ValueError(f"kernel J does not take M={m} K={k} N={n} {x.dtype} ({mode})")
@@ -95,10 +121,9 @@ def dgt_cuda(x: torch.Tensor, y: torch.Tensor, *, mode: str) -> torch.Tensor:
     _check_cuda_tensor("y", y, x.dtype, y.shape)
     if y.device != x.device:
         raise ValueError(f"y is on {y.device}, x on {x.device}")
-    lib = _build.load_library()
-    s = splits(m, k, n, chunk=_CHUNK[x.dtype], tile=(_TILE, _TILE), blocks_per_sm=_BLOCKS_PER_SM,
-               sms=torch.cuda.get_device_properties(x.device).multi_processor_count)
-    part = torch.empty((s, k, n), dtype=torch.float32, device=x.device)
+    lib = lib if lib is not None else _build.load_library()
+    s = j_splits(m, k, n, x.dtype, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    part = torch.empty((partials(s, x.dtype), k, n), dtype=torch.float32, device=x.device)
     out = torch.empty((k, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -1,7 +1,8 @@
 """Shared machinery of the ablations (``ablate_qgemm``, ``ablate_qconv``,
-``ablate_scan``): a version of the kernel library built by ``nvcc`` from
-copies of ``csrc``'s headers and of some sources, patched, under
-``qasr_torch/_build/<tool>/<i>/``; its registers; CUDA-event times; and the
+``ablate_scan``, ``ablate_dgt``): a version of the kernel library built by
+``nvcc`` from copies of ``csrc``'s headers and of some sources, patched,
+under ``qasr_torch/_build/<tool>/<i>/``; its registers; CUDA-event times,
+of calls or of CUDA-graph replays; and the
 run of every version in a process of its own (kernels that use TMA, loaded
 beside another build in one process, refused to launch), in turns, first
 to last, then back.
@@ -104,6 +105,29 @@ def time_ms(fn, n: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / n
+
+
+def graph_ms(fn, n: int, reps: int = 5) -> float:
+    """ms a call of ``fn`` in replays of one CUDA graph of ``n`` calls (the
+    host's launch cost out), the least of ``reps`` replays on CUDA events,
+    after a warm call and a warm replay."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1) / n)
+    return best
 
 
 def check_parity(what: str, got: torch.Tensor, ref: torch.Tensor) -> None:

@@ -634,12 +634,17 @@ def test_10_product_functions_match_plain_autograd_on_card(cuda_device, m):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(1000, 72, 40), (4096, 256, 256), (777, 64, 136)])
+@pytest.mark.parametrize("m,k,n", [(1000, 72, 40), (4096, 256, 256), (777, 64, 136),
+                                   (65576, 256, 256), (40, 8, 8), (1000, 264, 136),
+                                   (4096, 512, 520)])
 def test_dgt_kernel_matches_plain_on_card(cuda_device, dtype, m, k, n):
     """Kernel J against its plain version in both modes (``"plain"`` where M
-    is a multiple of 8): ragged M (the last chunk zero-filled), K and N over
-    partial tiles; a sum over M, held relative to its largest element; the
-    two modes and two runs give the same bits."""
+    is a multiple of 8): ragged M (the last chunk zero-filled; M 40 under one
+    bf16 chunk), K and N over partial tiles (bf16's 128 x 256: K 264 and N
+    136 leave a tile with one box of K and N, N 520 a box wholly past N);
+    pairs of runs (even S) and single runs (S 1); a sum over M, held
+    relative to its largest element; the two modes and two runs give the
+    same bits."""
     from qasr_torch.ops.kernels import dgt
 
     tol = _tol(dtype)

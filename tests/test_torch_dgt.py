@@ -39,15 +39,15 @@ M, K, N, G = 512, 128, 128, 4
 
 
 @functools.lru_cache(maxsize=None)
-def _tpu_make():
-    """The probe's ``make``, compiled in a namespace of small shapes and an
-    interpreting ``pallas_call``."""
+def _tpu_make(m=M, k=K, n=N, g=G):
+    """The probe's ``make``, compiled in a namespace of small shapes (M, K,
+    N and G chunks of M) and an interpreting ``pallas_call``."""
     tree = ast.parse(open(_PROBE).read(), _PROBE)
-    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "make")
-    shim = types.SimpleNamespace(**{k: getattr(pl, k) for k in dir(pl) if not k.startswith("_")})
+    fn = next(f for f in tree.body if isinstance(f, ast.FunctionDef) and f.name == "make")
+    shim = types.SimpleNamespace(**{a: getattr(pl, a) for a in dir(pl) if not a.startswith("_")})
     shim.pallas_call = functools.partial(pl.pallas_call, interpret=True)
     ns = {"jax": jax, "jnp": jnp, "lax": lax, "pl": shim, "pltpu": pltpu,
-          "M": M, "K": K, "N": N, "G": G}
+          "M": m, "K": k, "N": n, "G": g}
     exec(compile(ast.Module(body=[fn], type_ignores=[]), _PROBE, "exec"), ns)
     return ns["make"]
 
@@ -132,43 +132,58 @@ def test_supported_and_mode_check():
         kdgt.dgt_cuda(x, y, mode="dgt")
 
 
-# the split-M kernels' rows of M a chunk (per dtype), (K, N) tile and blocks
-# resident on an SM: J (dgt.cu) and I (qgemm10_dw.cu)
-_SPLIT_KERNELS = {
-    "J": (kdgt._CHUNK, (kdgt._TILE, kdgt._TILE), kdgt._BLOCKS_PER_SM),
-    "I": (kqgemm._DW_CHUNK, kqgemm._DW_TILE, kqgemm._DW_BLOCKS_PER_SM),
-}
+def _split(kernel, m, k, n, dtype, sms):
+    """S, the rows of M a chunk, the (K, N) tile and the blocks resident on
+    an SM of a split-M kernel: J (``dgt.j_splits`` with its own parameters,
+    dgt.cu) or I (``dgt.splits`` with kernel I's, qgemm10_dw.cu)."""
+    if kernel == "J":
+        return (kdgt.j_splits(m, k, n, dtype, sms), kdgt._CHUNK[dtype], kdgt._TILE[dtype],
+                kdgt._BLOCKS_PER_SM[dtype])
+    chunk, tile, per_sm = kqgemm._DW_CHUNK[dtype], kqgemm._DW_TILE, kqgemm._DW_BLOCKS_PER_SM
+    return (kdgt.splits(m, k, n, chunk=chunk, tile=tile, blocks_per_sm=per_sm, sms=sms), chunk,
+            tile, per_sm)
 
 
-@pytest.mark.parametrize("kernel", sorted(_SPLIT_KERNELS))
+@pytest.mark.parametrize("kernel", ["I", "J"])
 @pytest.mark.parametrize("m,k,n,sms", [(65536, 256, 256, 132), (65536, 256, 256, 114),
                                        (100, 256, 256, 132), (4096, 3328, 256, 132),
                                        (40, 8, 8, 132), (4096, 256, 256, 132),
                                        (53248, 2304, 256, 132), (4096, 4096, 2048, 132)])
 def test_splits_cover_m_without_an_empty_run(kernel, m, k, n, sms):
-    """The shared split of M (``dgt.splits``) for kernels J and I: the runs
-    cover M exactly, at most one a chunk and none empty; S = 1 where the
-    tiles alone fill a wave; J at the probe's shape fills one wave of four
-    blocks an SM, I at the dense layers' K256 one wave of one block an SM,
-    and I at the path's two wide shapes runs one pass."""
-    chunk, tile, per_sm = _SPLIT_KERNELS[kernel]
-    tiles = -(-k // tile[0]) * -(-n // tile[1])
+    """The splits of M of kernels J and I: the runs cover M exactly, at most
+    one a chunk and none empty; S = 1 where the tiles alone fill a wave. I's
+    runs are ceil(chunks / S) chunks long (the last shorter) and its S the
+    wave nearest; J shares the chunks out as evenly as whole chunks allow,
+    in at most one wave of blocks, S a multiple of its bf16 cluster (a pair)
+    where it has that many. Pinned: J at the probe's shape fills one wave
+    (bf16: 2 tiles of 128 x 256, one block an SM, so 66 runs on 132 SMs and
+    56 on 114; f32: 16 tiles of 64 x 64, four blocks an SM, 33 and 28); I at
+    the dense layers' K256 one wave of one block an SM, and at the path's two
+    wide shapes one pass."""
     for dtype in (torch.bfloat16, torch.float32):
-        s = kdgt.splits(m, k, n, chunk=chunk[dtype], tile=tile, blocks_per_sm=per_sm, sms=sms)
-        chunks = -(-m // chunk[dtype])
-        per = -(-chunks // s)
-        assert 1 <= s <= chunks and (s - 1) * per < chunks <= s * per
+        s, chunk, tile, per_sm = _split(kernel, m, k, n, dtype, sms)
+        chunks = -(-m // chunk)
+        tiles = -(-k // tile[0]) * -(-n // tile[1])
+        assert 1 <= s <= chunks
         if tiles >= per_sm * sms:
             assert s == 1
         if kernel == "I":
+            per = -(-chunks // s)
+            assert (s - 1) * per < chunks <= s * per
             assert kqgemm.dw_splits(m, k, n, dtype, sms) == s
-    for dtype in (torch.bfloat16, torch.float32):
-        if kernel == "J":  # 16 tiles of 64 x 64: 33 x 16 ~ 4 x 132, 29 x 16 ~ 4 x 114
-            assert kdgt.splits(65536, 256, 256, chunk=chunk[dtype], tile=tile,
-                               blocks_per_sm=per_sm, sms=132) == 33
-            assert kdgt.splits(65536, 256, 256, chunk=chunk[dtype], tile=tile,
-                               blocks_per_sm=per_sm, sms=114) == 29
-        else:  # 16 tiles: 8 x 16 <= 132; 208 and 144 tiles fill a wave alone
+        else:
+            runs = [(r + 1) * chunks // s - r * chunks // s for r in range(s)]
+            assert sum(runs) == chunks and min(runs) >= 1
+            assert s == 1 or s * tiles <= per_sm * sms
+            cluster = kdgt._CLUSTER[dtype]
+            assert s % cluster == 0 or s < cluster
+            assert kdgt.partials(s, dtype) == (s // cluster if s % cluster == 0 else s)
+    if kernel == "J":
+        for dtype, want in ((torch.bfloat16, (66, 56)), (torch.float32, (33, 28))):
+            assert (kdgt.j_splits(65536, 256, 256, dtype, 132),
+                    kdgt.j_splits(65536, 256, 256, dtype, 114)) == want
+    else:  # 16 tiles: 8 x 16 <= 132; 208 and 144 tiles fill a wave alone
+        for dtype in (torch.bfloat16, torch.float32):
             assert kqgemm.dw_splits(4096, 256, 256, dtype, 132) == 8
             assert kqgemm.dw_splits(4096, 3328, 256, dtype, 132) == 1
             assert kqgemm.dw_splits(53248, 2304, 256, dtype, 132) == 1
