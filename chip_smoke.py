@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Drives the port's serving path and its training path (``qasr_torch``, no
-JAX) at the full width of ``timit_qcnn`` (the paper's QCNN-256, bf16
+JAX; on synthetic batches and on small synthetic TIMIT and LibriSpeech
+corpora) at the full width of ``timit_qcnn`` (the paper's QCNN-256, bf16
 compute, random weights from a seeded ``torch.Generator``), the serving
 and training paths of ``librispeech_qlstm`` and of the real-CNN baseline
 ``timit_real_cnn``, and the row-contracting product's probe, through the
@@ -83,6 +84,20 @@ few):
               real-CNN step, ``conv_roofline`` (block path and
               ``use_pallas``) and kernel J against its plain version, its
               bound and ``torch.matmul`` (CUDA events and graph replays)
+ 11. corpus   mini-TIMIT (12 train speakers x 8 utterances, 8 dev, 8 core
+              test) written by ``qasr_torch.tools.make_mini_timit``,
+              featurized on the card and cached; ``timit_qcnn`` at full
+              width trained through the command line for 8 steps with a
+              dev-split eval and a checkpoint every 4, again interrupted
+              after step 4 and ``--resume``d to 8, ``--eval-only`` and a
+              ``transcribe`` of the best step; ``librispeech_qlstm`` on mini-LibriSpeech in
+              streaming mode, 4 steps with a dev-clean eval (gated: the
+              cache built once, the eval set, launches, the resumed run's
+              batches, data states and losses, best.json, the eval-only
+              PER, the transcribe, streaming against cached features);
+              then, not gated, featurization rates, the loop's audio-s/s,
+              the dev eval's seconds and the idle share of a corpus step
+              against the synthetic step
 
 then one JSON line with the per-kernel results, the nvidia-smi line and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -1687,6 +1702,291 @@ def phase10_dgt_real_cnn(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: 
             "bound_by": bound_j[1], "library_ms": lib_j}
 
 
+def _batch_key(batch: dict) -> str:
+    """A fingerprint of a batch: the sha1 of its arrays' bytes."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for k in sorted(batch):
+        h.update(k.encode() + np.ascontiguousarray(batch[k]).tobytes())
+    return h.hexdigest()[:16]
+
+
+def phase11_corpus(dev: torch.device, smi: str, tcfg8, batch: dict) -> None:
+    """The corpus path: mini-TIMIT written by the port's writer, featurized on
+    the card and cached, config 2 (``timit_qcnn``, QCNN-256 bf16) trained
+    through ``python -m qasr_torch.cli``'s ``main`` with dev-split evals and
+    checkpoints, resumed, evaluated alone and served; config 4
+    (``librispeech_qlstm``) trained on mini-LibriSpeech in streaming mode.
+    Gated: the cache built once and read after, the eval set being the dev
+    split, launches per step and per eval forward, the resumed run's batches,
+    data states and losses against the uninterrupted run's, ``best.json``,
+    ``--eval-only`` against the logged ``dev_per``, the transcribe's exit
+    code, the checkpoint of config 4 serving, and streaming features against
+    a cached build. Then, not gated: featurization rates, the loop's
+    audio-s/s, the dev eval's seconds and the idle share of a corpus step
+    against the synthetic one."""
+    import contextlib
+    import io
+
+    from qasr_torch import cli
+    from qasr_torch.configs import get_config
+    from qasr_torch.data.batching import BatchStream, Prefetcher, epoch_iterator
+    from qasr_torch.data.pipeline import LibriFeaturePipeline, TimitFeaturePipeline
+    from qasr_torch.data.timit import TimitDataset
+    from qasr_torch.infer import Transcriber
+    from qasr_torch.models import build_model
+    from qasr_torch.tools import make_mini_librispeech, make_mini_timit
+    from qasr_torch.train import loop
+    from qasr_torch.train.checkpoint import CheckpointManager
+    from qasr_torch.train.state import create_train_state
+    from qasr_torch.train.step import train_step
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "qasr_torch", "_build", "smoke_corpus")
+    shutil.rmtree(root, ignore_errors=True)
+    timit = os.path.join(root, "timit")
+    written = make_mini_timit.write_corpus(timit, train_speakers=12, utts_per_speaker=8,
+                                           dev_speakers=8, test_speakers=8, seed=SEED)
+    cache_dir = os.path.join(timit, ".qasr_cache")
+
+    # the loop's train steps and evals, seen from outside: each batch's
+    # fingerprint, and the set each eval ran on; a run is interrupted (as by
+    # a crash) when it comes to the step after `stop_after`
+    seen = {"batches": [], "evals": [], "stop_after": None}
+    real_step, real_eval = loop.train_step, loop.evaluate
+
+    class Interrupted(Exception):
+        pass
+
+    def recording_step(state, b, **kw):
+        if len(seen["batches"]) == seen["stop_after"]:
+            raise Interrupted
+        seen["batches"].append(_batch_key(b))
+        return real_step(state, b, **kw)
+
+    def recording_eval(cfg_, model, dataset):
+        seen["evals"].append((getattr(getattr(dataset, "corpus", None), "split", None),
+                              len(dataset)))
+        return real_eval(cfg_, model, dataset)
+
+    def run_cli(ckpt, n_steps, *flags):
+        sets = [f"{k}={v}" for k, v in {
+            "data.data_dir": timit, "train.warmup_steps": 2, "train.learning_rate": 1e-4,
+            "train.num_steps": n_steps, "train.log_every": 1, "train.eval_every": 4,
+            "train.checkpoint_every": 4, "train.checkpoint_dir": ckpt}.items()]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            last = cli.main(["--preset", "timit_qcnn", *flags, "--set", *sets])
+        return last, out.getvalue()
+
+    def losses(ckpt):
+        with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+            rows = [json.loads(x) for x in f]
+        return {r["step"]: r for r in rows if "loss" in r}
+
+    cfg = get_config("timit_qcnn").override(**{"data.data_dir": timit})
+    whole, split = os.path.join(root, "whole"), os.path.join(root, "split")
+    loop.train_step, loop.evaluate = recording_step, recording_eval
+    try:
+        # the main path: 8 steps, an eval and a checkpoint every 4
+        _reset_counts()
+        t0 = time.perf_counter()
+        last_w, _ = run_cli(whole, 8)
+        whole_s = time.perf_counter() - t0
+        counts = _read_counts()
+        batches_w, evals_w = seen["batches"][:], seen["evals"][:]
+        caches = sorted(os.listdir(cache_dir))
+        mtimes = [os.path.getmtime(os.path.join(cache_dir, c)) for c in caches]
+        # the same 8-step run interrupted after its step-4 checkpoint (the
+        # learning-rate schedule spans num_steps, so the run to resume is
+        # configured for 8), then --resume to 8, in a second directory
+        seen["batches"].clear()
+        seen["evals"].clear()
+        seen["stop_after"] = 4
+        try:
+            run_cli(split, 8)
+            raise RuntimeError("the run to interrupt was not interrupted")
+        except Interrupted:
+            pass
+        seen["stop_after"] = None
+        last_s, out_s = run_cli(split, 8, "--resume")
+        batches_s, evals_s = seen["batches"][:], seen["evals"][:]
+    finally:
+        loop.train_step, loop.evaluate = real_step, real_eval
+
+    # the cache: built once by the first run (train and dev), read after
+    dev_pipe = TimitFeaturePipeline(cfg, "dev", device=dev)
+    if (len(caches) != 2 or not dev_pipe.cache_hit or sorted(os.listdir(cache_dir)) != caches
+            or [os.path.getmtime(os.path.join(cache_dir, c)) for c in caches] != mtimes):
+        raise RuntimeError(f"the feature cache was not built once and reused: {caches}")
+    # the eval set is the dev split of the corpus written
+    n_dev = len(TimitDataset(timit, "dev"))
+    if n_dev != written["dev"] or evals_w != [("dev", n_dev)] * 2 or evals_s != evals_w:
+        raise RuntimeError(f"evals ran on {evals_w} / {evals_s}, expected the dev split's "
+                           f"{written['dev']} utterances twice")
+    n_eval = len(list(epoch_iterator(dev_pipe, cfg.data, train=False)))
+    want = _want(qconv_ft8=9 * (8 + 2 * n_eval), qconv_dx8=9 * 8,
+                 qgemm8=3 * (8 + 2 * n_eval), qgemm8_dx=3 * 8)
+    if counts != want:
+        raise RuntimeError(f"the corpus run's launches {counts}, expected {want} (9/9/3/3 a "
+                           f"step, 9/3 an eval forward, {n_eval} eval batches twice)")
+    # resume: the same batches and data states, losses within 1e-3 relative
+    if batches_s != batches_w or len(batches_w) != 8:
+        raise RuntimeError("the resumed run trained on other batches than the uninterrupted one")
+    mgr_w = CheckpointManager(cfg, directory=whole, write_config=False)
+    mgr_s = CheckpointManager(cfg, directory=split, write_config=False)
+    states = [(mgr_w.restore_data_state(n), mgr_s.restore_data_state(n)) for n in (4, 8)]
+    if any(a is None or a != b for a, b in states) or "resumed from step 4" not in out_s:
+        raise RuntimeError(f"the resumed run's data states {states}")
+    lw, ls = losses(whole), losses(split)
+    rel = max(abs(lw[n]["loss"] - ls[n]["loss"]) / abs(lw[n]["loss"]) for n in range(5, 9))
+    same_bits = all(lw[n]["loss"] == ls[n]["loss"] for n in range(1, 9))
+    if not rel <= 1e-3 or not all(math.isfinite(lw[n]["loss"]) for n in range(1, 9)):
+        raise RuntimeError(f"resumed losses off by {rel:.3e} relative (limit 1e-3)")
+    # best.json: the step with the lower dev_per (the earlier on a tie)
+    with open(os.path.join(whole, "metrics.jsonl")) as f:
+        dev_rows = {r["step"]: r for r in map(json.loads, f) if "dev_per" in r}
+    best_want = 8 if dev_rows[8]["dev_per"] < dev_rows[4]["dev_per"] else 4
+    if mgr_w.best_step() != best_want or mgr_s.best_step() != best_want:
+        raise RuntimeError(f"best.json points at {mgr_w.best_step()} / {mgr_s.best_step()}, "
+                           f"expected {best_want} (dev_per {dev_rows[4]['dev_per']}, "
+                           f"{dev_rows[8]['dev_per']})")
+    # --eval-only reports what the loop logged at that step
+    with contextlib.redirect_stdout(io.StringIO()):
+        ev = cli.main(["--preset", "timit_qcnn", "--eval-only", "--set", f"data.data_dir={timit}",
+                       f"train.checkpoint_dir={whole}"])
+    logged = dev_rows[best_want]
+    if (ev["step"] != best_want or ev["per"] != logged["dev_per"]
+            or not abs(ev["loss"] - logged["dev_loss"]) <= 1e-3 * abs(logged["dev_loss"])):
+        raise RuntimeError(f"--eval-only gave {ev}, the loop logged {logged}")
+    # transcribe the best step, as a user runs it
+    dev_wavs = [u.wav_path for u in TimitDataset(timit, "dev").utterances[:2]]
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.run([sys.executable, "-m", "qasr_torch.cli", "transcribe", "--ckpt", whole,
+                           "--fold", *dev_wavs], cwd=repo, env=env, capture_output=True,
+                          text=True, timeout=300)
+    served_lines = proc.stdout.rstrip("\n").split("\n")
+    if proc.returncode != 0 or [ln.partition("\t")[0] for ln in served_lines] != dev_wavs:
+        raise RuntimeError(f"transcribe exited {proc.returncode}:\n{proc.stdout}{proc.stderr}")
+    rate = [lw[n]["audio_s_per_s_per_chip"] for n in range(2, 9)]
+    print(f"phase 11 corpus (TIMIT): mini-TIMIT {written} utterances; timit_qcnn QCNN-256 bf16 "
+          f"through the CLI, 8 steps in {whole_s:.2f} s (cache build included), launches "
+          f"{counts} ({n_eval} eval batches of the {n_dev} dev utterances, twice); cache "
+          f"{caches} built once, read after; interrupted after step 4 + --resume to 8: batches "
+          f"and data states "
+          f"equal, losses 5-8 max rel {rel:.3e} (tol 1e-3; all 8 the same bits: {same_bits}); "
+          f"dev_per at 4 {dev_rows[4]['dev_per']:.4f}, at 8 {dev_rows[8]['dev_per']:.4f}, "
+          f"best.json step {best_want}; --eval-only @ step {ev['step']} per {ev['per']:.4f} "
+          f"loss {ev['loss']:.4f} (logged {logged['dev_loss']:.4f}); transcribe exit 0: "
+          + " | ".join(repr(ln.partition("\t")[2][:60]) for ln in served_lines),
+          flush=True)
+
+    # config 4 on mini-LibriSpeech, streaming, with dev-clean evals
+    libri = os.path.join(root, "libri")
+    lwritten = make_mini_librispeech.write_corpus(libri, speakers=8, utts_per_speaker=12,
+                                                  dev_speakers=4, seed=SEED)
+    qcfg = get_config("librispeech_qlstm").override(**{
+        "data.data_dir": libri, "data.cache_features": False, "train.warmup_steps": 2,
+        "train.learning_rate": 1e-4, "train.num_steps": 4, "train.log_every": 1,
+        "train.eval_every": 4, "train.checkpoint_every": 4,
+        "train.checkpoint_dir": os.path.join(root, "qlstm")})
+    q_dev = LibriFeaturePipeline(qcfg, "dev-clean", device=dev)
+    n_qeval = len(list(epoch_iterator(q_dev, qcfg.data, train=False)))
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        qstate, qlast = loop.train(qcfg, device=dev)
+    q_s = time.perf_counter() - t0
+    qcounts = _read_counts()
+    qwant = _want(qconv_ft8=3 * (4 + n_qeval), qconv_dx8=3 * 4, qlstm_scan8=3 * (4 + n_qeval),
+                  qlstm_scan8_bwd=3 * 4, qgemm8=4 + n_qeval, qgemm8_dx=4)
+    if qcounts != qwant or qstate.step != 4 or not math.isfinite(qlast["loss"]):
+        raise RuntimeError(f"config 4's corpus run: launches {qcounts}, expected {qwant}; "
+                           f"last {qlast}")
+    served = Transcriber(qlast["checkpoint"], device=dev)
+    qwavs = [q_dev.corpus.load(i)[0] for i in range(2)]
+    texts = served.transcribe_batch(qwavs)
+    if len(texts) != 2 or not all(isinstance(t, str) for t in texts):
+        raise RuntimeError(f"config 4's checkpoint did not serve: {texts}")
+    # streaming features against a cached build of the same split
+    q_cached = LibriFeaturePipeline(qcfg, "dev-clean", cache_features=True, device=dev,
+                                    cache_dir=os.path.join(root, "libri_cache"))
+    q_dev.prefetch(range(len(q_dev)))
+    feat_err = max(float(np.max(np.abs(q_dev[i].features - q_cached[i].features)))
+                   for i in range(len(q_cached)))
+    if not feat_err <= 1e-4:
+        raise RuntimeError(f"streaming features differ from the cached build by {feat_err:.3e}")
+    print(f"phase 11 corpus (LibriSpeech): mini-LibriSpeech {lwritten} utterances; "
+          f"librispeech_qlstm bf16 streaming, 4 steps and a dev-clean eval ({n_qeval} batches) "
+          f"in {q_s:.2f} s, last log {json.dumps({k: qlast[k] for k in sorted(qlast)})}; "
+          f"launches {qcounts}; checkpoint served {[t[:30] for t in texts]}; streaming vs "
+          f"cached features max_abs {feat_err:.3e} (tol 1e-4)", flush=True)
+    del qstate, served
+    torch.cuda.empty_cache()
+
+    # timings, not gated: featurization on the card, cached build and
+    # streaming blocks of 32, over mini-TIMIT's train split
+    train_set = TimitDataset(timit, "train")
+    n_train = len(train_set)
+    audio_s = sum(len(train_set.load(i)[0]) for i in range(n_train)) / cfg.data.sample_rate
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    TimitFeaturePipeline(cfg, "train", device=dev, cache_dir=os.path.join(root, "fresh_cache"))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    TimitFeaturePipeline(cfg, "train", device=dev, cache_dir=os.path.join(root, "fresh_cache"))
+    read_s = time.perf_counter() - t0
+    streaming = TimitFeaturePipeline(cfg, "train", device=dev, cache_features=False)
+    t0 = time.perf_counter()
+    streaming.prefetch(range(n_train))
+    stream_s = time.perf_counter() - t0
+    # the dev eval of the best step
+    model = build_model(cfg, device=dev)
+    model.load_state_dict(mgr_w.restore_params(best_want))
+    loop.evaluate(cfg, model, dev_pipe)
+    t0 = time.perf_counter()
+    loop.evaluate(cfg, model, dev_pipe)
+    eval_s = time.perf_counter() - t0
+    del model
+    # the idle share of one train step fed by the prefetch thread (cached and
+    # streaming mini-TIMIT) against phase 5's synthetic step on one batch
+    profiles = []
+    tcfg = cfg.override(**{"train.warmup_steps": 2, "train.learning_rate": 1e-4})
+    for what, pipe in (("cached", TimitFeaturePipeline(cfg, "train", device=dev)),
+                       ("streaming", TimitFeaturePipeline(cfg, "train", device=dev,
+                                                          cache_features=False))):
+        st = create_train_state(tcfg, device=dev)
+        pf = Prefetcher(BatchStream(pipe, tcfg.data, seed=SEED), depth=2)
+        try:
+            for _ in range(3):
+                train_step(st, next(pf)[0])
+            profiles.append(_profile(lambda: train_step(st, next(pf)[0]),
+                                     f"one mini-TIMIT train step, {what}, fed by the prefetch "
+                                     "thread", 11, smi, 3))
+        finally:
+            pf.close()
+        del st
+    st = create_train_state(tcfg8, device=dev)
+    for _ in range(3):
+        train_step(st, batch)
+    profiles.append(_profile(lambda: train_step(st, batch), "one synthetic train step "
+                             "B16xT256 (phase 5's batch)", 11, smi, 3))
+    del st
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 11 timing on {smi}: featurization of mini-TIMIT train ({n_train} utterances, "
+          f"{audio_s:.1f} audio-s) cached build {build_s:.3f} s ({audio_s / build_s:.1f} "
+          f"audio-s/s, .npz written), cache read {read_s:.3f} s, streaming blocks of 32 "
+          f"{stream_s:.3f} s ({audio_s / stream_s:.1f} audio-s/s); train loop "
+          f"audio_s_per_s_per_chip steps 2-8 {[round(v, 1) for v in rate]}; dev eval of "
+          f"{n_dev} utterances {eval_s:.3f} s; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    for line in profiles:
+        print(line, flush=True)
+
+
 def time_kernels(tree: str) -> int:
     """``--time-kernels TREE``: of the ``qasr_torch`` under ``TREE``, bf16, on
     CUDA events: the conv kernels at phase 5's shape, the rank-8 A (with its
@@ -2239,6 +2539,9 @@ def main() -> int:
     # 10. kernel J through the probe, and the real-CNN baseline (config 3)
     # served and trained (their own launch counts)
     dgt_entry = phase10_dgt_real_cnn(dev, smi, tcfg, batch, wavs)
+    # 11. the corpus path: mini-TIMIT and mini-LibriSpeech featurized on the
+    # card, trained, resumed, evaluated and served (their own launch counts)
+    phase11_corpus(dev, smi, tcfg, batch)
 
     def entry(name, source, replaces, bound, lib_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -1,16 +1,16 @@
 """The port's command line (counterpart of ``qasr/cli.py``): train a preset,
-or transcribe audio files with a checkpoint that training wrote.
+resume it, evaluate its best checkpoint, or transcribe audio files with a
+checkpoint that training wrote.
 
-  python -m qasr_torch.cli --preset tiny_synthetic [--set train.num_steps=500]
-  python -m qasr_torch.cli --preset timit_qcnn --set data.dataset=synthetic \\
-      model.op_variant=fused model.dense_variant=pallas
+  python -m qasr_torch.cli --preset tiny_synthetic [--set train.num_steps=500] [--resume]
+  python -m qasr_torch.cli --preset timit_qcnn --set data.data_dir=/path/to/TIMIT
+  python -m qasr_torch.cli --preset timit_qcnn --set data.data_dir=/path/to/TIMIT \\
+      --eval-only [--split core_test]
   python -m qasr_torch.cli transcribe --ckpt /tmp/qasr_ckpt [--beam] [--fold] f1.wav ...
 
-Both run on the GPU unless ``--device cpu`` asks for the CPU. Training reads
-the ``synthetic`` dataset only: the TIMIT and LibriSpeech feature pipeline
-is not ported yet (ROADMAP.md Queue 1 item 8), and neither are resuming a
-run and evaluating a checkpoint alone (``--resume``, ``--eval-only``:
-Queue 1 item 9).
+Everything runs on the GPU unless ``--device cpu`` asks for the CPU.
+``python -m qasr_torch.tools.make_mini_timit`` and ``make_mini_librispeech``
+write small corpora in the two layouts.
 """
 
 from __future__ import annotations
@@ -18,7 +18,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import sys
 
 
@@ -30,9 +29,11 @@ def _parser(description: str) -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Train ``--preset`` with the ``--set`` overrides on ``--device``; the
-    checkpoints go to ``train.checkpoint_dir``. Prints the last metrics
-    line as JSON."""
+    """Train ``--preset`` with the ``--set`` overrides on ``--device`` (from
+    the latest checkpoint with ``--resume``); the checkpoints go to
+    ``train.checkpoint_dir``. Prints the last metrics line as JSON and
+    returns it. With ``--eval-only``, evaluates a checkpoint instead and
+    returns its metrics (see ``eval_only``)."""
     ap = _parser("Train a qasr_torch preset (python -m qasr_torch.cli).")
     ap.add_argument("--preset", default="tiny_synthetic")
     ap.add_argument(
@@ -44,8 +45,17 @@ def main(argv=None):
         help="config override(s); repeatable, and one --set accepts several "
         "space-separated key.path=value pairs",
     )
-    ap.add_argument("--resume", action="store_true", help="not ported yet")
-    ap.add_argument("--eval-only", action="store_true", help="not ported yet")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in train.checkpoint_dir")
+    ap.add_argument("--eval-only", action="store_true",
+                    help="evaluate the best (else the latest) checkpoint and exit")
+    ap.add_argument("--beam", action="store_true",
+                    help="prefix beam search for --eval-only (not ported yet: "
+                    "ROADMAP.md Queue 1 item 10)")
+    ap.add_argument("--split", default=None,
+                    help="eval split for --eval-only (timit: dev/core_test/full_test; "
+                    "librispeech: dev-clean/test-clean; default: the split train() "
+                    "evaluates on)")
     ap.add_argument("--list-presets", action="store_true")
     args = ap.parse_args(argv)
 
@@ -55,12 +65,11 @@ def main(argv=None):
         for name, cfg in PRESETS.items():
             print(f"{name}: arch={cfg.model.arch} dataset={cfg.data.dataset}")
         return None
-    for flag, on in (("--resume", args.resume), ("--eval-only", args.eval_only)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md Queue 1 item 9: resume with the "
-                "data_state sidecar and best-dev-PER selection)"
-            )
+    if args.eval_only and args.beam:
+        raise NotImplementedError(
+            "--beam evaluation needs the on-device beam search, which is not ported yet "
+            "(ROADMAP.md Queue 1 item 10)"
+        )
 
     cfg = get_config(args.preset)
     overrides = {}
@@ -71,37 +80,60 @@ def main(argv=None):
         overrides[k] = v
     if overrides:
         cfg = cfg.override(**overrides)
-    if cfg.data.dataset != "synthetic":
-        raise SystemExit(
-            f"qasr_torch trains on data.dataset=synthetic only: the {cfg.data.dataset} "
-            "feature pipeline is not ported yet (ROADMAP.md Queue 1 item 8); add "
-            "--set data.dataset=synthetic"
-        )
+    if args.eval_only:
+        return eval_only(cfg, split=args.split, device=args.device)
 
     from qasr_torch.train.loop import train
 
-    state, last = train(cfg, device=args.device)
+    state, last = train(cfg, device=args.device, resume=args.resume)
     print(json.dumps({"step": state.step, **last}), flush=True)
     return last
 
 
+def eval_only(cfg, *, split: str | None = None, device="cuda") -> dict:
+    """Evaluate the checkpoint of ``cfg.train.checkpoint_dir`` that
+    ``best.json`` names, or the latest when that step is gone, on ``split``
+    (default the set ``train()`` evaluates on: the dev split, or the train
+    set for ``synthetic``). Prints ``eval @ step N: {...}``; returns the
+    metrics (``loss``, ``per``) with ``step``."""
+    from qasr_torch.models import build_model
+    from qasr_torch.train.checkpoint import CheckpointManager
+    from qasr_torch.train.loop import build_dataset, build_eval_dataset, evaluate
+
+    ckpt = CheckpointManager(cfg, write_config=False)  # never overwrite the run's config
+    best = ckpt.best_step()
+    step = best if best is not None and best in ckpt.all_steps() else ckpt.latest_step()
+    if step is None:
+        raise SystemExit(f"no checkpoint in {cfg.train.checkpoint_dir}")
+    if split is not None:
+        dataset = build_dataset(cfg, split=split, device=device)
+    else:
+        dataset = build_eval_dataset(cfg, device=device)
+    model = build_model(cfg, device=device)
+    model.load_state_dict(ckpt.restore_params(step))
+    dev = evaluate(cfg, model, dataset)
+    print(f"[qasr] eval @ step {step}: {dev}", flush=True)
+    return {"step": step, **dev}
+
+
 def resolve_checkpoint(path: str, step: int | None = None) -> str:
     """A directory ``Transcriber`` reads: ``path`` itself when it holds
-    ``params.npz``, else its ``step_<n>`` subdirectory (``step``, or the
-    latest that training wrote)."""
+    ``params.npz``, else its ``step_<n>`` subdirectory: ``step``, or the one
+    ``best.json`` names when it still exists, or the latest that training
+    wrote."""
+    from qasr_torch.train.checkpoint import best_step_in, steps_in
+
     if step is None and os.path.exists(os.path.join(path, "params.npz")):
         return path
-    steps = sorted(
-        int(m.group(1)) for d in (os.listdir(path) if os.path.isdir(path) else [])
-        if (m := re.fullmatch(r"step_(\d+)", d))
-    )
+    steps = steps_in(path)
     if step is not None:
         if step not in steps:
             raise SystemExit(f"no step_{step} in {path!r} (have {steps})")
         return os.path.join(path, f"step_{step}")
     if not steps:
         raise SystemExit(f"no checkpoint in {path!r} (neither params.npz nor step_<n>/)")
-    return os.path.join(path, f"step_{steps[-1]}")
+    best = best_step_in(path)
+    return os.path.join(path, f"step_{best if best in steps else steps[-1]}")
 
 
 def transcribe_main(argv=None):
@@ -110,7 +142,7 @@ def transcribe_main(argv=None):
     ap = _parser("Transcribe audio files with a qasr_torch checkpoint.")
     ap.add_argument("--ckpt", required=True,
                     help="a checkpoint directory (params.npz + config.json) or a training "
-                    "directory (its latest step_<n>)")
+                    "directory (its best step_<n>, else its latest)")
     ap.add_argument("--step", type=int, default=None, help="pin a step_<n> of a training directory")
     ap.add_argument("--beam", action="store_true", help="prefix beam search")
     ap.add_argument("--fold", action="store_true", help="TIMIT 61->39 scoring fold")

@@ -1,6 +1,6 @@
-"""Bucketed padding + batching for CTC training (the port's own copy of
-``qasr/data/batching.py`` without its prefetch thread; a test holds the
-batches equal to the reference's for one seed).
+"""Bucketed padding + batching for CTC training, the resumable batch stream
+and its prefetch thread (the port's own copy of ``qasr/data/batching.py``;
+tests hold the batches equal to the reference's).
 
 Utterances are bucketed to a small set of frame ceilings, and every batch
 has static shapes ``[B, T_bucket, F, 4]`` / ``[B, L_max]``. Batches are numpy
@@ -9,6 +9,8 @@ dicts; the train step moves them to the device.
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -121,8 +123,15 @@ def bucketed_batches(
     order = np.arange(len(examples))
     if shuffle:
         rng.shuffle(order)
+    # streaming pipelines featurize a whole upcoming block in one device
+    # dispatch when told the epoch order ahead of consumption (see
+    # FeaturePipeline.prefetch); everything else ignores the hint
+    prefetch = getattr(examples, "prefetch", None)
+    block = max(batch_size, 16)
     pools: dict[int, list] = {b: [] for b in bucket_sizes}
-    for idx in order:
+    for pos, idx in enumerate(order):
+        if prefetch is not None and pos % block == 0:
+            prefetch(order[pos : pos + block])
         x, y = examples[idx]
         bucket = pick_bucket(x.shape[0], bucket_sizes)
         pools[bucket].append((x, y))
@@ -158,13 +167,17 @@ class _PairView:
         ex = self._dataset[i]
         return ex.features, ex.labels
 
+    def prefetch(self, indices):
+        p = getattr(self._dataset, "prefetch", None)
+        if p is not None:
+            p(indices)
+
 
 def epoch_iterator(dataset, cfg, *, seed: int = 0, train: bool = True):
     """Adapter from SyntheticDataset/FeaturePipeline to bucketed batches."""
     if hasattr(dataset, "load"):  # TimitDataset: lazy audio -> features upstream
         raise NotImplementedError(
-            "TIMIT batching needs the feature pipeline, which the port does not "
-            "have yet (ROADMAP.md)"
+            "TIMIT batching goes through qasr_torch.data.pipeline (features on device)"
         )
     return bucketed_batches(
         _PairView(dataset),
@@ -175,6 +188,68 @@ def epoch_iterator(dataset, cfg, *, seed: int = 0, train: bool = True):
         seed=seed,
         drop_remainder=train,
     )
+
+
+class _PrefetchError:
+    """Sentinel carrying a producer-thread exception to the consumer."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+class Prefetcher:
+    """Background-thread batch prefetch (bounded queue).
+
+    Overlaps host-side batch preparation (and, for a streaming pipeline, the
+    featurization on the card) with the train step. Yields ``(batch,
+    stream_state)`` pairs where ``stream_state`` is the BatchStream state
+    *after* producing that batch, so checkpoint/resume stays exact under
+    prefetch (the state saved with a step is the state of the batch actually
+    trained on). An exception in the producer re-raises in the consumer, on
+    this and every later ``next``.
+    """
+
+    def __init__(self, stream: "BatchStream", *, depth: int = 2):
+        self._stream = stream
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._failed: _PrefetchError | None = None
+        self._thread = threading.Thread(target=self._fill, name="qasr-prefetch", daemon=True)
+        self._thread.start()
+
+    def _fill(self):
+        while not self._stop.is_set():
+            try:
+                item = (next(self._stream), self._stream.state())
+            except BaseException as e:  # propagate instead of hanging __next__
+                item = _PrefetchError(e)
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+            if isinstance(item, _PrefetchError):
+                return
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        # after a producer failure the thread has exited, so the queue would
+        # never fill again: keep the error sticky instead of blocking forever
+        if self._failed is None:
+            item = self._q.get()
+            if not isinstance(item, _PrefetchError):
+                return item
+            self._failed = item
+        raise RuntimeError("prefetch thread failed") from self._failed.error
+
+    def close(self):
+        """Stop the producer and wait for it (it ends within its put timeout
+        or when the batch it is making is done)."""
+        self._stop.set()
+        self._thread.join()
 
 
 class BatchStream:
@@ -219,7 +294,14 @@ class BatchStream:
             self.epoch += 1
             self.index = 0
             self._iter = self._make_epoch_iter()
-            batch = next(self._iter)
+            try:
+                batch = next(self._iter)
+            except StopIteration:
+                raise ValueError(
+                    f"an epoch of {len(self.dataset)} examples fills no batch of "
+                    f"{self.cfg.batch_size} in any bucket of {self.cfg.bucket_sizes}: lower "
+                    "data.batch_size"
+                ) from None
             self.index = 1
             return batch
 

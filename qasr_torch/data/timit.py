@@ -1,11 +1,19 @@
-"""TIMIT phone inventory, the 61->39 fold and the SPHERE/RIFF reader (the
-port's own copy of those parts of ``qasr/data/timit.py``; a test holds the
-tables equal to the reference's).
+"""TIMIT corpus reader: the phone inventory, the 61->39 fold, the standard
+speaker lists, the SPHERE/RIFF reader and writer, ``.phn`` transcripts and
+``TimitDataset`` (the port's own copy of ``qasr/data/timit.py``; tests hold
+the tables, the readers and the split indexing equal to the reference's).
+
+Layout: ``<root>/{train,test}/<dialect>/<speaker>/<utt>.{wav,phn}``
+(case-insensitive). Constructing ``TimitDataset`` on a missing corpus raises
+``FileNotFoundError``; ``qasr_torch.tools.make_mini_timit`` writes a small
+corpus in this layout.
 """
 
 from __future__ import annotations
 
+import os
 import struct
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -48,6 +56,28 @@ FOLD_61_TO_39 = {
 PHONE_TO_ID = {p: i + 1 for i, p in enumerate(TIMIT_61)}  # 0 = CTC blank
 ID_TO_PHONE = {i: p for p, i in PHONE_TO_ID.items()}
 
+# TIMIT core test set speakers (24 speakers, standard protocol).
+CORE_TEST_SPEAKERS = {
+    "mdab0", "mwbt0", "felc0", "mtas1", "mwew0", "fpas0", "mjmp0", "mlnt0",
+    "fpkt0", "mlll0", "mtls0", "fjlm0", "mbpm0", "mklt0", "fnlp0", "mcmj0",
+    "mjdh0", "fmgd0", "mgrt0", "mnjm0", "fdhc0", "mjln0", "mpam0", "fmld0",
+}
+
+# Standard 50-speaker development set (the Kaldi TIMIT recipe's dev_spk.list),
+# disjoint from the core test speakers. If a corpus directory contains none
+# of these (e.g. a partial corpus), split="dev" falls back to all non-core
+# test speakers.
+DEV_SPEAKERS = {
+    "faks0", "fdac1", "fjem0", "mgwt0", "mjar0", "mmdb1", "mmdm2", "mpdf0",
+    "fcmh0", "fkms0", "mbdg0", "mbwm0", "mcsh0", "fadg0", "fdms0", "fedw0",
+    "mgjf0", "mglb0", "mrtk0", "mtaa0", "mtdt0", "mthc0", "mwjg0", "fnmr0",
+    "frew0", "fsem0", "mbns0", "mmjr0", "mdls0", "mdlf0", "mdvc0", "mers0",
+    "fmah0", "fdrw0", "mrcs0", "mrjm4", "fcal1", "mmwh0", "fjsj0", "majc0",
+    "mjsw0", "mreb0", "fgjd0", "fjmg0", "mroa0", "mteb0", "mjfc0", "mrjr0",
+    "fmml0", "mrws1",
+}
+
+
 def fold_to_39(phones: list[str]) -> list[str]:
     """Apply the Lee & Hon 61->39 folding; 'q' deleted, glottal-collapsed."""
     out = []
@@ -56,7 +86,6 @@ def fold_to_39(phones: list[str]) -> list[str]:
         if m is not None:
             out.append(m)
     return out
-
 
 
 def read_sphere(path: str) -> tuple[np.ndarray, int]:
@@ -118,3 +147,100 @@ def _read_riff(path: str) -> tuple[np.ndarray, int]:
         if data is None:
             raise ValueError(f"{path}: no data chunk")
         return data.astype(np.int16), rate
+
+
+def write_riff(path: str, samples: np.ndarray, rate: int = 16000) -> None:
+    """Write int16 mono PCM as a standard RIFF wav (``_read_riff``'s inverse)."""
+    data = np.asarray(samples, "<i2").tobytes()
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE")
+        f.write(b"fmt " + struct.pack("<IHHIIHH", 16, 1, 1, rate, rate * 2, 2, 16))
+        f.write(b"data" + struct.pack("<I", len(data)) + data)
+
+
+def read_phn(path: str) -> list[str]:
+    """Read a TIMIT .phn transcript -> list of phone symbols."""
+    phones = []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) == 3:
+                phones.append(parts[2].lower())
+    return phones
+
+
+@dataclass
+class TimitUtterance:
+    wav_path: str
+    phn_path: str
+    speaker: str
+    split: str  # train | dev | core_test | full_test
+
+
+class TimitDataset:
+    """The utterances of one TIMIT split, sorted by path.
+
+    Splits: ``train`` (without the SA sentences), ``dev`` (the 50 standard
+    dev speakers, or every non-core test speaker when none of them is
+    present), ``core_test`` and ``full_test``.
+    """
+
+    def __init__(self, root: str, split: str = "train"):
+        if not os.path.isdir(root):
+            raise FileNotFoundError(
+                f"TIMIT root {root!r} not found — this container has no TIMIT "
+                "audio; use dataset='synthetic' (see SURVEY.md §7)."
+            )
+        self.root = root
+        self.split = split
+        self.utterances = self._index(split)
+        if not self.utterances:
+            raise FileNotFoundError(f"no TIMIT utterances under {root!r} for {split!r}")
+
+    def _index(self, split: str) -> list[TimitUtterance]:
+        utts = self._index_with(split, standard_dev=True)
+        if split == "dev" and not utts:
+            utts = self._index_with(split, standard_dev=False)
+        return utts
+
+    def _index_with(self, split: str, *, standard_dev: bool) -> list[TimitUtterance]:
+        top = "train" if split == "train" else "test"
+        utts = []
+        for dirpath, _, files in os.walk(self.root):
+            for fn in files:
+                if not fn.lower().endswith(".wav"):
+                    continue
+                base = fn[:-4]
+                if base.lower().startswith("sa"):
+                    continue  # SA sentences excluded
+                phn = next((c for ext in (".phn", ".PHN")
+                            if os.path.exists(c := os.path.join(dirpath, base + ext))), None)
+                if phn is None:
+                    continue
+                rel = os.path.relpath(dirpath, self.root).lower().split(os.sep)
+                if top not in rel:
+                    continue
+                speaker = os.path.basename(dirpath).lower()
+                is_core = speaker in CORE_TEST_SPEAKERS
+                wav = os.path.join(dirpath, fn)
+                if split == "train" and top == "train":
+                    utts.append(TimitUtterance(wav, phn, speaker, "train"))
+                elif split == "core_test" and is_core:
+                    utts.append(TimitUtterance(wav, phn, speaker, "core_test"))
+                elif split == "full_test" and top == "test":
+                    utts.append(TimitUtterance(wav, phn, speaker, "full_test"))
+                elif split == "dev" and top == "test":
+                    if speaker in DEV_SPEAKERS if standard_dev else not is_core:
+                        utts.append(TimitUtterance(wav, phn, speaker, "dev"))
+        return sorted(utts, key=lambda u: u.wav_path)
+
+    def __len__(self):
+        return len(self.utterances)
+
+    def load(self, i: int) -> tuple[np.ndarray, np.ndarray]:
+        """-> (float32 waveform in [-1, 1], int32 phone ids)."""
+        utt = self.utterances[i]
+        samples, _ = read_sphere(utt.wav_path)
+        phones = read_phn(utt.phn_path)
+        ids = np.array([PHONE_TO_ID[p] for p in phones if p in PHONE_TO_ID], np.int32)
+        return samples.astype(np.float32) / 32768.0, ids

@@ -1,46 +1,77 @@
-"""The training loop on one device (counterpart of ``qasr/train/loop.py:86-198``
-without its mesh, prefetch thread and resume).
+"""The training loop on one device (counterpart of ``qasr/train/loop.py``
+without its mesh).
 
-A step loop over bucketed batches: every ``log_every`` steps a metrics line
-(loss, grad norm, audio-seconds per second), every ``eval_every`` steps the
-greedy error rate over the eval set, and at eval and ``checkpoint_every``
-steps a checkpoint directory that ``qasr_torch.infer.Transcriber`` reads as
-it is. Any model ``build_model`` builds trains here (the QCNN and the
-QCNN-LSTM); only the ``synthetic`` dataset is ported.
+A step loop over bucketed batches drawn by a prefetch thread: every
+``log_every`` steps a metrics row (loss, grad norm, audio-seconds per second
+per chip), every ``eval_every`` steps the greedy error rate over the eval set
+(the corpus's dev split: TIMIT ``dev``, LibriSpeech ``dev-clean``; the train
+set for ``synthetic`` or when the split is missing), and at eval and
+``checkpoint_every`` steps a checkpoint (``qasr_torch.train.checkpoint``:
+the step directory ``qasr_torch.infer.Transcriber`` reads as it is, the
+batch stream's state, the best-dev-PER pointer). ``resume=True`` continues
+from the latest checkpoint with the batches the interrupted run would have
+drawn. Any model ``build_model`` builds trains here.
 """
 
 from __future__ import annotations
 
-import json
-import os
 import time
 
 import numpy as np
 import torch
 
-from qasr_torch.bridge import save_params_npz
 from qasr_torch.configs import Config
-from qasr_torch.data.batching import BatchStream, epoch_iterator
+from qasr_torch.data.batching import BatchStream, Prefetcher, epoch_iterator
 from qasr_torch.data.synthetic import SyntheticDataset
 from qasr_torch.decode.scoring import batch_per
+from qasr_torch.train.checkpoint import CheckpointManager
+from qasr_torch.train.metrics import MetricWriter, device_memory_stats, per_device_bytes
 from qasr_torch.train.state import TrainState, create_train_state
 from qasr_torch.train.step import eval_step, train_step
 
 FRAME_S = 0.010  # 10 ms hop: one frame is 10 ms of audio
+# the split the loop evaluates on, where the corpus defines one
+EVAL_SPLITS = {"timit": "dev", "librispeech": "dev-clean"}
 
 
-def build_dataset(cfg: Config, *, seed: int = 0):
-    """The training dataset of ``cfg``. Only ``synthetic`` is ported: TIMIT and
-    LibriSpeech need the feature pipeline (ROADMAP.md)."""
+def build_dataset(cfg: Config, *, seed: int = 0, split: str = "train",
+                  device: torch.device | str = "cuda"):
+    """The ``split`` of ``cfg``'s dataset: synthetic examples (one set,
+    whatever the split), or a TIMIT or LibriSpeech split featurized on
+    ``device`` (LibriSpeech's ``train`` is ``train-clean-100``). A missing
+    corpus or split raises ``FileNotFoundError``."""
     d = cfg.data
     if d.dataset == "synthetic":
         return SyntheticDataset(
             vocab=cfg.model.vocab, n_mels=d.n_mels, num_examples=d.num_synthetic, seed=seed
         )
-    raise NotImplementedError(
-        f"dataset {d.dataset!r} is not ported yet: it needs the feature pipeline "
-        "(ROADMAP.md, Queue 1 item 8)"
-    )
+    if d.dataset == "timit":
+        from qasr_torch.data.pipeline import TimitFeaturePipeline
+
+        return TimitFeaturePipeline(cfg, split=split, device=device)
+    if d.dataset == "librispeech":
+        from qasr_torch.data.pipeline import LibriFeaturePipeline
+
+        return LibriFeaturePipeline(
+            cfg, split=split if split != "train" else "train-clean-100", device=device
+        )
+    raise ValueError(f"unsupported dataset {d.dataset!r}")
+
+
+def build_eval_dataset(cfg: Config, train_dataset=None, *,
+                       device: torch.device | str = "cuda"):
+    """The set model selection runs on: the corpus's dev split
+    (``EVAL_SPLITS``), or the train set (``train_dataset``, built when not
+    given) for ``synthetic`` and when that split is missing."""
+    split = EVAL_SPLITS.get(cfg.data.dataset)
+    if split is not None:
+        try:
+            return build_dataset(cfg, split=split, device=device)
+        except FileNotFoundError:
+            pass
+    if train_dataset is None:
+        train_dataset = build_dataset(cfg, seed=cfg.train.seed, device=device)
+    return train_dataset
 
 
 def _check_labels(batch, vocab: int) -> None:
@@ -52,22 +83,6 @@ def _check_labels(batch, vocab: int) -> None:
             f"label id {mx} out of range for model.vocab={vocab}; the corpus "
             "symbol inventory and the model vocabulary disagree"
         )
-
-
-def save_checkpoint(state: TrainState, directory: str) -> str:
-    """Write ``params.npz`` (f32, JAX parameter names), ``config.json`` and
-    ``train_state.pt`` (step, optimizer and dropout-generator state, with
-    ``torch.save``) into ``directory``; returns it."""
-    os.makedirs(directory, exist_ok=True)
-    save_params_npz(state.model.state_dict(), os.path.join(directory, "params.npz"))
-    with open(os.path.join(directory, "config.json"), "w") as f:
-        f.write(state.cfg.to_json())
-    torch.save(
-        {"step": state.step, "optimizer": state.optimizer.state_dict(),
-         "generator": state.generator.get_state()},
-        os.path.join(directory, "train_state.pt"),
-    )
-    return directory
 
 
 def evaluate(cfg: Config, model: torch.nn.Module, dataset) -> dict:
@@ -103,30 +118,71 @@ def train(
     *,
     device: torch.device | str = "cuda",
     checkpoint_dir: str | None = None,
+    metrics_dir: str | None = None,
+    resume: bool = False,
 ) -> tuple[TrainState, dict]:
     """Train ``cfg`` to ``cfg.train.num_steps`` on one device (the GPU unless
     the caller asks for the CPU). Checkpoints go to
     ``<checkpoint_dir>/step_<n>`` (default ``cfg.train.checkpoint_dir``) and
-    metric lines to ``<checkpoint_dir>/metrics.jsonl``. Returns the state and
-    the last logged metrics (with the last eval's ``dev_loss``/``dev_per``
-    and ``checkpoint``)."""
+    metric rows to ``<metrics_dir>/metrics.jsonl`` (default the checkpoint
+    directory). ``resume=True`` continues from the latest checkpoint there,
+    when there is one. Under ``cfg.train.debug_nans`` every op is checked
+    for non-finite values (``qasr_torch.utils.debug.nan_debug``). Returns the
+    state and the last logged metrics (with the last eval's
+    ``dev_loss``/``dev_per`` and ``checkpoint``)."""
+    kw = dict(device=device, checkpoint_dir=checkpoint_dir, metrics_dir=metrics_dir,
+              resume=resume)
+    if cfg.train.debug_nans:
+        from qasr_torch.utils.debug import nan_debug
+
+        with nan_debug():
+            return _train(cfg, **kw)
+    return _train(cfg, **kw)
+
+
+def _train(cfg: Config, *, device, checkpoint_dir, metrics_dir, resume):
+    device = torch.device(device)
     ckpt_dir = checkpoint_dir or cfg.train.checkpoint_dir
-    os.makedirs(ckpt_dir, exist_ok=True)
-    dataset = build_dataset(cfg, seed=cfg.train.seed)
+    dataset = build_dataset(cfg, seed=cfg.train.seed, device=device)
+    eval_dataset = build_eval_dataset(cfg, dataset, device=device)
     stream = BatchStream(dataset, cfg.data, seed=cfg.train.seed)
+    first = next(stream)
+    _check_labels(first, cfg.model.vocab)
     state = create_train_state(cfg, device=device)
-    is_cuda = torch.device(device).type == "cuda"
+    ckpt = CheckpointManager(cfg, directory=ckpt_dir)
+    if resume and ckpt.latest_step() is not None:
+        # the reference's order: `first` is drawn above, then the stream is
+        # restored and `first` drawn again from where the saved step left it
+        latest = ckpt.latest_step()
+        data_state = ckpt.restore_data_state(latest)
+        if data_state is not None:
+            stream.restore(data_state)
+            first = next(stream)
+            _check_labels(first, cfg.model.vocab)
+        ckpt.restore(latest, state)
+        print(f"[qasr] resumed from step {state.step}", flush=True)
+
+    writer = MetricWriter(metrics_dir or ckpt_dir)
+    # one-time accounting of the state's bytes on the device (and the
+    # allocator's), as the reference writes it
+    pdb = per_device_bytes((state.model.state_dict(), state.optimizer.state_dict()))
+    if pdb:
+        row = {"state_bytes_per_device_max": max(pdb.values()),
+               "state_bytes_per_device_min": min(pdb.values())}
+        mem = device_memory_stats(device)
+        if mem:
+            row["hbm_bytes_in_use_max"] = max(v["bytes_in_use"] for v in mem.values())
+        writer.write(state.step, row)
+
+    is_cuda = device.type == "cuda"
     last: dict = {}
+    # the state of the batch `first` is, taken before the producer thread
+    # starts drawing from the stream
+    batch, batch_state = first, stream.state()
+    prefetch = Prefetcher(stream, depth=cfg.data.prefetch_depth)
     t_window, frames_window = time.perf_counter(), 0
-    with open(os.path.join(ckpt_dir, "metrics.jsonl"), "a") as log:
-
-        def write(step: int, row: dict) -> None:
-            log.write(json.dumps({"step": step, **row}) + "\n")
-            log.flush()
-
-        for step in range(cfg.train.num_steps):
-            batch = next(stream)
-            _check_labels(batch, cfg.model.vocab)
+    try:
+        for step in range(state.step, cfg.train.num_steps):
             m = train_step(state, batch)
             frames_window += int(np.sum(batch["feature_lengths"]))
             if (step + 1) % cfg.train.log_every == 0:
@@ -136,16 +192,22 @@ def train(
                 last = {
                     "loss": float(m["loss"]),
                     "grad_norm": float(m["grad_norm"]),
-                    "audio_s_per_s": frames_window * FRAME_S / max(now - t_window, 1e-9),
+                    "audio_s_per_s_per_chip": frames_window * FRAME_S / max(now - t_window, 1e-9),
                 }
-                write(step + 1, last)
+                writer.write(step + 1, last)
                 t_window, frames_window = now, 0
-            do_eval = (step + 1) % cfg.train.eval_every == 0
-            if do_eval:
-                dev = evaluate(cfg, state.model, dataset)
-                write(step + 1, {f"dev_{k}": v for k, v in dev.items()})
+            if (step + 1) % cfg.train.eval_every == 0:
+                dev = evaluate(cfg, state.model, eval_dataset)
+                writer.write(step + 1, {f"dev_{k}": v for k, v in dev.items()})
                 last.update({f"dev_{k}": v for k, v in dev.items()})
-            if do_eval or (step + 1) % cfg.train.checkpoint_every == 0:
-                path = save_checkpoint(state, os.path.join(ckpt_dir, f"step_{step + 1}"))
-                last["checkpoint"] = path
+                last["checkpoint"] = ckpt.save(step + 1, state, dev_per=dev["per"],
+                                               data_state=batch_state)
+            elif (step + 1) % cfg.train.checkpoint_every == 0:
+                last["checkpoint"] = ckpt.save(step + 1, state, data_state=batch_state)
+            if step + 1 < cfg.train.num_steps:
+                batch, batch_state = next(prefetch)
+                _check_labels(batch, cfg.model.vocab)
+    finally:
+        prefetch.close()
+        writer.close()
     return state, last

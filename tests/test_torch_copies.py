@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's framework-free modules stay
 equal to the originals: configs and presets, the TIMIT and LibriSpeech
-tables, the audio reader, PER scoring and the native C++ library (built
+tables (the speaker lists too), the audio reader and writer, the ``.phn``
+reader, PER scoring and the native C++ library (built
 from the port's copy of the sources into ``qasr_torch/_build/``).
 """
 
@@ -51,6 +52,9 @@ def test_phone_tables_and_fold_equal_reference():
     assert ttimit.FOLD_61_TO_39 == jtimit.FOLD_61_TO_39
     assert ttimit.PHONE_TO_ID == jtimit.PHONE_TO_ID
     assert ttimit.ID_TO_PHONE == jtimit.ID_TO_PHONE
+    assert ttimit.CORE_TEST_SPEAKERS == jtimit.CORE_TEST_SPEAKERS
+    assert ttimit.DEV_SPEAKERS == jtimit.DEV_SPEAKERS
+    assert len(ttimit.DEV_SPEAKERS) == 50 and not ttimit.DEV_SPEAKERS & ttimit.CORE_TEST_SPEAKERS
     phones = jtimit.TIMIT_61 + ["not-a-phone"]
     assert ttimit.fold_to_39(phones) == jtimit.fold_to_39(phones)
     assert tscoring.FOLDED_39 == jscoring.FOLDED_39
@@ -84,6 +88,23 @@ def test_audio_reader_equals_reference(tmp_path):
     bad.write_bytes(b"RIFF" + struct.pack("<I", 4) + b"JUNK")
     with pytest.raises(ValueError):
         ttimit.read_sphere(str(bad))
+
+
+def test_riff_writer_and_phn_reader_equal_reference(tmp_path):
+    """``write_riff`` writes the reference's bytes (and reads back through
+    ``read_sphere``); ``read_phn`` reads a transcript as the reference does
+    (lower-cased symbols, malformed lines skipped)."""
+    pcm = (np.random.default_rng(3).standard_normal(777) * 4000).astype(np.int16)
+    for rate in (16000, 8000):
+        ttimit.write_riff(str(tmp_path / "t.wav"), pcm, rate)
+        jtimit.write_riff(str(tmp_path / "j.wav"), pcm, rate)
+        assert (tmp_path / "t.wav").read_bytes() == (tmp_path / "j.wav").read_bytes()
+        got, got_rate = ttimit.read_sphere(str(tmp_path / "t.wav"))
+        assert got_rate == rate
+        np.testing.assert_array_equal(got, pcm)
+    phn = tmp_path / "a.phn"
+    phn.write_text("0 3050 h#\n3050 4559 SH\nbad line\n4559 5723 ix extra\n5723 6000 q\n\n")
+    assert ttimit.read_phn(str(phn)) == jtimit.read_phn(str(phn)) == ["h#", "sh", "q"]
 
 
 @pytest.mark.parametrize("fold", [True, False])

@@ -7,7 +7,8 @@ small qcnn and a small qlstm on the CPU end to end (greedy and beam), trains
 ``tiny_synthetic`` and the small qlstm for two steps each, trains and
 serves through the command line (``qasr_torch.cli``), runs kernel J's plain
 version through ``qasr_torch.utils``, imports ``qasr_torch.tools.probe_dgt``
-and serves a small real CNN; a source scan checks
+and serves a small real CNN, and trains and evaluates a small QCNN on a
+mini-TIMIT corpus that the port's own writer makes; a source scan checks
 that no file of the port (or chip_smoke.py) imports any of them, nor the
 JAX package's probes (``benchmarks``).
 """
@@ -104,6 +105,17 @@ rcfg = cfg.override(**{"model.arch": "real_cnn", "model.conv_features": (4, 8)})
 rparams = build_model(rcfg, generator=torch.Generator().manual_seed(0), device="cpu").state_dict()
 out = Transcriber(cfg=rcfg, params=rparams, device="cpu").transcribe_batch(wavs)
 assert len(out) == 2, out
+from qasr_torch.tools.make_mini_timit import write_corpus
+with tempfile.TemporaryDirectory() as d:
+    write_corpus(f"{d}/timit", train_speakers=2, utts_per_speaker=4, dev_speakers=1,
+                 test_speakers=1)
+    sets = ["--set", f"data.data_dir={d}/timit", "data.batch_size=2", "data.bucket_sizes=256",
+            "model.conv_features=4,4", "model.dense_features=8", "model.compute_dtype=float32",
+            "train.num_steps=2", "train.eval_every=2", "train.checkpoint_every=2",
+            f"train.checkpoint_dir={d}/ckpt"]
+    last = main(["--preset", "timit_qcnn_fm32", "--device", "cpu", *sets])
+    ev = main(["--preset", "timit_qcnn_fm32", "--device", "cpu", "--eval-only", *sets])
+    assert ev["step"] == 2 and ev["per"] == last["dev_per"], (ev, last)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "qasr",
                                                               "benchmarks")
                 and sys.modules[m] is not None)
@@ -140,7 +152,9 @@ def test_no_jax_imports_in_port_sources():
     files = sorted((REPO / "qasr_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10 and REPO / "qasr_torch" / "cli.py" in files
     for part in ("utils/__init__.py", "utils/profiling.py", "utils/debug.py",
-                 "ops/kernels/dgt.py", "tools/probe_dgt.py"):
+                 "ops/kernels/dgt.py", "tools/probe_dgt.py", "data/pipeline.py",
+                 "train/checkpoint.py", "train/metrics.py", "tools/make_mini_timit.py",
+                 "tools/make_mini_librispeech.py"):
         assert REPO / "qasr_torch" / part in files, part
     bad = {
         str(f.relative_to(REPO)): _FORBIDDEN.findall(f.read_text())

@@ -352,7 +352,7 @@ def test_train_loop_checkpoint_serves(tmp_path):
     state, last = train(tcfg, device="cpu", checkpoint_dir=str(tmp_path))
     assert state.step == 2
     assert np.isfinite(last["loss"]) and np.isfinite(last["grad_norm"])
-    assert last["audio_s_per_s"] > 0 and 0.0 <= last["dev_per"] <= 1.5
+    assert last["audio_s_per_s_per_chip"] > 0 and 0.0 <= last["dev_per"] <= 1.5
     rows = [json.loads(line) for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
     assert [r["step"] for r in rows] == [1, 2, 2] and "dev_per" in rows[-1]
     ckpt = tmp_path / "step_2"
