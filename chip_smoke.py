@@ -98,6 +98,24 @@ few):
               then, not gated, featurization rates, the loop's audio-s/s,
               the dev eval's seconds and the idle share of a corpus step
               against the synthetic step
+ 12. protocol the paper's decode protocol: kernels A, C (with its epilogue)
+              and B (forward and dx) at ``timit_qcnn_fm32``'s shapes (32
+              quaternion channels, K = 13 x 32) against their plain
+              versions, f32 and bf16 (gated); ``python -m
+              qasr_torch.tools.run_timit_protocol --make-mini --preset
+              timit_qcnn_fm32 --set train.num_steps=1500`` (the JAX
+              package's recorded run, at the preset's schedule) under
+              ``qasr_torch/_build/smoke_protocol/``, gated: one JSON line
+              with the reference tool's keys, the best-dev-PER step, dev
+              and core-test PER <= 0.15 (W = 100 beam, -20 pruning, the
+              61->39 fold), launches 9/9/3/3 a step and 9/3 an eval
+              forward, and ``--skip-train`` (a subprocess) printing the same
+              PERs; the device beam against the host beam on one dev batch
+              of the trained model (sequences and lengths equal, scores
+              1e-3; gated); then, not gated, the training's seconds and
+              audio-s/s, each beam eval's seconds, the two beams' seconds
+              on that batch, and a torch.profiler breakdown of one train
+              step
 
 then one JSON line with the per-kernel results, the nvidia-smi line and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -161,6 +179,15 @@ FRAME_S = 0.010  # 10 ms hop: one frame is 10 ms of audio
 TRAIN_OVERRIDES = {"data.dataset": "synthetic", "data.n_mels": 40, "model.vocab": 62,
                    "data.bucket_sizes": (256,), "train.warmup_steps": 2,
                    "train.learning_rate": 1e-4}
+# Phase 12: the TIMIT protocol's overrides (the JAX package's recorded run,
+# docs/end_to_end.md: the preset's own schedule, peak 1e-3 after 500 warmup
+# steps, 1500 steps), the keys of the line tools/run_timit_protocol.py
+# prints, and the PER limit (under twice the JAX package's dev 0.0839 and
+# core-test 0.0726 on the TPU v5e)
+PROTOCOL_SETS = ["train.num_steps=1500"]
+PROTOCOL_KEYS = ["protocol", "preset", "step", "selected_by", "beam_width", "beam_prune_logp",
+                 "fold", "dev_per", "test_per", "trained_here", "data_dir"]
+PROTOCOL_PER_MAX = 0.15
 
 
 def _line(**kw) -> None:
@@ -1987,6 +2014,247 @@ def phase11_corpus(dev: torch.device, smi: str, tcfg8, batch: dict) -> None:
         print(line, flush=True)
 
 
+def phase12_protocol(dev: torch.device, smi: str) -> None:
+    """The paper's decode protocol on the card: ``timit_qcnn_fm32``'s kernel
+    shapes held against the plain versions, then
+    ``qasr_torch.tools.run_timit_protocol`` trained on mini-TIMIT, decoded by
+    the W = 100 beam on dev and core test, and repeated with
+    ``--skip-train``; the device beam against the host beam on one dev batch
+    of the trained model. Gated: the kernels' parity, the line's keys, the
+    best-dev-PER step, the PERs, the launches, the repeat's PERs and the two
+    beams' agreement. Then, not gated: the training's seconds and
+    audio-s/s, each beam eval's seconds and the two beams' seconds."""
+    import contextlib
+    import io
+
+    from qasr_torch.configs import get_config
+    from qasr_torch.data.batching import BatchStream, Prefetcher, epoch_iterator
+    from qasr_torch.data.pipeline import TimitFeaturePipeline
+    from qasr_torch.decode import ctc_beam_search_decode, ctc_beam_search_decode_host
+    from qasr_torch.models import build_model
+    from qasr_torch.ops.kernels.qconv_dx import qconv_dx8, qconv_dx_plain
+    from qasr_torch.ops.kernels.qconv_ft import qconv_ft8, qconv_stacked_plain
+    from qasr_torch.ops.kernels.qgemm8 import (
+        conj_transpose_dense,
+        qgemm8_cl,
+        qgemm8_cl_plain,
+        qgemm8_dx,
+    )
+    from qasr_torch.tools import run_timit_protocol
+    from qasr_torch.train import loop
+    from qasr_torch.train.checkpoint import CheckpointManager
+    from qasr_torch.train.state import create_train_state
+    from qasr_torch.train.step import batch_to_device, train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config("timit_qcnn_fm32")
+    c = cfg.model.conv_features[1]
+    k_in = 13 * c  # the first dense layer's K: 13 pooled bands of c channels
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    # kernels A, C and B at the fm32 path's shapes (the corpus's buckets of
+    # 128 and 256 frames at B16), gated as in phase 3
+    worst = {}
+    for t in (128, 256):
+        w = rnd(4, 3, 3, c, c, scale=(1.0 / (9 * c)) ** 0.5)
+        bias, alpha = rnd(4 * c, scale=0.1), rnd(4 * c, scale=0.25).abs()
+        slopes = rnd(4 * c, scale=0.25)
+        x32, dz32 = rnd(16, 4, 13, t, c, scale=0.5), rnd(16, 4, 13, t, c)
+        for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+            x, dz, dname = x32.to(dtype), dz32.to(dtype), str(dtype)[6:]
+            shape = f"B16 F13 T{t} C{c} {dname}"
+            checks = []  # (kernel, what, error); bf16 also against the bf16 plain version
+            for bb, aa in ((None, None), (bias, alpha)):
+                got = qconv_ft8(x, w, bb, aa)
+                what = f"{shape} prologue+bias={bb is not None}"
+                checks.append(("qconv_ft8", what, _errors(got, qconv_stacked_plain(
+                    x.float(), w, bb, aa))))
+                if dtype == torch.bfloat16:
+                    checks.append(("qconv_ft8", what + " vs bf16 plain",
+                                   _errors(got, qconv_stacked_plain(x, w, bb, aa))))
+            for epi in (False, True):
+                zz, sl = (x, slopes) if epi else (None, None)
+                got, got_da = qconv_dx8(dz, w, zz, sl)
+                ref, ref_da = qconv_dx_plain(dz.float(), w, None if zz is None else zz.float(), sl)
+                what = f"{shape} epilogue={epi}"
+                checks.append(("qconv_dx8", what + " dx", _errors(got, ref)))
+                if epi:
+                    checks.append(("qconv_dx8", what + " dalpha", _errors(got_da, ref_da)))
+                if dtype == torch.bfloat16:
+                    checks.append(("qconv_dx8", what + " dx vs bf16 plain",
+                                   _errors(got, qconv_dx_plain(dz, w, zz, sl)[0])))
+            for name, what, err in checks:
+                _report(f"fm32 {name} {what}", err, tol, phase=12)
+                worst[name] = max(worst.get(name, 0.0), err["rel_norm"])
+        for k, n in ((k_in, 256), (256, 256)):
+            m = 16 * t
+            wd = rnd(4, k, n, scale=(1.0 / k) ** 0.5)
+            xd32, dy32 = rnd(4, m, k, scale=0.5), rnd(4, m, n)
+            for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+                x4, dy4, dname = xd32.to(dtype), dy32.to(dtype), str(dtype)[6:]
+                err = _errors(qgemm8_cl(x4, wd), qgemm8_cl_plain(x4.float(), wd))
+                _report(f"fm32 qgemm8 M{m} K{k} N{n} {dname}", err, tol, phase=12)
+                worst["qgemm8"] = max(worst.get("qgemm8", 0.0), err["rel_norm"])
+                err = _errors(qgemm8_dx(dy4, wd),
+                              qgemm8_cl_plain(dy4.float(), conj_transpose_dense(wd)))
+                _report(f"fm32 qgemm8_dx M{m} N{n} -> K{k} {dname}", err, tol, phase=12)
+                worst["qgemm8_dx"] = max(worst.get("qgemm8_dx", 0.0), err["rel_norm"])
+    del x32, dz32, x, dz, xd32, dy32, x4, dy4
+    torch.cuda.empty_cache()
+    print(f"phase 12 parity: kernels A, C and B at timit_qcnn_fm32's shapes (C{c}, K{k_in}, "
+          f"B16 x T128 and T256) against their plain versions, f32 and bf16: worst rel_norm "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}", flush=True)
+
+    # the protocol, in this process (launches counted), as a user runs it
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "qasr_torch", "_build", "smoke_protocol")
+    shutil.rmtree(root, ignore_errors=True)
+    data, ckpt = os.path.join(root, "timit"), os.path.join(root, "ckpt")
+    argv = ["--make-mini", "--data-dir", data, "--ckpt", ckpt, "--preset", "timit_qcnn_fm32",
+            "--device", str(dev), "--set", *PROTOCOL_SETS]
+    seen = {"train_s": None, "evals": []}
+    real_train, real_eval = loop.train, loop.evaluate
+
+    def timed_train(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_train(*a, **kw)
+        torch.cuda.synchronize()
+        seen["train_s"] = time.perf_counter() - t0
+        return out
+
+    def timed_eval(cfg_, model, dataset, *, beam=False):
+        t0 = time.perf_counter()
+        out = real_eval(cfg_, model, dataset, beam=beam)
+        seen["evals"].append((beam, dataset.corpus.split, time.perf_counter() - t0))
+        return out
+
+    loop.train, loop.evaluate = timed_train, timed_eval
+    out = io.StringIO()
+    _reset_counts()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            returned = run_timit_protocol.main(argv)
+        protocol_s = time.perf_counter() - t0
+    finally:
+        loop.train, loop.evaluate = real_train, real_eval
+    counts = _read_counts()
+    lines = out.getvalue().splitlines()
+    if len(lines) != 1 or json.loads(lines[0]) != returned or list(returned) != PROTOCOL_KEYS:
+        raise RuntimeError(f"the protocol printed {lines!r}, expected one JSON line with the "
+                           f"keys {PROTOCOL_KEYS}")
+    line = returned
+    pcfg = cfg.override(**dict(kv.split("=", 1) for kv in PROTOCOL_SETS),
+                        **{"data.data_dir": data, "train.checkpoint_dir": ckpt})
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        rows = [json.loads(r) for r in f]
+    dev_rows = {r["step"]: r["dev_per"] for r in rows if "dev_per" in r}
+    best = min(dev_rows, key=lambda st: (dev_rows[st], st))  # best.json keeps the earlier tie
+    if (line["selected_by"] != "best_dev_per" or line["step"] != best or not line["trained_here"]
+            or (line["beam_width"], line["beam_prune_logp"]) != (100, -20.0)):
+        raise RuntimeError(f"the protocol selected {line}; the lowest logged dev_per is step "
+                           f"{best} ({dev_rows})")
+    if not (line["dev_per"] <= PROTOCOL_PER_MAX and line["test_per"] <= PROTOCOL_PER_MAX):
+        raise RuntimeError(f"protocol PER dev {line['dev_per']} core-test {line['test_per']} "
+                           f"above {PROTOCOL_PER_MAX} (the JAX package: 0.0839, 0.0726)")
+    # launches: 9/9/3/3 a train step, 9/3 an eval forward (the greedy dev
+    # evals every eval_every steps and the two beam evals)
+    n_batches = {split: len(list(epoch_iterator(TimitFeaturePipeline(pcfg, split, device=dev),
+                                                pcfg.data, train=False)))
+                 for split in ("dev", "core_test")}
+    n_steps = pcfg.train.num_steps
+    n_fwd = n_steps + (n_steps // pcfg.train.eval_every + 1) * n_batches["dev"] \
+        + n_batches["core_test"]
+    want = _want(qconv_ft8=9 * n_fwd, qconv_dx8=9 * n_steps, qgemm8=3 * n_fwd,
+                 qgemm8_dx=3 * n_steps)
+    evals = [(b, sp) for b, sp, _ in seen["evals"]]
+    want_evals = [(False, "dev")] * (n_steps // pcfg.train.eval_every) + [(True, "dev"),
+                                                                        (True, "core_test")]
+    if counts != want or evals != want_evals:
+        raise RuntimeError(f"the protocol's launches {counts}, expected {want}; evals {evals}, "
+                           f"expected {want_evals}")
+
+    # --skip-train, as a user runs it: the same PERs exactly
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.run([sys.executable, "-m", "qasr_torch.tools.run_timit_protocol", *argv,
+                           "--skip-train"], cwd=repo, env=env, capture_output=True, text=True,
+                          timeout=600)
+    again = json.loads(proc.stdout) if proc.returncode == 0 else None
+    if (again is None or again["trained_here"] or again["step"] != line["step"]
+            or (again["dev_per"], again["test_per"]) != (line["dev_per"], line["test_per"])):
+        raise RuntimeError(f"--skip-train exited {proc.returncode} with {proc.stdout!r} "
+                           f"{proc.stderr[-2000:]}, expected the PERs of {line}")
+
+    # the device beam against the host beam on one dev batch of the trained
+    # model (the protocol's width, pruning and max_len)
+    model = build_model(pcfg, device=dev)
+    model.load_state_dict(CheckpointManager(pcfg, write_config=False).restore_params(line["step"]))
+    model.eval()
+    dev_pipe = TimitFeaturePipeline(pcfg, "dev", device=dev)
+    batch = batch_to_device(next(iter(epoch_iterator(dev_pipe, pcfg.data, train=False))), dev)
+    with torch.no_grad():
+        logits = model(batch["features"], lengths=batch["feature_lengths"])
+    lengths = batch["feature_lengths"]
+    kw = dict(beam_width=pcfg.decode.beam_width, blank_id=pcfg.decode.blank_id,
+              max_len=pcfg.data.max_label_len, prune_logp=pcfg.decode.beam_prune_logp)
+    beam_s = []
+    for _ in range(2):  # the second call's seconds are reported
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d_seq, d_lens, d_score = ctc_beam_search_decode(logits, lengths, **kw)
+        torch.cuda.synchronize()
+        beam_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    h_seq, h_lens, h_score = ctc_beam_search_decode_host(logits, lengths, **kw)
+    host_s = time.perf_counter() - t0
+    d_seq, d_lens, d_score = d_seq.cpu().numpy(), d_lens.cpu().numpy(), d_score.cpu().numpy()
+    score_err = float(np.max(np.abs(d_score - h_score)))
+    if (not np.array_equal(d_lens, h_lens) or not np.array_equal(d_seq, h_seq)
+            or not score_err <= 1e-3):
+        raise RuntimeError(f"device beam vs host beam: lengths {d_lens} / {h_lens}, sequences "
+                           f"equal {np.array_equal(d_seq, h_seq)}, scores max diff {score_err:.3e}")
+    del model, logits
+    # where a step of the protocol's training goes: one step fed by the
+    # prefetch thread under the profiler (not gated)
+    st = create_train_state(pcfg, device=dev)
+    pf = Prefetcher(BatchStream(TimitFeaturePipeline(pcfg, "train", device=dev), pcfg.data,
+                                seed=SEED), depth=2)
+    try:
+        for _ in range(3):
+            train_step(st, next(pf)[0])
+        profile = _profile(lambda: train_step(st, next(pf)[0]), "one timit_qcnn_fm32 train step "
+                           "on mini-TIMIT, fed by the prefetch thread", 12, smi, 4)
+    finally:
+        pf.close()
+    del st
+    torch.cuda.empty_cache()
+    rate = [r["audio_s_per_s_per_chip"] for r in rows if "audio_s_per_s_per_chip" in r]
+    eval_s = {f"{'beam' if b else 'greedy'} {sp}": round(s_, 3) for b, sp, s_ in seen["evals"]
+              if b}
+    greedy_s = [round(s_, 3) for b, _, s_ in seen["evals"] if not b]
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 12 protocol: {json.dumps(line)}; dev PER {line['dev_per']} and core-test PER "
+          f"{line['test_per']} (the JAX package on the TPU v5e: 0.0839, 0.0726; limit "
+          f"{PROTOCOL_PER_MAX}); best.json step {best} of the logged {dev_rows}; launches "
+          f"{counts} ({n_steps} steps, {n_batches} batches of dev and core test); --skip-train "
+          f"(a subprocess) printed the same PERs", flush=True)
+    print(f"phase 12 beam on {smi}: one dev batch B{len(d_lens)} x T{batch['features'].shape[1]} "
+          f"(W {kw['beam_width']}, prune {kw['prune_logp']}, max_len {kw['max_len']}): device "
+          f"beam = host beam (sequences and lengths equal, scores max diff {score_err:.3e}, tol "
+          f"1e-3); device {beam_s[1]:.3f} s (first call {beam_s[0]:.3f}), host {host_s:.3f} s",
+          flush=True)
+    print(f"phase 12 timing on {smi}: protocol {protocol_s:.1f} s, train() {n_steps} steps "
+          f"{seen['train_s']:.1f} s ({seen['train_s'] / n_steps * 1e3:.2f} ms a step with its "
+          f"evals and checkpoints), the loop's audio_s_per_s_per_chip median "
+          f"{float(np.median(rate)):.1f} (min {min(rate):.1f}, max {max(rate):.1f}, "
+          f"{len(rate)} windows); greedy dev evals {greedy_s} s; beam evals {eval_s} s; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(profile, flush=True)
+
+
 def time_kernels(tree: str) -> int:
     """``--time-kernels TREE``: of the ``qasr_torch`` under ``TREE``, bf16, on
     CUDA events: the conv kernels at phase 5's shape, the rank-8 A (with its
@@ -2542,6 +2810,10 @@ def main() -> int:
     # 11. the corpus path: mini-TIMIT and mini-LibriSpeech featurized on the
     # card, trained, resumed, evaluated and served (their own launch counts)
     phase11_corpus(dev, smi, tcfg, batch)
+    # 12. the paper's decode protocol: fm32's kernel shapes, the TIMIT protocol
+    # trained and beam-decoded on mini-TIMIT, and the device beam against the
+    # host beam (their own launch counts)
+    phase12_protocol(dev, smi)
 
     def entry(name, source, replaces, bound, lib_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

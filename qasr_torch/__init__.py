@@ -41,6 +41,7 @@ _API = {
     "qlstm_scan_fast8": "qasr_torch.ops.kernels.qlstm_scan",
     # decode / features / inference
     "ctc_greedy_decode": "qasr_torch.ops.ctc",
+    "ctc_beam_search_decode": "qasr_torch.decode.beam",
     "ctc_loss": "qasr_torch.ops.ctc",
     "featurize_waveform": "qasr_torch.features.frontend",
     "Transcriber": "qasr_torch.infer",

@@ -5,7 +5,7 @@ checkpoint that training wrote.
   python -m qasr_torch.cli --preset tiny_synthetic [--set train.num_steps=500] [--resume]
   python -m qasr_torch.cli --preset timit_qcnn --set data.data_dir=/path/to/TIMIT
   python -m qasr_torch.cli --preset timit_qcnn --set data.data_dir=/path/to/TIMIT \\
-      --eval-only [--split core_test]
+      --eval-only [--beam] [--split core_test]
   python -m qasr_torch.cli transcribe --ckpt /tmp/qasr_ckpt [--beam] [--fold] f1.wav ...
 
 Everything runs on the GPU unless ``--device cpu`` asks for the CPU.
@@ -50,8 +50,8 @@ def main(argv=None):
     ap.add_argument("--eval-only", action="store_true",
                     help="evaluate the best (else the latest) checkpoint and exit")
     ap.add_argument("--beam", action="store_true",
-                    help="prefix beam search for --eval-only (not ported yet: "
-                    "ROADMAP.md Queue 1 item 10)")
+                    help="--eval-only decodes with the prefix beam on the device "
+                    "(decode.beam_width, decode.beam_prune_logp) instead of greedily")
     ap.add_argument("--split", default=None,
                     help="eval split for --eval-only (timit: dev/core_test/full_test; "
                     "librispeech: dev-clean/test-clean; default: the split train() "
@@ -65,12 +65,6 @@ def main(argv=None):
         for name, cfg in PRESETS.items():
             print(f"{name}: arch={cfg.model.arch} dataset={cfg.data.dataset}")
         return None
-    if args.eval_only and args.beam:
-        raise NotImplementedError(
-            "--beam evaluation needs the on-device beam search, which is not ported yet "
-            "(ROADMAP.md Queue 1 item 10)"
-        )
-
     cfg = get_config(args.preset)
     overrides = {}
     for kv in (x for group in args.set for x in group):
@@ -81,7 +75,7 @@ def main(argv=None):
     if overrides:
         cfg = cfg.override(**overrides)
     if args.eval_only:
-        return eval_only(cfg, split=args.split, device=args.device)
+        return eval_only(cfg, split=args.split, beam=args.beam, device=args.device)
 
     from qasr_torch.train.loop import train
 
@@ -90,12 +84,13 @@ def main(argv=None):
     return last
 
 
-def eval_only(cfg, *, split: str | None = None, device="cuda") -> dict:
+def eval_only(cfg, *, split: str | None = None, beam: bool = False, device="cuda") -> dict:
     """Evaluate the checkpoint of ``cfg.train.checkpoint_dir`` that
     ``best.json`` names, or the latest when that step is gone, on ``split``
     (default the set ``train()`` evaluates on: the dev split, or the train
-    set for ``synthetic``). Prints ``eval @ step N: {...}``; returns the
-    metrics (``loss``, ``per``) with ``step``."""
+    set for ``synthetic``), decoded greedily or with the prefix beam
+    (``beam``). Prints ``eval @ step N: {...}``; returns the metrics
+    (``loss``, ``per``) with ``step``."""
     from qasr_torch.models import build_model
     from qasr_torch.train.checkpoint import CheckpointManager
     from qasr_torch.train.loop import build_dataset, build_eval_dataset, evaluate
@@ -111,7 +106,7 @@ def eval_only(cfg, *, split: str | None = None, device="cuda") -> dict:
         dataset = build_eval_dataset(cfg, device=device)
     model = build_model(cfg, device=device)
     model.load_state_dict(ckpt.restore_params(step))
-    dev = evaluate(cfg, model, dataset)
+    dev = evaluate(cfg, model, dataset, beam=beam)
     print(f"[qasr] eval @ step {step}: {dev}", flush=True)
     return {"step": step, **dev}
 

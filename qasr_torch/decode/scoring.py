@@ -12,7 +12,7 @@ from typing import Sequence
 import numpy as np
 
 from qasr_torch.data.timit import FOLD_61_TO_39, ID_TO_PHONE
-from qasr_torch.native import batch_per_native
+from qasr_torch.native import batch_per_native, edit_distance_native
 
 # Stable index over the folded 39-phone inventory (plus a catch-all).
 FOLDED_39 = sorted({p for p in FOLD_61_TO_39.values() if p is not None})
@@ -30,6 +30,30 @@ def fold_ids_to_39_ids(ids: Sequence[int]) -> list[int]:
         if f is not None:
             out.append(_FOLD39_INDEX[f])
     return out
+
+
+def edit_distance(ref: Sequence, hyp: Sequence) -> int:
+    """Levenshtein distance (substitution/insertion/deletion cost 1) of two
+    sequences of any hashable symbols (ids, phone strings), by the native
+    scorer on their symbols numbered in order of appearance."""
+    index: dict = {}
+    r = [index.setdefault(x, len(index)) for x in ref]
+    h = [index.setdefault(x, len(index)) for x in hyp]
+    return edit_distance_native(r, h)
+
+
+def per_counts(ref_ids: Sequence[int], hyp_ids: Sequence[int], *, fold: bool = True):
+    """-> (errors, ref_len) after optional 61->39 folding.
+
+    PER = sum(errors)/sum(ref_len) over the eval set; the numerator and the
+    denominator stay apart so that they can be summed across processes."""
+    if fold:
+        ref = fold_ids_to_39_ids(ref_ids)
+        hyp = fold_ids_to_39_ids(hyp_ids)
+    else:
+        ref = [int(x) for x in ref_ids]
+        hyp = [int(x) for x in hyp_ids]
+    return edit_distance(ref, hyp), len(ref)
 
 
 def batch_per(

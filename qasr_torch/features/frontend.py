@@ -142,10 +142,11 @@ def normalize_features(feat: torch.Tensor, lengths: torch.Tensor) -> torch.Tenso
 
 
 def featurize_waveform(
-    wav, cfg: FrontendConfig = FrontendConfig(), *, device: torch.device | str = "cpu"
+    wav, cfg: FrontendConfig = FrontendConfig(), *, device: torch.device | str = "cuda"
 ) -> torch.Tensor:
     """One ``[N]`` waveform (numpy or tensor) -> normalized ``[T, n_mels, 4]``
-    f32 features on ``device``; per-utterance CMVN over the valid frames."""
+    f32 features on ``device`` (the GPU unless the caller asks for the CPU);
+    per-utterance CMVN over the valid frames."""
     x = torch.as_tensor(np.asarray(wav, np.float32) if not torch.is_tensor(wav) else wav)
     x = x.to(device=device, dtype=torch.float32)
     t = num_frames(x.shape[-1], cfg)

@@ -8,10 +8,10 @@
 
 A checkpoint directory for the port holds ``config.json`` (the ``Config``
 JSON that either package's training writes) and ``params.npz`` (see
-``qasr_torch.bridge``). Features, the encoder and greedy decoding run on
-``device`` (the GPU unless the caller asks for the CPU); ``beam=True`` decodes
-the logits on the host with the native C++ prefix beam search
-(``qasr_torch.native``) at the config's width and pruning.
+``qasr_torch.bridge``). Features, the encoder and the decoding run on
+``device`` (the GPU unless the caller asks for the CPU): greedy best-path, or
+with ``beam=True`` the prefix beam search (``qasr_torch.decode.beam``) at the
+config's width and pruning.
 """
 
 from __future__ import annotations
@@ -26,9 +26,10 @@ from qasr_torch.configs import Config
 from qasr_torch.bridge import load_params_npz, params_from_jax
 from qasr_torch.data.librispeech import ids_to_text
 from qasr_torch.data.timit import ID_TO_PHONE, fold_to_39, read_sphere
+from qasr_torch.decode.beam import ctc_beam_search_decode
 from qasr_torch.features.frontend import FrontendConfig, featurize_waveform
 from qasr_torch.models import build_model
-from qasr_torch.native import ctc_beam_decode_native, flac_decode_native, flac_probe
+from qasr_torch.native import flac_decode_native, flac_probe
 from qasr_torch.ops.ctc import ctc_greedy_decode
 
 
@@ -53,7 +54,7 @@ class Transcriber:
         instead of ``params.npz``.
       beam: prefix beam search (``cfg.decode.beam_width``,
         ``cfg.decode.beam_prune_logp``) instead of greedy best-path.
-      device: where features, the encoder and greedy decoding run (the GPU
+      device: where features, the encoder and the decoding run (the GPU
         unless the caller asks for the CPU; no fallback when there is none).
     """
 
@@ -108,18 +109,21 @@ class Transcriber:
 
     def decode(self, logits: torch.Tensor, lengths: torch.Tensor):
         """Logits -> (sequences ``[B, L]`` padded with -1, lengths ``[B]``) as
-        numpy arrays."""
+        numpy arrays, decoded on the logits' device."""
         if self.beam:
-            seq, lens, _ = ctc_beam_decode_native(
-                logits.float().cpu().numpy(),
-                lengths.cpu().numpy(),
+            # max_len = the padded frame count: CTC emits at most one symbol
+            # a frame, so nothing truncates (cfg.data.max_label_len bounds
+            # the training labels, not a transcription)
+            seq, lens, _ = ctc_beam_search_decode(
+                logits,
+                lengths,
                 beam_width=self.cfg.decode.beam_width,
                 blank_id=self.cfg.decode.blank_id,
                 max_len=int(logits.shape[1]),
                 prune_logp=self.cfg.decode.beam_prune_logp,
             )
-            return seq, lens
-        seq, lens = ctc_greedy_decode(logits, lengths, blank_id=self.cfg.decode.blank_id)
+        else:
+            seq, lens = ctc_greedy_decode(logits, lengths, blank_id=self.cfg.decode.blank_id)
         return seq.cpu().numpy(), lens.cpu().numpy()
 
     # -- symbol mapping ------------------------------------------------------

@@ -14,7 +14,10 @@ A checkpoint directory holds, for each kept step ``n``:
 
 and beside them ``best.json`` (the step with the lowest ``dev_per`` saved
 so far) and the run's ``config.json``. Only the newest
-``cfg.train.keep_checkpoints`` steps are kept.
+``cfg.train.keep_checkpoints`` steps are kept, and the step ``best.json``
+names: the JAX package's Orbax manager collects that step too, and its
+model selection then falls back to the latest step under the name of the
+best (an older best is the rule once dev PER stops falling).
 """
 
 from __future__ import annotations
@@ -97,7 +100,7 @@ class CheckpointManager:
         """Commit ``state`` as ``step_<step>`` (with its ``data_state``
         sidecar first), move ``best.json`` to it when ``dev_per`` is strictly
         lower than the best so far, and drop the steps beyond the newest
-        ``keep_checkpoints``. Returns the step directory."""
+        ``keep_checkpoints`` but the best. Returns the step directory."""
         if data_state is not None:
             _write_atomic(os.path.join(self.dir, f"data_state_{step}.json"),
                           json.dumps(data_state))
@@ -120,11 +123,12 @@ class CheckpointManager:
 
     def _collect(self, keep_step: int) -> None:
         """Remove the steps older than the newest ``keep`` (never
-        ``keep_step``), their sidecars, and the temporary directories a
-        killed save left."""
+        ``keep_step`` nor the best step), their sidecars, and the temporary
+        directories a killed save left."""
         steps = self.all_steps()
+        best = self.best_step()
         for s in steps[: max(0, len(steps) - self.keep)]:
-            if s != keep_step:
+            if s not in (keep_step, best):
                 shutil.rmtree(self.step_dir(s), ignore_errors=True)
                 try:
                     os.remove(os.path.join(self.dir, f"data_state_{s}.json"))

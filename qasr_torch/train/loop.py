@@ -27,7 +27,7 @@ from qasr_torch.decode.scoring import batch_per
 from qasr_torch.train.checkpoint import CheckpointManager
 from qasr_torch.train.metrics import MetricWriter, device_memory_stats, per_device_bytes
 from qasr_torch.train.state import TrainState, create_train_state
-from qasr_torch.train.step import eval_step, train_step
+from qasr_torch.train.step import beam_eval_step, eval_step, train_step
 
 FRAME_S = 0.010  # 10 ms hop: one frame is 10 ms of audio
 # the split the loop evaluates on, where the corpus defines one
@@ -85,16 +85,20 @@ def _check_labels(batch, vocab: int) -> None:
         )
 
 
-def evaluate(cfg: Config, model: torch.nn.Module, dataset) -> dict:
-    """Greedy error rate (``per``) and per-token loss over one pass of
-    ``dataset``: the PER on the 39-phone fold for TIMIT, the raw symbol
-    error rate otherwise (for LibriSpeech characters, the CER). Remainder
-    pad rows are scored once, never twice."""
+def evaluate(cfg: Config, model: torch.nn.Module, dataset, *, beam: bool = False) -> dict:
+    """Error rate (``per``) and per-token loss over one pass of ``dataset``,
+    decoded greedily (the dev protocol) or with the prefix beam on the
+    device (``beam=True``, the final numbers: one forward a batch for the
+    loss and the beam, ``beam_eval_step``): the PER on the 39-phone fold for
+    TIMIT, the raw symbol error rate otherwise (for LibriSpeech characters,
+    the CER). Each batch's loss is weighted by its real label tokens;
+    remainder pad rows are scored once, never twice."""
+    step_fn = beam_eval_step if beam else eval_step
     errs = total = 0
     losses = []
     for batch in epoch_iterator(dataset, cfg.data, train=False):
         _check_labels(batch, cfg.model.vocab)
-        out = eval_step(cfg, model, batch)
+        out = step_fn(cfg, model, batch)
         real = np.asarray(batch["real_rows"])
         losses.append((float(out["loss"]), int(np.sum(batch["label_lengths"] * real))))
         e, n = batch_per(

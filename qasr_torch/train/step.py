@@ -1,5 +1,5 @@
-"""Train and eval steps: forward, CTC loss, backward, clipped AdamW update
-(counterpart of ``qasr/train/step.py:23-118``).
+"""Train and eval steps: forward, CTC loss, backward, clipped AdamW update;
+the greedy and the beam eval steps (counterpart of ``qasr/train/step.py``).
 
 PyTorch runs eagerly, so a step is a sequence of kernel launches on the
 current stream; nothing here synchronises with the device except reading a
@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from qasr_torch.configs import Config
+from qasr_torch.decode.beam import ctc_beam_search_decode
 from qasr_torch.ops.ctc import ctc_greedy_decode, ctc_loss
 from qasr_torch.train.state import TrainState
 
@@ -99,10 +100,9 @@ def train_step(state: TrainState, batch: dict, *, plain: bool = False) -> dict:
     }
 
 
-@torch.no_grad()
-def eval_step(cfg: Config, model: torch.nn.Module, batch: dict) -> dict:
-    """Eval-mode loss and greedy decode of ``batch``: ``loss`` (device
-    scalar), ``decoded [B, T]`` padded with -1 and ``decoded_lengths [B]``."""
+def _eval_forward(model: torch.nn.Module, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Eval-mode logits of ``batch`` (moved to the model's device), and the
+    batch as device tensors."""
     device = next(model.parameters()).device
     batch = batch_to_device(batch, device)
     was_training = model.training
@@ -111,7 +111,35 @@ def eval_step(cfg: Config, model: torch.nn.Module, batch: dict) -> dict:
         logits = model(batch["features"], lengths=batch["feature_lengths"])
     finally:
         model.train(was_training)
+    return logits, batch
+
+
+@torch.no_grad()
+def eval_step(cfg: Config, model: torch.nn.Module, batch: dict) -> dict:
+    """Eval-mode loss and greedy decode of ``batch``: ``loss`` (device
+    scalar), ``decoded [B, T]`` padded with -1 and ``decoded_lengths [B]``."""
+    logits, batch = _eval_forward(model, batch)
     decoded, lengths = ctc_greedy_decode(
         logits, batch["feature_lengths"], blank_id=cfg.decode.blank_id
     )
     return {"loss": loss_fn(cfg, logits, batch), "decoded": decoded, "decoded_lengths": lengths}
+
+
+@torch.no_grad()
+def beam_eval_step(cfg: Config, model: torch.nn.Module, batch: dict) -> dict:
+    """The final-numbers eval step: one eval-mode forward, then the loss and
+    the prefix beam decode on the device (``cfg.decode``'s width, blank and
+    pruning, ``max_len = cfg.data.max_label_len``), as
+    ``make_beam_eval_step``. Returns ``loss``, ``decoded [B, max_len]``
+    padded with -1, ``decoded_lengths [B]`` and ``log_score [B]``."""
+    logits, batch = _eval_forward(model, batch)
+    seq, lens, score = ctc_beam_search_decode(
+        logits,
+        batch["feature_lengths"],
+        beam_width=cfg.decode.beam_width,
+        blank_id=cfg.decode.blank_id,
+        max_len=int(cfg.data.max_label_len),
+        prune_logp=cfg.decode.beam_prune_logp,
+    )
+    return {"loss": loss_fn(cfg, logits, batch), "decoded": seq, "decoded_lengths": lens,
+            "log_score": score}

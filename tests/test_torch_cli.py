@@ -1,8 +1,8 @@
 """``qasr_torch.cli``, the port's command line, on the CPU: ``main`` trains a
 preset with overrides and writes a checkpoint, ``transcribe_main`` serves it
-on written wav files (greedy and beam), ``--resume`` and ``--eval-only`` run,
-``--beam`` evaluation (not ported) raises, and ``python -m qasr_torch.cli``
-dispatches both."""
+on written wav files (greedy and beam), ``--resume``, ``--eval-only`` and
+``--eval-only --beam`` run, and ``python -m qasr_torch.cli`` dispatches
+both."""
 
 import json
 import os
@@ -15,8 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from qasr_torch.bridge import load_params_npz
 from qasr_torch.cli import main, resolve_checkpoint, transcribe_main
 from qasr_torch.configs import Config
+from qasr_torch.models import build_model
+from qasr_torch.train.loop import build_eval_dataset, evaluate
 
 torch.set_num_threads(1)
 
@@ -80,10 +83,11 @@ def test_resolve_checkpoint(trained, tmp_path):
         resolve_checkpoint(str(tmp_path))
 
 
-def test_unported_flags_and_datasets_are_refused(trained, tmp_path, capsys):
+def test_resume_eval_only_beam_eval_and_bad_flags(trained, tmp_path, capsys):
     """``--resume`` and ``--eval-only`` run and corpus datasets are accepted;
-    ``--beam`` evaluation is the one flag still refused (it names Queue 1
-    item 10); a bad ``--set`` and ``--list-presets`` behave as before."""
+    ``--eval-only --beam`` reports the ``per`` and loss that
+    ``evaluate(beam=True)`` gives on that step; a missing corpus or
+    checkpoint, a bad ``--set`` and ``--list-presets`` behave as before."""
     root, first = trained
     run = tmp_path / "run"
     shutil.copytree(root, run)
@@ -97,8 +101,14 @@ def test_unported_flags_and_datasets_are_refused(trained, tmp_path, capsys):
     assert ev["step"] == 2 and ev["per"] == first["dev_per"]
     np.testing.assert_allclose(ev["loss"], first["dev_loss"], rtol=1e-6)
     assert "eval @ step 2: " in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        main(["--device", "cpu", "--eval-only", "--beam", "--set", f"train.checkpoint_dir={root}"])
+    beam = main(["--preset", "tiny_synthetic", "--device", "cpu", "--eval-only", "--beam",
+                 "--set", *SETS, f"train.checkpoint_dir={root}"])
+    assert "eval @ step 2: " in capsys.readouterr().out
+    cfg = Config.from_json((root / "step_2" / "config.json").read_text())
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(load_params_npz(str(root / "step_2" / "params.npz")))
+    want = evaluate(cfg, model, build_eval_dataset(cfg, device="cpu"), beam=True)
+    assert beam == {"step": 2, **want} and 0.0 < want["per"]
     with pytest.raises(FileNotFoundError, match="TIMIT root"):
         main(["--preset", "timit_qcnn", "--device", "cpu", "--set",
               f"data.data_dir={tmp_path / 'no_timit'}"])

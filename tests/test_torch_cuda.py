@@ -682,3 +682,26 @@ def test_dgt_kernel_refuses_on_card(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         dgt.dgt(torch.zeros(8, 64, device=cuda_device).T, torch.zeros(64, 8, device=cuda_device),
                 mode="dgt")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prune", [None, -20.0])
+def test_beam_on_card_matches_cpu_and_host_beam(cuda_device, prune):
+    """The prefix beam on the card (plain PyTorch, no kernel of its own)
+    against itself on the CPU and against the native host beam, at W=100,
+    V=62 with ragged lengths: sequences and lengths equal, scores 1e-3 (the
+    card's exp and log are other implementations; a few ulp a frame)."""
+    from qasr_torch.decode import ctc_beam_search_decode, ctc_beam_search_decode_host
+
+    rng = np.random.default_rng(31)
+    logits = _t(_rand(rng, 4, 60, 62, scale=2.0))
+    lengths = torch.tensor([60, 51, 17, 0])
+    kw = dict(beam_width=100, max_len=60, prune_logp=prune)
+    got = ctc_beam_search_decode(logits.to(cuda_device), lengths.to(cuda_device), **kw)
+    assert all(t.device.type == "cuda" for t in got)
+    want = ctc_beam_search_decode(logits, lengths, **kw)
+    host = ctc_beam_search_decode_host(logits, lengths, **kw)
+    for ref in (want, [torch.from_numpy(a) for a in host]):
+        assert torch.equal(got[1].cpu(), ref[1].to(torch.int32))
+        assert torch.equal(got[0].cpu(), ref[0].to(torch.int32))
+        torch.testing.assert_close(got[2].cpu(), ref[2].float(), rtol=1e-3, atol=1e-3)

@@ -8,7 +8,8 @@ small qcnn and a small qlstm on the CPU end to end (greedy and beam), trains
 serves through the command line (``qasr_torch.cli``), runs kernel J's plain
 version through ``qasr_torch.utils``, imports ``qasr_torch.tools.probe_dgt``
 and serves a small real CNN, and trains and evaluates a small QCNN on a
-mini-TIMIT corpus that the port's own writer makes; a source scan checks
+mini-TIMIT corpus that the port's own writer makes, then beam-decodes it
+through the TIMIT protocol tool; a source scan checks
 that no file of the port (or chip_smoke.py) imports any of them, nor the
 JAX package's probes (``benchmarks``).
 """
@@ -116,6 +117,10 @@ with tempfile.TemporaryDirectory() as d:
     last = main(["--preset", "timit_qcnn_fm32", "--device", "cpu", *sets])
     ev = main(["--preset", "timit_qcnn_fm32", "--device", "cpu", "--eval-only", *sets])
     assert ev["step"] == 2 and ev["per"] == last["dev_per"], (ev, last)
+    from qasr_torch.tools.run_timit_protocol import main as protocol
+    line = protocol(["--device", "cpu", "--data-dir", f"{d}/timit", "--ckpt", f"{d}/ckpt",
+                     "--preset", "timit_qcnn_fm32", "--skip-train", *sets, "decode.beam_width=4"])
+    assert line["step"] == 2 and line["beam_width"] == 4 and not line["trained_here"], line
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "qasr",
                                                               "benchmarks")
                 and sys.modules[m] is not None)
@@ -154,7 +159,8 @@ def test_no_jax_imports_in_port_sources():
     for part in ("utils/__init__.py", "utils/profiling.py", "utils/debug.py",
                  "ops/kernels/dgt.py", "tools/probe_dgt.py", "data/pipeline.py",
                  "train/checkpoint.py", "train/metrics.py", "tools/make_mini_timit.py",
-                 "tools/make_mini_librispeech.py"):
+                 "tools/make_mini_librispeech.py", "tools/run_timit_protocol.py",
+                 "decode/beam.py"):
         assert REPO / "qasr_torch" / part in files, part
     bad = {
         str(f.relative_to(REPO)): _FORBIDDEN.findall(f.read_text())

@@ -193,9 +193,11 @@ def test_ctc_greedy_decode_matches_jax():
 
 
 def test_beam_native_matches_jax_beam(jax_side):
-    """The port's beam (qasr.native) on the port's logits equals
-    qasr.decode.ctc_beam_search_decode on the same logits, at the config's
-    width and its absolute -20 pruning."""
+    """The port's beam (``Transcriber(beam=True)``: the on-device
+    ``qasr_torch.decode.beam``, on the CPU here) on the port's logits equals
+    qasr.decode.ctc_beam_search_decode and the JAX package's native host
+    beam on the same logits, at the config's width and its absolute -20
+    pruning."""
     _, _, tree = jax_side
     tr = Transcriber(cfg=CFG, params=tree, beam=True, device="cpu")
     wavs = _wavs(seed=5)

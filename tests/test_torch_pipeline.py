@@ -16,8 +16,9 @@ and ``tools/make_mini_librispeech.py`` (2-3 speakers a split).
 - the slice as a whole: with one set of weights carried across by
   ``params_from_jax`` (``timit_qcnn_fm32`` narrowed to three conv layers),
   the port's ``evaluate`` on the dev split equals the JAX ``evaluate`` (PER
-  exactly, loss within 1e-4 relative), and ``train()`` logs the dev split's
-  PER;
+  exactly, loss within 1e-4 relative), greedy and with the W=100 prefix
+  beam (``beam=True``, the decode protocol), and ``train()`` logs the dev
+  split's PER;
 - the port's corpus writers (``qasr_torch/tools/make_mini_*.py``) write the
   same bytes as the repo's tools.
 """
@@ -276,11 +277,10 @@ def _own_copy(corpora, tmp_path) -> str:
     return root
 
 
-def test_dev_evaluate_matches_reference(corpora, tmp_path):
-    """timit_qcnn_fm32 narrowed to three conv layers, JAX-initialised weights
-    carried into the port: the port's eval set is the dev split, and its
-    ``evaluate`` there equals the JAX ``evaluate`` on the same features (the
-    JAX pipeline reads the port's cache): PER exactly, loss 1e-4."""
+def _bridged_dev(corpora, tmp_path):
+    """The narrowed timit_qcnn_fm32 configs, the two packages' dev-split
+    pipelines on one copy of mini-TIMIT, JAX-initialised weights and the
+    port's model holding them."""
     root = _own_copy(corpora, tmp_path)
     jcfg, tcfg = _cfgs("timit_qcnn_fm32", **SLICE, **{"data.data_dir": root})
     tds = build_eval_dataset(tcfg, device="cpu")
@@ -290,10 +290,32 @@ def test_dev_evaluate_matches_reference(corpora, tmp_path):
     sample = next(iter(jepoch_iterator(jds, jcfg.data, train=False)))["features"]
     jstate = jax.jit(lambda f: jcreate_train_state(jcfg, jax.random.PRNGKey(0), f))(sample)
     jparams = jax.tree.map(np.array, jstate.params)
-    want = jevaluate(jcfg, jparams, jds, make_eval_step(jcfg))
     model = build_model(tcfg, device="cpu")
     model.load_state_dict(params_from_jax(jparams))
+    return jcfg, tcfg, jds, tds, jparams, model
+
+
+def test_dev_evaluate_matches_reference(corpora, tmp_path):
+    """timit_qcnn_fm32 narrowed to three conv layers, JAX-initialised weights
+    carried into the port: the port's eval set is the dev split, and its
+    ``evaluate`` there equals the JAX ``evaluate`` on the same features (the
+    JAX pipeline reads the port's cache): PER exactly, loss 1e-4."""
+    jcfg, tcfg, jds, tds, jparams, model = _bridged_dev(corpora, tmp_path)
+    want = jevaluate(jcfg, jparams, jds, make_eval_step(jcfg))
     got = evaluate(tcfg, model, tds)
+    assert got["per"] == want["per"] and 0.0 < got["per"]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+
+
+def test_dev_beam_evaluate_matches_reference(corpora, tmp_path):
+    """The same weights and dev split decoded by the protocol's beam (W=100,
+    absolute -20 pruning, ``max_len = data.max_label_len``): the port's
+    ``evaluate(beam=True)`` equals ``qasr.train.evaluate(beam=True)``, PER
+    exactly, loss 1e-4."""
+    jcfg, tcfg, jds, tds, jparams, model = _bridged_dev(corpora, tmp_path)
+    assert (tcfg.decode.beam_width, tcfg.decode.beam_prune_logp) == (100, -20.0)
+    want = jevaluate(jcfg, jparams, jds, None, beam=True)
+    got = evaluate(tcfg, model, tds, beam=True)
     assert got["per"] == want["per"] and 0.0 < got["per"]
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
 

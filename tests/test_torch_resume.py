@@ -18,6 +18,7 @@
 
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -138,8 +139,10 @@ def test_checkpoint_commit_is_atomic(tmp_path, monkeypatch):
 
 
 def test_best_pointer_moves_only_on_lower_per(tmp_path):
-    """``best.json`` follows a strictly lower ``dev_per``; once the best step
-    is collected, eval-only and transcribe fall back to the latest."""
+    """``best.json`` follows a strictly lower ``dev_per``; garbage collection
+    keeps the step it names beside the newest ``keep_checkpoints``; when that
+    step is gone all the same, eval-only and transcribe fall back to the
+    latest."""
     cfg = _cfg(tmp_path, **{"train.keep_checkpoints": 3})
     state = _trained_state(cfg, 1)
     mgr = CheckpointManager(cfg)
@@ -151,8 +154,11 @@ def test_best_pointer_moves_only_on_lower_per(tmp_path):
     assert json.loads((tmp_path / "best.json").read_text()) == {"step": 5, "dev_per": 0.3}
     assert cli.resolve_checkpoint(str(tmp_path)) == str(tmp_path / "step_5")
     assert cli.resolve_checkpoint(str(tmp_path), 6) == str(tmp_path / "step_6")
-    for step in (7, 8, 9):  # collects step 5
+    for step in (7, 8, 9):  # collects step 6, keeps the best step 5
         mgr.save(step, state)
+    assert mgr.all_steps() == [5, 7, 8, 9] and mgr.best_step() == 5
+    assert cli.resolve_checkpoint(str(tmp_path)) == str(tmp_path / "step_5")
+    shutil.rmtree(tmp_path / "step_5")  # the best step removed by hand
     assert mgr.all_steps() == [7, 8, 9] and mgr.best_step() == 5
     assert cli.resolve_checkpoint(str(tmp_path)) == str(tmp_path / "step_9")
 
