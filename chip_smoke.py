@@ -6,9 +6,10 @@ Drives the port's serving path and its training path (``qasr_torch``, no
 JAX; on synthetic batches and on small synthetic TIMIT and LibriSpeech
 corpora) at the full width of ``timit_qcnn`` (the paper's QCNN-256, bf16
 compute, random weights from a seeded ``torch.Generator``), the serving
-and training paths of ``librispeech_qlstm`` and of the real-CNN baseline
-``timit_real_cnn``, and the row-contracting product's probe, through the
-hand-written CUDA kernels, and checks them. Phases, one line each (or a
+and training paths of ``librispeech_qlstm`` (its default arm, its block,
+fast8 and unidirectional arms and its real ablation) and of the real-CNN
+baseline ``timit_real_cnn``, and the row-contracting product's probe,
+through the hand-written CUDA kernels, and checks them. Phases, one line each (or a
 few):
 
   1. device   the card's name and power limit (nvidia-smi)
@@ -52,8 +53,9 @@ few):
               (gated); then, not gated, the train step kernel and plain
               (with a torch.profiler breakdown), kernel E against its plain
               version, its bound and the dW einsums, one QBiLSTM layer
-              forward + backward against one cuDNN LSTM's, and both
-              input-projection arms at M 2048-16384
+              forward + backward against one cuDNN LSTM's (the
+              input-projection crossover sweep is
+              ``python -m qasr_torch.tools.sweep_input_proj``)
   9. fast10   ``timit_qcnn`` in the 10-product scheme (``op_variant=fused``,
               ``dense_variant=pallas``) at full width: kernels F and G (the
               conv and the transposed conv), H (the GEMM, forward and dx)
@@ -116,6 +118,27 @@ few):
               audio-s/s, each beam eval's seconds, the two beams' seconds
               on that batch, and a torch.profiler breakdown of one train
               step
+ 13. qlstm    config 4's other arms at full width (B32 x T512, ragged, bf16):
+     arms     kernel B in bf16 against its plain version, whose products
+              now stay in f32 until the fold, at phases 3, 7 and 8's shapes
+              (gated; the distance to the bf16-product form it replaced
+              printed), and the dW's f32-output GEMM on the card against
+              f32 operands (gated); then ``op_variant`` block and fast8
+              (on the default arm's weights), the unidirectional encoder
+              and the real ablation ``real_lstm``: each served, its kernel
+              path against its plain path and the f32 plain path, block
+              and fast8 against the default arm (f32 plain 1e-4, bf16
+              phase 4's limits), launches a forward and a step (D and E
+              none), gradient parity where a kernel is on the path; at one
+              LSTM layer and T128 (depth and length cut: the loops are
+              host-bound), twenty steps on one batch lower the loss, a
+              2-step ``train()`` (for
+              ``real_lstm`` ``python -m qasr_torch.cli``) whose checkpoint a
+              Transcriber serves (gated); then, not gated, each arm's
+              forward and step, the default step, one RealBiLSTM layer
+              against cuDNN's ``nn.LSTM``, a torch.profiler breakdown of a
+              block-arm step, and the dW's cost with f32 products against
+              bf16 ones
 
 then one JSON line with the per-kernel results, the nvidia-smi line and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -188,6 +211,10 @@ PROTOCOL_SETS = ["train.num_steps=1500"]
 PROTOCOL_KEYS = ["protocol", "preset", "step", "selected_by", "beam_width", "beam_prune_logp",
                  "fold", "dev_per", "test_per", "trained_here", "data_dir"]
 PROTOCOL_PER_MAX = 0.15
+# Kernel B's shapes in phase 3 (M, K, N): config 2's dense layers (K = 13 x
+# 256 and 256) at B16 x T256 and at a ragged M; phase 13 holds the plain
+# version's f32 products there too
+PHASE3_GEMMS = ((4096, 3328, 256), (1000, 3328, 256), (4096, 256, 256), (1000, 256, 256))
 
 
 def _line(**kw) -> None:
@@ -1053,31 +1080,6 @@ def phase8_qlstm_train(dev: torch.device, smi: str) -> dict:
         del w, dz, zz
     torch.cuda.empty_cache()
 
-    # the input projection's two arms, forward alone and forward plus
-    # backward (dx and dW), at M = B*T rows, N = 2 directions x 4H, K = the
-    # tower's F*C (layer 0) and 2H (layers 1-2), bf16 compute on f32 weights
-    cross = []
-    for k in (nf * conv[-1], 2 * H):
-        for m in (2048, 4096, 8192, 16384):
-            xp = rnd(m, 4 * k, scale=0.5).to(bf16).requires_grad_()
-            wp = rnd(4, k, 8 * H, scale=k ** -0.5).requires_grad_()
-            dyp = rnd(m, 4 * 8 * H).to(bf16)
-            row = {"K": k, "M": m}
-            for name in ("fast8", "block"):
-                fn = input_proj_fn(name, m)
-                with torch.no_grad():
-                    row[f"{name}_fwd"] = _time_ms(lambda: fn(xp, wp.to(bf16)), 5)
-
-                def fwd_bwd():
-                    xp.grad = None
-                    wp.grad = None
-                    fn(xp, wp.to(bf16)).backward(dyp)
-
-                row[f"{name}_fwd_bwd"] = _time_ms(fwd_bwd, 5)
-            cross.append(row)
-            del xp, wp, dyp
-    torch.cuda.empty_cache()
-
     print(f"phase 8 timing on {smi}: config 4 train step B{B}xT{T} bf16 kernel path "
           f"{step_k:.3f} ms ({audio_s / step_k * 1e3:.1f} audio-s/s), plain path {step_p:.3f} ms "
           f"({audio_s / step_p * 1e3:.1f} audio-s/s); qlstm_scan8_bwd T{T} B{B} H{H} D2 bf16 "
@@ -1088,11 +1090,6 @@ def phase8_qlstm_train(dev: torch.device, smi: str) -> dict:
           f"backward {lib_ms:.3f} ms; qconv_dx8 B{B} F{nf} T{T} bf16: " + "; ".join(
               f"C{co}->{ci} epilogue={e} kernel {k:.3f} ms plain {p:.3f} ms bound {bd:.3f} ms"
               for ci, co, e, k, p, bd in c_times), flush=True)
-    print(f"phase 8 crossover on {smi} (input projection, N{8 * H} bf16, ms; kernel B = "
-          "fast8, block = the expanded matmul): " + "; ".join(
-              f"K{r['K']} M{r['M']}: fwd kernel B {r['fast8_fwd']:.3f} block "
-              f"{r['block_fwd']:.3f}, fwd+bwd kernel B {r['fast8_fwd_bwd']:.3f} block "
-              f"{r['block_fwd_bwd']:.3f}" for r in cross), flush=True)
     print(prof_line, flush=True)
     return {"name": "qlstm_scan8_bwd", "route": "cuda",
             "source": "qasr_torch/csrc/qlstm_scan8_bwd.cu",
@@ -1882,7 +1879,8 @@ def phase11_corpus(dev: torch.device, smi: str, tcfg8, batch: dict) -> None:
                            f"{dev_rows[8]['dev_per']})")
     # --eval-only reports what the loop logged at that step
     with contextlib.redirect_stdout(io.StringIO()):
-        ev = cli.main(["--preset", "timit_qcnn", "--eval-only", "--set", f"data.data_dir={timit}",
+        ev = cli.main(["--preset", "timit_qcnn", "--eval-only", "--split", "dev", "--set",
+                       f"data.data_dir={timit}",
                        f"train.checkpoint_dir={whole}"])
     logged = dev_rows[best_want]
     if (ev["step"] != best_want or ev["per"] != logged["dev_per"]
@@ -2255,6 +2253,323 @@ def phase12_protocol(dev: torch.device, smi: str) -> None:
     print(profile, flush=True)
 
 
+def _old_qgemm8_plain(x4: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Kernel B's plain version as it was before its products were kept in
+    f32: each of the eight products rounded to x's dtype before the f32 O8
+    fold. Kept here only to record how far the kernel was from it."""
+    from qasr_torch.ops.kernels.qgemm8 import combos8
+    from qasr_torch.ops.quaternion import O8, combine_weights, device_table
+
+    prods = torch.bmm(combos8(x4), combine_weights(w, x4.dtype)).float()
+    return torch.einsum("pmn,bp->bmn", prods, device_table(O8, torch.float32, x4.device)).to(
+        x4.dtype)
+
+
+def _old_qgemm8_dw(x4: torch.Tensor, dy4: torch.Tensor) -> torch.Tensor:
+    """``qgemm8_dw`` as it was: its products rounded to the compute dtype
+    before the f32 fold (both branches). For the before-and-after timing."""
+    from qasr_torch.ops.quaternion import HAMILTON_E, O8_T, U8, V8, device_table
+
+    k, n = x4.shape[2], dy4.shape[2]
+    if k * n >= 1 << 20:
+        xc = torch.einsum("amk,pa->pmk", x4, device_table(V8, x4.dtype, x4.device))
+        dyc = torch.einsum("bmn,pb->pmn", dy4, device_table(O8_T, dy4.dtype, dy4.device))
+        dwc8 = torch.bmm(xc.transpose(1, 2), dyc).float()
+        return torch.einsum("pkn,pa->akn", dwc8, device_table(U8, torch.float32, x4.device))
+    dw_big = torch.einsum("amk,bmn->akbn", x4, dy4).float()
+    return torch.einsum("akbn,cab->ckn", dw_big,
+                        device_table(HAMILTON_E, torch.float32, x4.device))
+
+
+# Phase 13's arms of config 4: the overrides of each, and the input
+# projection it routes to (None: the real ablation, which runs no kernel of
+# the port). None of them launches D or E.
+QLSTM_ARMS = {
+    "block": ({"model.op_variant": "block"}, "block"),
+    "fast8": ({"model.op_variant": "fast8"}, "fast8"),
+    "unidirectional": ({"model.bidirectional": False}, "auto"),
+    "real_lstm": ({"model.arch": "real_lstm"}, None),
+}
+
+
+def _arm_launches(proj: str | None, layers: int, rows: int, step: bool) -> dict:
+    """An arm's launches of the port's kernels a forward (or a train step)
+    at ``rows`` = B*T: A for the tower's three stacked layers, B for the
+    dense layer and for each input projection that takes kernel B
+    (``input_proj_fn``: fast8 always, auto below ``BLOCK_ROWS``); in a step
+    also C, and B's dx role as often as B."""
+    from qasr_torch.models.qlstm import input_proj_fn
+    from qasr_torch.ops.kernels.qgemm8 import qdense_pallas8
+
+    if proj is None:
+        return {}
+    n_b = 1 + (layers if input_proj_fn(proj, rows) is qdense_pallas8 else 0)
+    return dict(qconv_ft8=3, qgemm8=n_b, **(dict(qconv_dx8=3, qgemm8_dx=n_b) if step else {}))
+
+
+# the f32 plain paths of the block, fast8 and default arms on the same
+# weights compute one function: only their sums' order differs (the input
+# projection as the block product or the rank-8 GEMM, the recurrence as the
+# block product, the fast8 loop or kernel D's plain version), ~1e-6 a layer
+TOL_ARMS_F32 = {"rel_norm": 1e-4}
+
+
+def phase13_qlstm_arms(dev: torch.device, smi: str) -> None:
+    """Config 4's other arms at full width: ``op_variant`` block and fast8,
+    the unidirectional encoder and the real ablation ``real_lstm``, served,
+    trained and timed; and the rank-8 GEMM's f32 products on the card."""
+    from qasr_torch.configs import get_config
+    from qasr_torch.infer import Transcriber
+    from qasr_torch.models import build_model
+    from qasr_torch.models.qlstm import RealBiLSTM
+    from qasr_torch.ops.kernels import qgemm8
+    from qasr_torch.ops.kernels.qgemm8 import (
+        conj_transpose_dense,
+        f32_bmm,
+        qgemm8_cl,
+        qgemm8_cl_plain,
+        qgemm8_dw,
+        qgemm8_dx,
+    )
+    from qasr_torch.train.state import create_train_state
+    from qasr_torch.train.step import train_step
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    bf16 = torch.bfloat16
+    cfg = get_config("librispeech_qlstm")
+    T, B, H = cfg.data.bucket_sizes[0], cfg.data.batch_size, cfg.model.lstm_features
+
+    # (a) kernel B against its plain version in bf16 at phases 3, 7 and 8's
+    # shapes, now that the plain version keeps its products in f32 (gated at
+    # phase 3's limits), and the distance to the plain version as it was
+    # (bf16 products; not gated); the dW's products on the card in f32
+    # against the f32 operands' (summation order only, TOL_F32)
+    nf, conv = 13, cfg.model.conv_features
+    shapes = (*PHASE3_GEMMS, (4 * T, nf * conv[-1], 8 * H), (4 * T, 2 * H, 8 * H),
+              (4 * T, 2 * H, 256), (B * T, 2 * H, 256))
+    dist = []
+    for m, k, n in shapes:
+        w = rnd(4, k, n, scale=k ** -0.5)
+        x4, dy4 = rnd(4, m, k, scale=0.5).to(bf16), rnd(4, m, n).to(bf16)
+        for role, got, new, old in (
+                ("fwd", qgemm8_cl(x4, w), qgemm8_cl_plain(x4, w), _old_qgemm8_plain(x4, w)),
+                ("dx", qgemm8_dx(dy4, w), qgemm8_cl_plain(dy4, conj_transpose_dense(w)),
+                 _old_qgemm8_plain(dy4, conj_transpose_dense(w)))):
+            err_new, err_old = _errors(got, new), _errors(got, old)
+            _gate(f"qgemm8 {role} M{m} K{k} N{n} bf16 vs the f32-product plain version",
+                  err_new, TOL_BF16)
+            dist.append((f"{role} M{m} K{k} N{n}", err_new["rel_norm"], err_old["rel_norm"],
+                         (got != new).float().mean().item(), (got != old).float().mean().item()))
+        # the same dW with f32_bmm's products on upcast operands instead
+        dw = qgemm8_dw(x4, dy4)
+        qgemm8.f32_bmm = lambda a, b: torch.bmm(a.float(), b.float())
+        try:
+            ref = qgemm8_dw(x4, dy4)
+        finally:
+            qgemm8.f32_bmm = f32_bmm
+        _gate(f"qgemm8_dw M{m} K{k} N{n} bf16 on the card vs f32 operands", _errors(dw, ref),
+              TOL_F32)
+        del x4, dy4, w
+    print("phase 13 rank-8 f32 products: kernel B in bf16 against its plain version, rel_norm "
+          "now / before (bf16 products), share of outputs differing now / before (gated now at "
+          f"{TOL_BF16}): " + "; ".join(f"{s} {a:.3e} / {b:.3e}, {c:.4f} / {d:.4f}"
+                                      for s, a, b, c, d in dist)
+          + "; qgemm8_dw on the card's bf16 GEMM with an f32 output = f32 operands (TOL_F32)",
+          flush=True)
+    dw_times = []
+    for m, k, n in (PHASE3_GEMMS[0], PHASE3_GEMMS[2], (B * T, 2 * H, 256),
+                    (4 * T, nf * conv[-1], 8 * H)):
+        x4, dy4 = rnd(4, m, k, scale=0.5).to(bf16), rnd(4, m, n).to(bf16)
+        new_ms, old_ms = _alternating(lambda: qgemm8_dw(x4, dy4), lambda: _old_qgemm8_dw(x4, dy4),
+                                      5)
+        dw_times.append((m, k, n, new_ms, old_ms))
+        del x4, dy4
+    torch.cuda.empty_cache()
+
+    # the arms' weights: the default arm's (kernel D), which block and fast8
+    # load under the same names; the unidirectional and real encoders draw
+    # their own
+    tcfg, batch = _qlstm_train_batch(cfg)
+    lens = torch.as_tensor(batch["feature_lengths"], device=dev)
+    feats = torch.as_tensor(batch["features"], device=dev)
+    audio_s = B * T * FRAME_S
+    default = build_model(cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    if default.recurrent != "pallas8":
+        raise RuntimeError(f"config 4's default arm routes to {default.recurrent}")
+    params = default.state_dict()
+    with torch.no_grad():
+        ref_bf16 = default(feats, lengths=lens)
+        cfg32 = cfg.override(**{"model.compute_dtype": "float32"})
+        d32 = build_model(cfg32, device=dev)
+        d32.load_state_dict(params)
+        ref_f32 = d32(feats, lengths=lens, plain=True)
+    del default, d32
+    rng = np.random.default_rng(SEED + 13)
+    wavs = [(0.1 * rng.standard_normal(int(n_s * cfg.data.sample_rate))).astype(np.float32)
+            for n_s in (2.3, 3.9)]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    rows = {}
+    for arm, (over, proj) in QLSTM_ARMS.items():
+        acfg = cfg.override(**over)
+        fwd_want = _arm_launches(proj, acfg.model.lstm_layers, B * T, False)
+        step_want = _arm_launches(proj, acfg.model.lstm_layers, B * T, True)
+        enc = build_model(acfg, generator=torch.Generator().manual_seed(SEED + 1), device=dev)
+        same_weights = arm in ("block", "fast8")
+        if same_weights:
+            enc.load_state_dict(params)
+        # serving: one forward of the kernel path with its launches, the
+        # plain path, and the f32 plain path on the same weights
+        with torch.no_grad():
+            _reset_counts()
+            logits = enc(feats, lengths=lens)
+            counts = _read_counts()
+            if counts != _want(**fwd_want):
+                raise RuntimeError(f"{arm}: launches a forward {counts}, expected {fwd_want}")
+            plain = enc(feats, lengths=lens, plain=True)
+            e32 = build_model(acfg.override(**{"model.compute_dtype": "float32"}), device=dev)
+            e32.load_state_dict(enc.state_dict())
+            plain32 = e32(feats, lengths=lens, plain=True)
+            del e32
+        if tuple(logits.shape) != (B, T, cfg.model.vocab):
+            raise RuntimeError(f"{arm}: logits {tuple(logits.shape)}")
+        lerr = _errors(logits, plain)
+        _gate(f"{arm} logits kernel vs plain", lerr, TOL_LOGITS)
+        kerr32 = _errors(logits, plain32)
+        _gate(f"{arm} logits kernel vs f32 plain", kerr32, TOL_LOGITS_F32)
+        _gate(f"{arm} logits plain bf16 vs f32 plain", _errors(plain, plain32), TOL_LOGITS_F32)
+        line = (f"phase 13 serving {arm}: B{B}xT{T} ragged, logits finite; launches a forward "
+                f"{ {k: v for k, v in counts.items() if v} }; kernel vs plain rel_norm "
+                f"{lerr['rel_norm']:.3e}, vs f32 plain {kerr32['rel_norm']:.3e}")
+        if same_weights:
+            a32, a16 = _errors(plain32, ref_f32), _errors(logits, ref_bf16)
+            _gate(f"{arm} vs the default arm, f32 plain", a32, TOL_ARMS_F32)
+            _gate(f"{arm} vs the default arm, bf16", a16, TOL_LOGITS)
+            line += (f"; against the default arm (kernel D) on the same weights: f32 plain "
+                     f"rel_norm {a32['rel_norm']:.3e} (tol {TOL_ARMS_F32}), bf16 "
+                     f"{a16['rel_norm']:.3e} (tol {TOL_LOGITS})")
+        print(line, flush=True)
+        del logits, plain, plain32
+        torch.cuda.empty_cache()
+
+        # training at full depth: gradient parity where a kernel is on the
+        # path, the launches of one step; then (not gated) a second step's
+        # and a forward's time, and a profiled block-arm step
+        atcfg = tcfg.override(**over)
+        if proj is not None:
+            _grad_parity(atcfg, batch, dev, 13, f"{arm}: ")
+        state = create_train_state(atcfg, device=dev)
+        _reset_counts()
+        train_step(state, batch)
+        counts = _read_counts()
+        if counts != _want(**step_want):
+            raise RuntimeError(f"{arm}: launches a train step {counts}, expected {step_want}")
+        step_ms = _time_ms(lambda: train_step(state, batch), 1, 0)
+        with torch.no_grad():
+            fwd_ms = _time_ms(lambda: enc(feats, lengths=lens), 1, 1)
+        prof = (_profile(lambda: train_step(state, batch), f"one {arm}-arm train step B{B}xT{T}",
+                         13, smi, 6) if arm == "block" else None)
+        del state, enc
+        torch.cuda.empty_cache()
+        # the loops run ~20 small ops a step on the host: twenty steps on one
+        # batch and a checkpoint that serves, at one LSTM layer and a quarter
+        # of the frames (depth and length cut)
+        dcfg, dbatch = _qlstm_train_batch(acfg.override(**{
+            "model.lstm_layers": 1, "data.bucket_sizes": (T // 4,)}))
+        state = create_train_state(dcfg, device=dev)
+        losses = [train_step(state, dbatch)["loss"].item() for _ in range(20)]
+        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"{arm}: twenty steps on one batch did not lower the loss: {losses}")
+        del state
+        lcfg = dcfg.override(**{"train.num_steps": 2, "train.log_every": 1,
+                                "train.eval_every": 2, "train.checkpoint_every": 2})
+        if arm == "real_lstm":
+            # through the command line, as a user trains it
+            ckpt = os.path.join(repo, "qasr_torch", "_build", "smoke_real_lstm")
+            shutil.rmtree(ckpt, ignore_errors=True)
+            sets = ["model.arch=real_lstm", "model.lstm_layers=1", "data.dataset=synthetic",
+                    f"data.bucket_sizes={T // 4}", f"data.max_label_len={T // 32}",
+                    "train.warmup_steps=2", "train.learning_rate=1e-4", "train.num_steps=2",
+                    "train.log_every=1", "train.eval_every=2", "train.checkpoint_every=2",
+                    f"train.checkpoint_dir={ckpt}"]
+            env = {**os.environ,
+                   "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "qasr_torch.cli", "--preset",
+                                   "librispeech_qlstm", "--set", *sets], cwd=repo, env=env,
+                                  capture_output=True, text=True, timeout=600)
+            train_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"real_lstm through the CLI failed:\n{proc.stderr[-3000:]}")
+            last = json.loads(proc.stdout.strip().splitlines()[-1])
+            served = Transcriber(last["checkpoint"], device=dev)
+            hyp = served.transcribe_batch(wavs)
+            if last["step"] != 2 or not math.isfinite(last["loss"]) or len(hyp) != len(wavs) \
+                    or type(served.model).__name__ != "RealLSTMEncoder":
+                raise RuntimeError(f"real_lstm: the CLI run gave {last}, served {hyp}")
+            del served
+            shutil.rmtree(ckpt, ignore_errors=True)
+            how = "python -m qasr_torch.cli"
+        else:
+            last, _, hyp, train_s = _train_and_serve(
+                lcfg, dev, f"smoke_qlstm_{arm}",
+                wavs, {k: v for k, v in _arm_launches(proj, 1, B * T // 4, True).items()
+                       if "dx" in k})
+            how = "train()"
+        print(f"phase 13 train {arm}: launches a step {({k: v for k, v in counts.items() if v})};"
+              f" one LSTM layer, B{B}xT{T // 4}: loss over 20 steps on one batch {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, {how} 2 steps in {train_s:.2f} s (loss {last['loss']:.4f}), "
+              f"its checkpoint served {len(hyp)} utterances", flush=True)
+        if prof:
+            print(prof, flush=True)
+        rows[arm] = (fwd_ms, step_ms)
+        torch.cuda.empty_cache()
+
+    # the default arm's step on the same batch (kernels D and E), the
+    # real ablation's counterpart of vs_baseline
+    state = create_train_state(tcfg, device=dev)
+    def_ms = _time_ms(lambda: train_step(state, batch), 3, 1)
+    del state
+    # the real recurrence's yardstick: one RealBiLSTM layer at layer 1's
+    # shape (2 x 4H real features in, 4H units a direction) forward and
+    # forward + backward, against one cuDNN nn.LSTM of the same size
+    hr = 4 * H
+    layer = RealBiLSTM(2 * hr, hr, dtype=bf16, device=dev,
+                       generator=torch.Generator().manual_seed(SEED + 5))
+    xl = rnd(B, T, 2 * hr, scale=0.5).to(bf16).requires_grad_()
+    dy = rnd(B, T, 2 * hr).to(bf16)
+    lstm = torch.nn.LSTM(2 * hr, hr, batch_first=True, bidirectional=True, device=dev).to(bf16)
+    lstm.flatten_parameters()
+
+    def fb(fn):
+        def run():
+            xl.grad = None
+            fn(xl).backward(dy)
+        return run
+
+    with torch.no_grad():
+        real_f = _time_ms(lambda: layer(xl), 2, 1)
+        lib_f = _time_ms(lambda: lstm(xl)[0], 3, 1)
+    real_fb = _time_ms(fb(layer), 2, 1)
+    lib_fb = _time_ms(fb(lambda v: lstm(v)[0]), 3, 1)
+    del layer, lstm, xl, dy
+    torch.cuda.empty_cache()
+    print(f"phase 13 timing on {smi}: B{B}xT{T} ragged bf16, forward / train step ms (audio-s/s): "
+          + "; ".join(f"{a} {f:.3f} ({audio_s / f * 1e3:.1f}) / {s:.3f} "
+                      f"({audio_s / s * 1e3:.1f})" for a, (f, s) in rows.items())
+          + f"; default arm (kernels D, E) step {def_ms:.3f} ms ({audio_s / def_ms * 1e3:.1f}); "
+          f"real_lstm step / default step {rows['real_lstm'][1] / def_ms:.3f}; one RealBiLSTM "
+          f"layer ({2 * hr} in, {hr} units) forward {real_f:.3f} ms, forward + backward "
+          f"{real_fb:.3f} ms, cuDNN nn.LSTM bf16 {lib_f:.3f} ms, {lib_fb:.3f} ms; qgemm8_dw "
+          "f32 products / bf16 products ms: " + "; ".join(
+              f"M{m} K{k} N{n} {a:.3f} / {b:.3f}" for m, k, n, a, b in dw_times)
+          + f"; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def time_kernels(tree: str) -> int:
     """``--time-kernels TREE``: of the ``qasr_torch`` under ``TREE``, bf16, on
     CUDA events: the conv kernels at phase 5's shape, the rank-8 A (with its
@@ -2552,7 +2867,7 @@ def main() -> int:
                     again, again_da = qconv_dx8(dz, w, zz, sl)
                     if not (torch.equal(again, got) and torch.equal(again_da, got_da)):
                         raise RuntimeError("qconv_dx8 differs between two runs on the same inputs")
-    for m, k, n in ((4096, 3328, 256), (1000, 3328, 256), (4096, 256, 256), (1000, 256, 256)):
+    for m, k, n in PHASE3_GEMMS:
         w = rnd(4, k, n, scale=(1.0 / k) ** 0.5)
         x32 = rnd(4, m, k, scale=0.5)
         dy32 = rnd(4, m, n)
@@ -2814,6 +3129,10 @@ def main() -> int:
     # trained and beam-decoded on mini-TIMIT, and the device beam against the
     # host beam (their own launch counts)
     phase12_protocol(dev, smi)
+    # 13. config 4's other arms (block, fast8, unidirectional, real_lstm)
+    # served, trained and timed, and the rank-8 GEMM's f32 products (their
+    # own launch counts)
+    phase13_qlstm_arms(dev, smi)
 
     def entry(name, source, replaces, bound, lib_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -22,16 +22,23 @@ _API = {
     "PReLU": "qasr_torch.models.layers",
     "Dropout": "qasr_torch.models.layers",
     "QCNNEncoder": "qasr_torch.models.qcnn",
+    "RealCNNEncoder": "qasr_torch.models.qcnn",
     "QBiLSTM": "qasr_torch.models.qlstm",
+    "QLSTMLayer": "qasr_torch.models.qlstm",
     "QLSTMEncoder": "qasr_torch.models.qlstm",
+    "RealBiLSTM": "qasr_torch.models.qlstm",
+    "RealLSTMEncoder": "qasr_torch.models.qlstm",
     "build_model": "qasr_torch.models",
     # functional ops
     "qconv": "qasr_torch.ops.qlinalg",
     "qdense": "qasr_torch.ops.qlinalg",
     "qdense_fast8": "qasr_torch.ops.qlinalg",
+    "tf_packed_to_stacked": "qasr_torch.models.layers",
+    "stacked_to_tf_packed": "qasr_torch.models.layers",
     "hamilton_product": "qasr_torch.ops.quaternion",
     "quaternion_init": "qasr_torch.ops.initializers",
     "qconv_ft8": "qasr_torch.ops.kernels.qconv_ft",
+    "qconv_ft10": "qasr_torch.ops.kernels.qconv_ft",
     "chain_layer": "qasr_torch.ops.kernels.qconv_chain",
     "qconv_dx8": "qasr_torch.ops.kernels.qconv_dx",
     "ChainLayerFn": "qasr_torch.ops.kernels.qconv_chain",
@@ -43,6 +50,7 @@ _API = {
     "ctc_greedy_decode": "qasr_torch.ops.ctc",
     "ctc_beam_search_decode": "qasr_torch.decode.beam",
     "ctc_loss": "qasr_torch.ops.ctc",
+    "batch_per": "qasr_torch.decode.scoring",
     "featurize_waveform": "qasr_torch.features.frontend",
     "Transcriber": "qasr_torch.infer",
     # configs / training
@@ -51,6 +59,7 @@ _API = {
     "create_train_state": "qasr_torch.train.state",
     "train_step": "qasr_torch.train.step",
     "train": "qasr_torch.train.loop",
+    "evaluate": "qasr_torch.train.loop",
     # weights
     "params_from_jax": "qasr_torch.bridge",
     "save_params_npz": "qasr_torch.bridge",

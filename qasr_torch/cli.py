@@ -54,8 +54,8 @@ def main(argv=None):
                     "(decode.beam_width, decode.beam_prune_logp) instead of greedily")
     ap.add_argument("--split", default=None,
                     help="eval split for --eval-only (timit: dev/core_test/full_test; "
-                    "librispeech: dev-clean/test-clean; default: the split train() "
-                    "evaluates on)")
+                    "librispeech: dev-clean/test-clean; default: train, as the JAX "
+                    "package's --eval-only)")
     ap.add_argument("--list-presets", action="store_true")
     args = ap.parse_args(argv)
 
@@ -87,27 +87,25 @@ def main(argv=None):
 def eval_only(cfg, *, split: str | None = None, beam: bool = False, device="cuda") -> dict:
     """Evaluate the checkpoint of ``cfg.train.checkpoint_dir`` that
     ``best.json`` names, or the latest when that step is gone, on ``split``
-    (default the set ``train()`` evaluates on: the dev split, or the train
-    set for ``synthetic``), decoded greedily or with the prefix beam
-    (``beam``). Prints ``eval @ step N: {...}``; returns the metrics
-    (``loss``, ``per``) with ``step``."""
+    (default the train split, ``build_dataset(cfg)``, as the JAX package's
+    ``--eval-only`` does: ``qasr/cli.py:74``), decoded greedily or with the
+    prefix beam (``beam``). Prints ``eval @ step N: {...} (split S)``;
+    returns the metrics (``loss``, ``per``) with ``step``."""
     from qasr_torch.models import build_model
     from qasr_torch.train.checkpoint import CheckpointManager
-    from qasr_torch.train.loop import build_dataset, build_eval_dataset, evaluate
+    from qasr_torch.train.loop import build_dataset, evaluate
 
     ckpt = CheckpointManager(cfg, write_config=False)  # never overwrite the run's config
     best = ckpt.best_step()
     step = best if best is not None and best in ckpt.all_steps() else ckpt.latest_step()
     if step is None:
         raise SystemExit(f"no checkpoint in {cfg.train.checkpoint_dir}")
-    if split is not None:
-        dataset = build_dataset(cfg, split=split, device=device)
-    else:
-        dataset = build_eval_dataset(cfg, device=device)
+    split = split or "train"
+    dataset = build_dataset(cfg, split=split, device=device)
     model = build_model(cfg, device=device)
     model.load_state_dict(ckpt.restore_params(step))
     dev = evaluate(cfg, model, dataset, beam=beam)
-    print(f"[qasr] eval @ step {step}: {dev}", flush=True)
+    print(f"[qasr] eval @ step {step}: {dev} (split {split})", flush=True)
     return {"step": step, **dev}
 
 

@@ -50,17 +50,35 @@ auto, block, fast8, pallas8, fast8_stacked  the rank-8 GEMM (B): the same
 ==========================================  =================================
 
 ``arch="qlstm"`` (``qasr/train/state.py:68-138``): ``op_variant`` routes the
-recurrence as :func:`qlstm_routing` says; its conv tower runs the ``auto``
-routing, as the JAX encoder's does; ``use_pallas=True`` keeps the tower
-packed (im2col GEMM where it applies) and puts the dense layers on the
-10-product GEMM (``qasr/models/qlstm.py:338, 370``); ``dense_variant`` is not
-read, as the JAX encoder does not read it (any value it takes is accepted).
+input projections and the recurrence, as :func:`qlstm_routing` says:
 
-``arch="real_cnn"`` (``qasr/train/state.py:57-67``): the real-CNN baseline on
-cuDNN convs and cuBLAS GEMMs, as the JAX package runs it on plain XLA;
-``op_variant``, ``dense_variant`` and ``use_pallas`` are not read, as the
-JAX ``build_model`` does not pass them. ``arch="real_lstm"`` raises
-``NotImplementedError`` (Queue 1 item 13).
+======================  ====================  ===============================
+``op_variant``          input projection      recurrence
+======================  ====================  ===============================
+block                   block product         block
+fast8                   kernel B              block
+auto, fast8_recurrent   by rows: the block    kernel D where it applies (CUDA,
+                        product from          bidirectional, and
+                        ``BLOCK_ROWS``,       ``qlstm_scan.supported``), else
+                        kernel B below        the plain fast8 loop
+pallas8                 kernel B              kernel D where it applies, else
+                                              the plain fast8 loop;
+                                              unidirectional: ``ValueError``
+======================  ====================  ===============================
+
+``bidirectional=False`` builds ``QLSTMLayer``s, which never run kernel D
+(``auto`` and ``fast8_recurrent`` take the fast8 loop, as the JAX package
+does). The conv tower runs the ``auto`` routing, as the JAX encoder's does;
+``use_pallas=True`` keeps the tower packed (im2col GEMM where it applies) and
+puts the dense layers on the 10-product GEMM (``qasr/models/qlstm.py:338,
+370``); ``dense_variant`` is not read, as the JAX encoder does not read it
+(any value it takes is accepted).
+
+``arch="real_cnn"`` (``qasr/train/state.py:57-67``) and ``arch="real_lstm"``
+(``:139-153``): the real-CNN baseline and config 4's real CNN-LSTM ablation,
+on cuDNN convs and cuBLAS products, as the JAX package runs them on plain
+XLA; ``op_variant``, ``dense_variant`` and ``use_pallas`` are not read, as
+the JAX ``build_model`` does not pass them.
 """
 
 from __future__ import annotations
@@ -71,7 +89,7 @@ from torch import nn
 from qasr_torch.configs import Config
 from qasr_torch.configs.config import ModelConfig
 from qasr_torch.models.qcnn import QCNNEncoder, RealCNNEncoder, conv_scheme
-from qasr_torch.models.qlstm import QLSTMEncoder
+from qasr_torch.models.qlstm import QLSTMEncoder, RealLSTMEncoder
 from qasr_torch.ops.kernels import qlstm_scan
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -96,32 +114,31 @@ def dense_scheme(m: ModelConfig) -> str:
 
 def qlstm_routing(m: ModelConfig, device: torch.device | str) -> tuple[str, str]:
     """``(input_proj, recurrent)`` of a qlstm model on ``device``, as
-    ``qasr/train/state.py:68-138`` routes it: ``"auto"``,
-    ``"fast8_recurrent"`` and ``"pallas8"`` run the recurrence on kernel D
-    where the device is CUDA, the layers are bidirectional and
-    ``qlstm_scan.supported`` admits the hidden size and dtype on that card's
-    SMs, and on the
-    plain ``"fast8"`` loop otherwise. ``"pallas8"`` also puts every input
-    projection on kernel B; the others route it by row count."""
+    ``qasr/train/state.py:68-138`` routes it (the module docstring's
+    table): ``"block"`` is the block product and recurrence, ``"fast8"``
+    kernel B into the block recurrence; ``"auto"``, ``"fast8_recurrent"``
+    and ``"pallas8"`` run the recurrence on kernel D where the device is
+    CUDA, the layers are bidirectional and ``qlstm_scan.supported`` admits
+    the hidden size and dtype on that card's SMs, and on the plain
+    ``"fast8"`` loop otherwise; ``"pallas8"`` also puts every input
+    projection on kernel B (the others route it by row count), and a
+    unidirectional ``"pallas8"`` keeps kernel D's name, which
+    ``QLSTMLayer`` refuses."""
     if m.op_variant not in _QLSTM_VARIANTS:
         raise ValueError(
             f"op_variant {m.op_variant!r} is not valid for arch='qlstm' "
             "(choose auto | block | fast8 | fast8_recurrent | pallas8)"
         )
     if m.op_variant in ("block", "fast8"):
-        raise NotImplementedError(
-            f"op_variant={m.op_variant!r} (the block recurrence) is not ported yet "
-            "(ROADMAP.md Queue 1 item 13)"
-        )
+        return m.op_variant, "block"
+    input_proj = "pallas8" if m.op_variant == "pallas8" else "auto"
     if not m.bidirectional:
-        raise NotImplementedError(
-            "the unidirectional QLSTMLayer is not ported yet (ROADMAP.md Queue 1 item 13)"
-        )
+        return input_proj, ("pallas8" if m.op_variant == "pallas8" else "fast8")
     on_card = torch.device(device).type == "cuda"
     kernel = on_card and qlstm_scan.supported(
         m.lstm_features, _DTYPES[m.compute_dtype], qlstm_scan.device_sms(device)
     )
-    return ("pallas8" if m.op_variant == "pallas8" else "auto"), ("pallas8" if kernel else "fast8")
+    return input_proj, ("pallas8" if kernel else "fast8")
 
 
 def build_model(
@@ -135,8 +152,8 @@ def build_model(
     port's init) on ``device`` (the GPU unless the caller asks for the CPU),
     in train mode (dropout at ``cfg.model.dropout_rate``) or eval mode.
 
-    ``arch="qcnn"``, ``arch="qlstm"`` and ``arch="real_cnn"`` serve and
-    train, routed as the module docstring says in both modes.
+    Every arch (``qcnn``, ``qlstm``, ``real_cnn``, ``real_lstm``) serves and
+    trains, routed as the module docstring says in both modes.
     """
     m = cfg.model
     dtype = _DTYPES[m.compute_dtype]
@@ -168,6 +185,7 @@ def build_model(
             dense_features=tuple(m.dense_features),
             lstm_features=m.lstm_features,
             lstm_layers=m.lstm_layers,
+            bidirectional=m.bidirectional,
             vocab=m.vocab,
             pool_after=m.pool_after,
             pool_size=m.pool_size,
@@ -194,7 +212,20 @@ def build_model(
             device=device,
         ).train(train)
     if m.arch == "real_lstm":
-        raise NotImplementedError(
-            "arch='real_lstm' is not ported yet (ROADMAP.md Queue 1 item 13)"
-        )
+        # the JAX build_model gives RealLSTMEncoder no kernel_size: it is (3, 3)
+        return RealLSTMEncoder(
+            n_feats=cfg.data.n_mels,
+            conv_features=tuple(m.conv_features),
+            dense_features=tuple(m.dense_features),
+            lstm_features=m.lstm_features,
+            lstm_layers=m.lstm_layers,
+            bidirectional=m.bidirectional,
+            vocab=m.vocab,
+            pool_after=m.pool_after,
+            pool_size=m.pool_size,
+            dropout_rate=m.dropout_rate,
+            dtype=dtype,
+            generator=generator,
+            device=device,
+        ).train(train)
     raise ValueError(f"unknown arch {m.arch!r} (choose qcnn | real_cnn | qlstm | real_lstm)")

@@ -280,7 +280,45 @@ class QCNNEncoder(ConvTowerEncoder):
         return self.output(x).float()
 
 
-class RealCNNEncoder(nn.Module):
+class RealConvTower(nn.Module):
+    """The real conv stack of ``RealCNNEncoder`` and ``RealLSTMEncoder``
+    (``qasr/models/qcnn.py:315-331``, ``qlstm.py:470-483``): on
+    channels-last ``[B, T, F, 4]`` input (the four quaternion components are
+    conv_0's four input channels), SAME 2-D convs over (T, F) of ``4 *
+    features`` channels, each with its PReLU (``conv_<i>``,
+    ``conv_prelu_<i>``), the frequency-only ``(1, pool_size)`` VALID
+    max-pool after ``pool_after`` layers, and the flatten ``[B, T, F*C]``
+    (index ``f*C + c``). cuDNN convs, no kernel of the port."""
+
+    def _build_convs(self, n_feats, conv_features, kernel_size, pool_after, pool_size,
+                     **common) -> int:
+        """Add the convs and PReLUs; returns the flattened width F*C."""
+        self.pool_after = pool_after
+        self.pool_size = pool_size
+        self.n_conv = len(conv_features)
+        cin, f = 4, n_feats
+        for i, feats in enumerate(conv_features):
+            self.add_module(f"conv_{i}", Conv(cin, 4 * feats, kernel_size, **common))
+            self.add_module(f"conv_prelu_{i}", PReLU(4 * feats, device=common["device"]))
+            if i + 1 == pool_after:
+                f = (f - pool_size) // pool_size + 1
+            cin = 4 * feats
+        return f * cin
+
+    def _run_convs(self, x: torch.Tensor) -> torch.Tensor:
+        """``[B, T, F, 4]`` -> ``[B, T, F' * C]`` in the compute dtype."""
+        if x.ndim != 4:
+            raise ValueError(f"expected [B, T, F, 4] input, got {tuple(x.shape)}")
+        x = x.to(self.dtype)
+        for i in range(self.n_conv):
+            x = getattr(self, f"conv_prelu_{i}")(getattr(self, f"conv_{i}")(x))
+            if i + 1 == self.pool_after:
+                x = freq_max_pool(x, self.pool_size)
+        b, t = x.shape[:2]
+        return x.reshape(b, t, -1)
+
+
+class RealCNNEncoder(RealConvTower):
     """Real-valued CNN baseline at equal feature-map count (counterpart of
     ``qasr/models/qcnn.py:RealCNNEncoder``, config 3 ``timit_real_cnn``):
     the QCNN's topology with ordinary real convs and dense layers of
@@ -318,19 +356,10 @@ class RealCNNEncoder(nn.Module):
     ):
         super().__init__()
         self.dtype = dtype
-        self.pool_after = pool_after
-        self.pool_size = pool_size
-        self.n_conv = len(conv_features)
         self.n_dense = len(dense_features)
         common = dict(dtype=dtype, generator=generator, device=device)
-        cin, f = 4, n_feats
-        for i, feats in enumerate(conv_features):
-            self.add_module(f"conv_{i}", Conv(cin, 4 * feats, kernel_size, **common))
-            self.add_module(f"conv_prelu_{i}", PReLU(4 * feats, device=device))
-            if i + 1 == pool_after:
-                f = (f - pool_size) // pool_size + 1
-            cin = 4 * feats
-        k = f * cin
+        k = self._build_convs(n_feats, conv_features, kernel_size, pool_after, pool_size,
+                              **common)
         for i, feats in enumerate(dense_features):
             self.add_module(f"dense_{i}", Dense(k, 4 * feats, kernel_init=lecun_normal, **common))
             self.add_module(f"dense_prelu_{i}", PReLU(4 * feats, device=device))
@@ -351,15 +380,7 @@ class RealCNNEncoder(nn.Module):
         ``lengths`` is accepted and unused (the model is frame-local, as the
         JAX encoder's); so is ``plain``, as there is no kernel to swap."""
         del lengths, plain
-        if x.ndim != 4:
-            raise ValueError(f"expected [B, T, F, 4] input, got {tuple(x.shape)}")
-        x = x.to(self.dtype)
-        for i in range(self.n_conv):
-            x = getattr(self, f"conv_prelu_{i}")(getattr(self, f"conv_{i}")(x))
-            if i + 1 == self.pool_after:
-                x = freq_max_pool(x, self.pool_size)
-        b, t = x.shape[:2]
-        x = x.reshape(b, t, -1)
+        x = self._run_convs(x)
         for i in range(self.n_dense):
             x = getattr(self, f"dense_prelu_{i}")(getattr(self, f"dense_{i}")(x))
             x = getattr(self, f"dense_dropout_{i}")(x, generator)

@@ -15,6 +15,11 @@ weights: the adjoint of quaternion left-multiplication is multiplication by
 the conjugate, so ``dx4 = qgemm8(dy4, conj(w)^T)`` (the TPU kernel formed
 dense O8-column combos instead; both give the same dx). dW is plain PyTorch
 with the reference's two formulations, as the JAX package left it to XLA.
+
+Every product is summed and kept in f32 until the fold, as the reference's
+``preferred_element_type=f32`` dots keep it: the plain version, dW and
+``qdense_fast8`` multiply bf16 operands into an f32 result (:func:`f32_bmm`),
+never into bf16.
 """
 
 from __future__ import annotations
@@ -43,12 +48,25 @@ def combos8(x4: torch.Tensor) -> torch.Tensor:
     return torch.stack([_combo(x4, terms, dim=0) for terms in SCHEME8.fwd_in])
 
 
+def f32_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(a, b)`` with the products summed in f32 and returned in
+    f32, whatever a's and b's dtype (bf16 values are exact in f32): on the
+    card a bf16 pair takes cuBLAS's bf16 GEMM with an f32 output, anywhere
+    else the operands are upcast. No autograd formula: under grad, upcast
+    the operands instead."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def qgemm8_cl_plain(x4: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel B: ``qdense_fast8`` on ``[4, M, K]`` with ``w
-    [4, K, N]``; the input combos as :func:`combos8`, products in x's dtype,
-    O8 recombination in f32."""
+    [4, K, N]``; the input and weight combos in x's dtype (:func:`combos8`,
+    ``combine_weights``), their products summed in f32, the O8 recombination
+    in f32 and one rounding to x's dtype at the end."""
     xc = combos8(x4)
-    prods = torch.bmm(xc, combine_weights(w, x4.dtype)).float()  # [8, M, N]
+    # f32 operands, not f32_bmm: the plain version runs under autograd
+    prods = torch.bmm(xc.float(), combine_weights(w, x4.dtype).float())  # [8, M, N]
     o8 = device_table(O8, torch.float32, x4.device)
     return torch.einsum("pmn,bp->bmn", prods, o8).to(x4.dtype)
 
@@ -133,18 +151,21 @@ def qgemm8_dw(x4: torch.Tensor, dy4: torch.Tensor) -> torch.Tensor:
 
     Large ``K*N`` (>= 2**20): the rank-8 form, 8 GEMMs on the V8 input and
     O8 output combos folded back with U8. Otherwise one block product
-    ``[4, K, 4, N]`` folded with the Hamilton table. Products in the compute
-    dtype, folds in f32.
+    ``[4, K, 4, N]`` folded with the Hamilton table. Combos in the compute
+    dtype, products summed in f32 (:func:`f32_bmm`), folds in f32.
     """
-    k, n = x4.shape[2], dy4.shape[2]
+    m, k, n = x4.shape[1], x4.shape[2], dy4.shape[2]
     if k * n >= 1 << 20:
         xc = torch.einsum("amk,pa->pmk", x4, device_table(V8, x4.dtype, x4.device))
         o8t = device_table(O8_T, dy4.dtype, dy4.device)
         dyc = torch.einsum("bmn,pb->pmn", dy4, o8t)
-        dwc8 = torch.bmm(xc.transpose(1, 2), dyc).float()  # [8, K, N]
+        dwc8 = f32_bmm(xc.transpose(1, 2), dyc)  # [8, K, N]
         u8 = device_table(U8, torch.float32, x4.device)
         return torch.einsum("pkn,pa->akn", dwc8, u8)
-    dw_big = torch.einsum("amk,bmn->akbn", x4, dy4).float()  # [4, K, 4, N]
+    # [4K, M] @ [M, 4N]: every (a, k) x (b, n) product of the block form
+    xt = x4.transpose(1, 2).reshape(1, 4 * k, m)
+    dyt = dy4.transpose(0, 1).reshape(1, m, 4 * n)
+    dw_big = f32_bmm(xt, dyt).reshape(4, k, 4, n)
     e = device_table(HAMILTON_E, torch.float32, x4.device)
     return torch.einsum("akbn,cab->ckn", dw_big, e)
 

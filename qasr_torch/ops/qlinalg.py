@@ -71,8 +71,10 @@ def qconv(
 
 def qdense_fast8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Quaternion dense via the exact rank-8 scheme: 8 batched GEMMs with
-    2-sparse input combos (V8), U8-combined weights and a dense O8
-    recombination in f32."""
+    2-sparse input combos (V8) and U8-combined weights in x's dtype, their
+    products summed in f32 (``preferred_element_type=f32``, as the
+    reference), a dense O8 recombination in f32 and one rounding at the
+    end."""
     if w.ndim != 3 or w.shape[0] != 4:
         raise ValueError(f"dense weights must be [4, Cin, Cout], got {tuple(w.shape)}")
     k = w.shape[1]
@@ -80,7 +82,7 @@ def qdense_fast8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     v8 = device_table(V8, x.dtype, x.device)
     xc = torch.einsum("...ak,pa->...pk", xs, v8)
     wc = combine_weights(w, x.dtype)  # [8, K, N]
-    prods = torch.einsum("...pk,pkn->...pn", xc, wc).float()
+    prods = torch.einsum("...pk,pkn->...pn", xc.float(), wc.float())
     o8 = device_table(O8, torch.float32, x.device)
     ys = torch.einsum("...pn,bp->...bn", prods, o8)
     return ys.reshape(*x.shape[:-1], 4 * w.shape[2]).to(x.dtype)

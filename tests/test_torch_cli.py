@@ -134,3 +134,31 @@ def test_module_entry_dispatches_transcribe(trained, tmp_path):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith(f"{wav}\t")
+
+
+def test_eval_only_defaults_to_the_train_split(tmp_path, capsys):
+    """``--eval-only`` with no ``--split`` scores the train split
+    (``build_dataset(cfg)``), as the JAX package's does (``qasr/cli.py:74``),
+    and its line names the split; ``--split dev`` scores the set the loop
+    logged its ``dev_per`` on."""
+    from qasr_torch.tools.make_mini_timit import write_corpus
+    from qasr_torch.train.loop import build_dataset
+
+    write_corpus(str(tmp_path / "timit"), train_speakers=2, utts_per_speaker=4, dev_speakers=1,
+                 test_speakers=1)
+    sets = ["--set", f"data.data_dir={tmp_path / 'timit'}", "data.batch_size=2",
+            "data.bucket_sizes=256", "model.conv_features=4,4", "model.dense_features=8",
+            "model.compute_dtype=float32", "train.num_steps=2", "train.eval_every=2",
+            "train.checkpoint_every=2", f"train.checkpoint_dir={tmp_path / 'ckpt'}"]
+    last = main(["--preset", "timit_qcnn_fm32", "--device", "cpu", *sets])
+    capsys.readouterr()
+    ev = main(["--preset", "timit_qcnn_fm32", "--device", "cpu", "--eval-only", *sets])
+    assert "eval @ step 2: " in (out := capsys.readouterr().out) and "(split train)" in out, out
+    cfg = Config.from_json((tmp_path / "ckpt" / "step_2" / "config.json").read_text())
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(load_params_npz(str(tmp_path / "ckpt" / "step_2" / "params.npz")))
+    assert ev == {"step": 2, **evaluate(cfg, model, build_dataset(cfg, device="cpu"))}
+    dev = main(["--preset", "timit_qcnn_fm32", "--device", "cpu", "--eval-only", "--split", "dev",
+                *sets])
+    assert "(split dev)" in capsys.readouterr().out
+    assert dev["per"] == last["dev_per"] and ev["per"] != dev["per"], (ev, dev, last)

@@ -13,8 +13,8 @@ plain version in bf16, whose input combos round as the kernels' and the JAX
 package's do (each coefficient, each scaled term and the sum rounded to
 bf16; ``test_rank8_combos_bit_exact_on_card``): three roundings a combo,
 which the f32 plain version does not make, so against it the error grows
-with the output's scale. The plain version in bf16 rounds each product to
-bf16 before its f32 fold instead; within 3e-2 at these scales.
+with the output's scale. The plain version in bf16 keeps its products in
+f32 until the fold, as the kernels do.
 """
 
 import ctypes
@@ -705,3 +705,45 @@ def test_beam_on_card_matches_cpu_and_host_beam(cuda_device, prune):
         assert torch.equal(got[1].cpu(), ref[1].to(torch.int32))
         assert torch.equal(got[0].cpu(), ref[0].to(torch.int32))
         torch.testing.assert_close(got[2].cpu(), ref[2].float(), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["block", "fast8", "unidirectional", "real_lstm"])
+def test_qlstm_arm_on_card(cuda_device, arm):
+    """Each of config 4's other arms at a small width on the card: the
+    encoder's kernel path against its plain path (bf16, ragged lengths),
+    one backward, and no launch of kernel D or E; the quaternion arms
+    launch kernel A for the tower and kernel B for the dense layer and,
+    except on ``block``, for the input projections (120 rows, below
+    ``BLOCK_ROWS``); ``real_lstm`` no port kernel at all. Tolerances: the two
+    bf16 paths round at the same places, only their sums' order differs
+    (5e-2 rel-norm, chip_smoke.py's TOL_LOGITS)."""
+    from qasr_torch.configs import get_config
+    from qasr_torch.models import build_model
+
+    over = {"block": {"model.op_variant": "block"}, "fast8": {"model.op_variant": "fast8"},
+            "unidirectional": {"model.bidirectional": False},
+            "real_lstm": {"model.arch": "real_lstm"}}[arm]
+    cfg = get_config("librispeech_qlstm").override(**{
+        "model.conv_features": (8, 8, 16, 16), "model.lstm_features": 16,
+        "model.lstm_layers": 2, "model.dense_features": (16,), "model.dropout_rate": 0.0,
+        **over})
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0), device=cuda_device)
+    rng = np.random.default_rng(32)
+    x = _t(_rand(rng, 3, 40, cfg.data.n_mels, 4)).to(cuda_device)
+    lengths = torch.tensor([40, 23, 9], device=cuda_device)
+    counters = (qgemm8.qgemm8_cl, qlstm_scan.qlstm_scan_fast8, qlstm_scan.qlstm_scan_bwd,
+                qconv_ft.qconv_ft8)
+    before = [f.launches for f in counters]
+    got = model(x, lengths=lengths)
+    got.square().mean().backward()
+    torch.cuda.synchronize()
+    launched = [f.launches - b for f, b in zip(counters, before)]
+    want = model(x, lengths=lengths, plain=True)
+    err = ((got - want).norm() / want.norm()).item()
+    assert torch.isfinite(got).all() and err <= 5e-2, err
+    assert launched[1:3] == [0, 0]
+    if arm == "real_lstm":
+        assert launched == [0, 0, 0, 0]
+    else:
+        assert launched[0] == (1 if arm == "block" else 3) and launched[3] == 3, launched

@@ -259,7 +259,8 @@ def test_qlstm_routing_table(train):
             assert m.qdense_0.scheme == ("fast10" if use_pallas else "fast8")
     with pytest.raises(ValueError, match="unknown dense_variant"):
         build_model(base.override(**{"model.dense_variant": "pallas9"}), device="cpu", train=train)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        build_model(base.override(**{"model.op_variant": "block"}), device="cpu", train=train)
+    block = build_model(base.override(**{"model.op_variant": "block"}), device="cpu", train=train)
+    assert block.training == train and block.recurrent == "block"
+    assert block.qbilstm_0.input_proj == "block"
     with pytest.raises(ValueError, match="not valid"):
         build_model(base.override(**{"model.op_variant": "fused"}), device="cpu", train=train)

@@ -115,8 +115,14 @@ with tempfile.TemporaryDirectory() as d:
             "train.num_steps=2", "train.eval_every=2", "train.checkpoint_every=2",
             f"train.checkpoint_dir={d}/ckpt"]
     last = main(["--preset", "timit_qcnn_fm32", "--device", "cpu", *sets])
-    ev = main(["--preset", "timit_qcnn_fm32", "--device", "cpu", "--eval-only", *sets])
+    ev = main(["--preset", "timit_qcnn_fm32", "--device", "cpu", "--eval-only", "--split", "dev",
+               *sets])
     assert ev["step"] == 2 and ev["per"] == last["dev_per"], (ev, last)
+    # with no --split, the train split, as the JAX package's --eval-only
+    ev = main(["--preset", "timit_qcnn_fm32", "--device", "cpu", "--eval-only", *sets])
+    tr = main(["--preset", "timit_qcnn_fm32", "--device", "cpu", "--eval-only", "--split",
+               "train", *sets])
+    assert ev == tr and ev["step"] == 2, (ev, tr)
     from qasr_torch.tools.run_timit_protocol import main as protocol
     line = protocol(["--device", "cpu", "--data-dir", f"{d}/timit", "--ckpt", f"{d}/ckpt",
                      "--preset", "timit_qcnn_fm32", "--skip-train", *sets, "decode.beam_width=4"])

@@ -309,10 +309,13 @@ def test_qlstm_routing(monkeypatch):
                           ("pallas8", ("pallas8", "pallas8"))):
         mv = get_config("librispeech_qlstm").override(**{"model.op_variant": variant}).model
         assert qlstm_routing(mv, "cuda") == want
-    for over in ({"model.op_variant": "block"}, {"model.op_variant": "fast8"},
-                 {"model.bidirectional": False}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            qlstm_routing(get_config("librispeech_qlstm").override(**over).model, "cuda")
+    # the block recurrence, and the unidirectional layer (never kernel D):
+    # tests/test_torch_qlstm_arms.py holds the whole table
+    for over, want in (({"model.op_variant": "block"}, ("block", "block")),
+                       ({"model.op_variant": "fast8"}, ("fast8", "block")),
+                       ({"model.bidirectional": False}, ("auto", "fast8"))):
+        assert qlstm_routing(get_config("librispeech_qlstm").override(**over).model,
+                             "cuda") == want
     with pytest.raises(ValueError, match="not valid for arch='qlstm'"):
         qlstm_routing(get_config("librispeech_qlstm").override(
             **{"model.op_variant": "fast10"}).model, "cuda")
