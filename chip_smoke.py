@@ -195,6 +195,14 @@ TOL_LOSS_BF16 = 1e-2
 # over 26 layers to ~1e-5; limit 1e-4.
 TOL_GRAD_F32 = {"rel_norm": 1e-4}
 TOL_LOSS_F32 = 1e-4
+# Phase 14's chunked CTC against ctc_loss (PyTorch's own alpha-beta), both
+# f32 in log space: over T = 256 frames log alpha grows to ~300 nats, where
+# f32's spacing is 3.05e-5, so each implementation's log occupancies walk
+# off by ~sqrt(256) x 1.5e-5 ~ 2.4e-4, which is the gradients' relative
+# error (softmax minus occupancy, |g| <= 1); their difference ~3e-4, its
+# largest of 254k elements ~4.5x that. The loss (~300 nats) errs by ~1e-6.
+TOL_CTC_GRAD = {"rel_norm": 1e-3, "max_rel": 5e-3}
+TOL_CTC_LOSS = {"rel_norm": 1e-5, "max_rel": 1e-5}
 
 FRAME_S = 0.010  # 10 ms hop: one frame is 10 ms of audio
 # The training runs of the TIMIT models here (phases 6, 9 and 10; why the
@@ -1790,10 +1798,10 @@ def phase11_corpus(dev: torch.device, smi: str, tcfg8, batch: dict) -> None:
         seen["batches"].append(_batch_key(b))
         return real_step(state, b, **kw)
 
-    def recording_eval(cfg_, model, dataset):
+    def recording_eval(cfg_, model, dataset, **kw):
         seen["evals"].append((getattr(getattr(dataset, "corpus", None), "split", None),
                               len(dataset)))
-        return real_eval(cfg_, model, dataset)
+        return real_eval(cfg_, model, dataset, **kw)
 
     def run_cli(ckpt, n_steps, *flags):
         sets = [f"{k}={v}" for k, v in {
@@ -2123,9 +2131,9 @@ def phase12_protocol(dev: torch.device, smi: str) -> None:
         seen["train_s"] = time.perf_counter() - t0
         return out
 
-    def timed_eval(cfg_, model, dataset, *, beam=False):
+    def timed_eval(cfg_, model, dataset, *, beam=False, **kw):
         t0 = time.perf_counter()
-        out = real_eval(cfg_, model, dataset, beam=beam)
+        out = real_eval(cfg_, model, dataset, beam=beam, **kw)
         seen["evals"].append((beam, dataset.corpus.split, time.perf_counter() - t0))
         return out
 
@@ -2570,6 +2578,519 @@ def phase13_qlstm_arms(dev: torch.device, smi: str) -> None:
           + f"; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: data, tensor and sequence parallelism (qasr_torch/parallel/).
+# The configurations and inputs below are built alike by this process (the
+# one-process references) and by the two ranks (``--phase14-rank``).
+
+P14_T = 256  # frames of every phase-14 utterance
+P14_TIMEOUT_S = 420  # the two ranks' wall-clock limit
+P14_SCRIPT = os.path.abspath(__file__)  # what the ranks run (``--phase14-rank``)
+P14_CLI_PRESET = "timit_qcnn"
+P14_CLI_SETS = {"data.dataset": "synthetic", "data.n_mels": "40", "model.vocab": "62",
+                "data.bucket_sizes": "256", "train.warmup_steps": "2",
+                "train.learning_rate": "1e-4", "train.num_steps": "4", "train.log_every": "2",
+                "train.eval_every": "4", "train.checkpoint_every": "4"}
+
+
+def _p14_timit(dtype: str):
+    """timit_qcnn at full width in ``dtype`` with phase 6's training
+    overrides; the preset's dropout (0.3) stays on: a data-parallel rank
+    draws the global batch's masks."""
+    from qasr_torch.configs import get_config
+
+    return get_config("timit_qcnn").override(**TRAIN_OVERRIDES,
+                                             **{"model.compute_dtype": dtype})
+
+
+def _p14_large():
+    """Config 5 (``librispeech_large``: conv 64..256 x 10, dense 1024 x 3,
+    bf16) at full width on synthetic data: 8 utterances of 256 frames with
+    32 characters, warmup 0 (its one step moves the weights), rate 1e-4."""
+    from qasr_torch.configs import get_config
+
+    return get_config("librispeech_large").override(**{
+        "data.dataset": "synthetic", "data.bucket_sizes": (P14_T,), "data.batch_size": 8,
+        "data.max_label_len": 32, "train.warmup_steps": 0, "train.learning_rate": 1e-4})
+
+
+def _p14_large_batch(cfg) -> dict:
+    rng = np.random.default_rng(SEED + 14)
+    b = cfg.data.batch_size
+    return {"features": rng.standard_normal((b, P14_T, cfg.data.n_mels, 4)).astype(np.float32),
+            "feature_lengths": np.full(b, P14_T, np.int32),
+            "labels": rng.integers(1, cfg.model.vocab, size=(b, 32)).astype(np.int32),
+            "label_lengths": np.full(b, 32, np.int32), "real_rows": np.ones(b, bool)}
+
+
+def _p14_conv_inputs(dev):
+    """The halo conv's input x [B4, T256, F13, 4 x 256] (bf16), its f32
+    kernel [4, 3, 3, 256, 256] and the output's cotangent (bf16)."""
+    rng = np.random.default_rng(SEED + 15)
+    x = rng.standard_normal((4, P14_T, 13, 1024)) * 0.5
+    w = rng.standard_normal((4, 3, 3, 256, 256)) * (1.0 / (9 * 256)) ** 0.5
+    g = rng.standard_normal((4, P14_T, 13, 1024))
+    return (torch.from_numpy(x.astype(np.float32)).to(dev, torch.bfloat16),
+            torch.from_numpy(w.astype(np.float32)).to(dev),
+            torch.from_numpy(g.astype(np.float32)).to(dev, torch.bfloat16))
+
+
+def _p14_ctc_inputs(dev):
+    """B16 x T256 x V62 logits (f32) with 20-40 labels a row and ragged
+    lengths (192-256 frames)."""
+    rng = np.random.default_rng(SEED + 16)
+    b, v, lab = 16, 62, 40
+    ll = rng.integers(P14_T * 3 // 4, P14_T + 1, size=b)
+    ll[0] = P14_T
+    return (torch.from_numpy((2 * rng.standard_normal((b, P14_T, v))).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.integers(1, v, size=(b, lab))).to(dev),
+            torch.from_numpy(ll).to(dev),
+            torch.from_numpy(rng.integers(lab // 2, lab + 1, size=b)).to(dev))
+
+
+def _p14_eval_set(cfg):
+    """13 synthetic utterances in batches of 8 (the last has 5 real rows)."""
+    from qasr_torch.data.synthetic import SyntheticDataset
+
+    ecfg = cfg.override(**{"data.num_synthetic": 13, "data.batch_size": 8})
+    return ecfg, SyntheticDataset(vocab=ecfg.model.vocab, n_mels=ecfg.data.n_mels,
+                                  num_examples=13, seed=SEED)
+
+
+def _p14_stack(x: torch.Tensor) -> torch.Tensor:
+    from qasr_torch.models.layers import tf_packed_to_stacked
+
+    return tf_packed_to_stacked(x).contiguous()
+
+
+def phase14_rank(rank: int, directory: str, device: str = "cuda:0") -> int:
+    """One of phase 14's two ranks, both on ``cuda:0`` over gloo
+    (``--phase14-rank R --phase14-dir D``): the collectives gloo runs on
+    CUDA tensors, ``timit_qcnn`` at DP 2 (bf16 and f32, two steps),
+    ``librispeech_large`` at DP 1 x TP 2 (one step), the halo conv on kernel
+    A, the chunked CTC and the sharded W = 100 beam eval. Writes
+    ``rank<R>.json`` (and rank 0 ``rank0.pt``) into D."""
+    import torch.distributed as dist
+
+    from qasr_torch.ops.kernels import _build
+    from qasr_torch.parallel import (
+        create_sharded_train_state,
+        ctc_loss_seq_parallel,
+        initialize_multihost,
+        make_mesh,
+        make_sharded_train_step,
+        qconv2d_seq_parallel,
+    )
+    from qasr_torch.parallel.collectives import all_gather_cat
+    from qasr_torch.train.loop import evaluate
+    from qasr_torch.train.metrics import state_bytes
+    from qasr_torch.train.state import create_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    _build.load_library()
+    initialize_multihost(f"file://{os.path.join(directory, 'rendezvous')}", num_processes=2,
+                         process_id=rank, backend="gloo", device=dev)
+    res, keep = {}, {}
+
+    # which collectives gloo runs on CUDA tensors, with their values (each a
+    # collective: both ranks take the same branch)
+    probes = {}
+    x = torch.full((4,), float(rank + 1), device=dev, dtype=torch.bfloat16)
+
+    def probe(name, fn, want):
+        try:
+            got = fn()
+            probes[name] = "ok" if torch.equal(got.float().cpu(), torch.tensor(want)) else \
+                f"wrong values {got.tolist()}"
+        except Exception as e:  # noqa: BLE001 - the finding is the refusal
+            probes[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:90]}"
+
+    def run(op, out, *args, **kw):
+        op(out, *args, **kw)
+        return out
+
+    probe("all_reduce", lambda: run(dist.all_reduce, x.clone()), [3.0] * 4)
+    probe("broadcast", lambda: run(dist.broadcast, x.clone(), src=0), [1.0] * 4)
+    probe("all_gather", lambda: all_gather_cat(x, None, dim=0), [1.0] * 4 + [2.0] * 4)
+    probe("all_gather_into_tensor", lambda: run(dist.all_gather_into_tensor,
+                                                torch.empty(8, device=dev), x.float()),
+          [1.0] * 4 + [2.0] * 4)
+    probe("reduce_scatter_tensor", lambda: run(dist.reduce_scatter_tensor,
+                                               torch.empty(2, device=dev), x.float()), [3.0] * 2)
+    res["collectives"] = probes
+
+    def timed(fn):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return out, e0.elapsed_time(e1)
+
+    # timit_qcnn at DP 2 on phase 6's batch: two steps (the first at rate 0)
+    dp = make_mesh(2, 1)
+    for dtype in ("bfloat16", "float32"):
+        cfg = _p14_timit(dtype)
+        batch = _train_batch(cfg)
+        state, _ = create_sharded_train_state(cfg, dp, device=dev)
+        step = make_sharded_train_step(cfg, dp)
+        _reset_counts()
+        m0 = step(state, batch)
+        counts = _read_counts()
+        m1, ms = timed(lambda: step(state, batch))
+        res[f"dp2 {dtype}"] = {"loss": [m0["loss"].item(), m1["loss"].item()],
+                               "grad_norm": [m0["grad_norm"].item(), m1["grad_norm"].item()],
+                               "launches": counts, "step_ms": ms}
+        keep[f"dp2 {dtype}"] = {k: v.cpu() for k, v in state.model.state_dict().items()}
+        del state
+        torch.cuda.empty_cache()
+
+    # config 5 at DP 1 x TP 2: one step; the rank's bytes
+    tp = make_mesh(1, 2)
+    cfg5 = _p14_large()
+    state, _ = create_sharded_train_state(cfg5, tp, device=dev)
+    step = make_sharded_train_step(cfg5, tp)
+    _reset_counts()
+    m, ms = timed(lambda: step(state, _p14_large_batch(cfg5)))
+    counts = _read_counts()
+    persistent, gathered = state_bytes(state)
+    res["tp2 large"] = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                        "launches": counts, "step_ms": ms,
+                        "persistent": sum(persistent.values()),
+                        "gathered": sum(gathered.values())}
+    keep["tp2 large"] = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    del state
+    torch.cuda.empty_cache()
+
+    # the halo conv on kernel A (forward) and C (backward), T split in two
+    sp = make_mesh(2, 1)
+    x, w, g = _p14_conv_inputs(dev)
+    rows = slice(rank * P14_T // 2, (rank + 1) * P14_T // 2)
+    xl = x[:, rows].contiguous().requires_grad_(True)
+    wl = w.clone().requires_grad_(True)
+    _reset_counts()
+
+    def conv():
+        y = qconv2d_seq_parallel(xl, wl.to(torch.bfloat16), sp, variant="fast8")
+        y.backward(g[:, rows])
+        return y
+
+    y, ms = timed(conv)
+    counts = _read_counts()
+    dw = wl.grad.clone()
+    dist.all_reduce(dw)
+    res["halo conv"] = {"launches": counts, "ms": ms}
+    keep["halo conv"] = {"y": all_gather_cat(y.detach(), None, dim=1).cpu(),
+                         "dx": all_gather_cat(xl.grad, None, dim=1).cpu(), "dw": dw.cpu()}
+    del x, w, g, xl, wl, y, dw
+
+    # the chunked-alpha CTC, with its gradient
+    logits, labels, ll, tl = _p14_ctc_inputs(dev)
+    lg = logits[:, rows].contiguous().requires_grad_(True)
+
+    def chunked():
+        loss = ctc_loss_seq_parallel(lg, labels, ll, tl, sp)
+        loss.sum().backward()
+        return loss
+
+    loss, ms = timed(chunked)
+    res["chunked ctc"] = {"ms": ms}
+    keep["chunked ctc"] = {"loss": loss.detach().cpu(),
+                           "dlogits": all_gather_cat(lg.grad, None, dim=1).cpu()}
+
+    # the sharded W = 100 beam eval (and the greedy one) over 13 utterances
+    ecfg, ds = _p14_eval_set(_p14_timit("bfloat16"))
+    model = create_train_state(ecfg, device=dev).model
+    _reset_counts()
+    t0 = time.perf_counter()
+    beam = evaluate(ecfg, model, ds, beam=True, mesh=sp)
+    beam_s = time.perf_counter() - t0
+    res["beam"] = {"beam": beam, "beam_s": beam_s, "launches": _read_counts(),
+                   "greedy": evaluate(ecfg, model, ds, mesh=sp)}
+
+    with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    if rank == 0:
+        torch.save(keep, os.path.join(directory, "rank0.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _p14_update_err(got: dict, ref: dict, init: dict) -> dict:
+    """_errors of the weights' update (after - before) over every parameter,
+    flattened: a data-parallel step against the one-process step."""
+    keys = sorted(ref)
+    a = torch.cat([(got[k].float() - init[k].float()).reshape(-1) for k in keys])
+    b = torch.cat([(ref[k].float() - init[k].float()).reshape(-1) for k in keys])
+    return _errors(a, b)
+
+
+def phase14_parallel(dev: torch.device, smi: str) -> None:
+    """Phase 14 in this process: (a) a world of one rank over NCCL through
+    the command line under ``torch.distributed.run`` against the same run
+    in this process; (b) two ranks sharing the card (gloo, CUDA tensors)
+    against the one-process results, computed here first."""
+    from qasr_torch.bridge import load_params_npz
+    from qasr_torch.configs import get_config
+    from qasr_torch.data.batching import epoch_iterator
+    from qasr_torch.ops.kernels.qconv_chain import chain_layer
+    from qasr_torch.ops.ctc import ctc_loss
+    from qasr_torch.train.loop import evaluate, train
+    from qasr_torch.train.metrics import state_bytes
+    from qasr_torch.train.state import create_train_state
+    from qasr_torch.train.step import train_step
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "qasr_torch", "_build", "smoke_parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    env = {**os.environ, "PYTHONPATH": repo}
+
+    # (a) a world of one rank over NCCL: the command line under
+    # torch.distributed.run, then the same run in this process on one device
+    sets = {**P14_CLI_SETS, "train.checkpoint_dir": os.path.join(root, "cli")}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", "-m", "qasr_torch.cli", "--device", dev.type, "--preset", P14_CLI_PRESET, "--set",
+           *[f"{k}={v}" for k, v in sets.items()]]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise RuntimeError(f"phase 14 torch.distributed.run CLI: rc {p.returncode}\n"
+                           f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    cli_last = json.loads([ln for ln in p.stdout.splitlines() if ln.startswith("{")][-1])
+    lcfg = get_config(P14_CLI_PRESET).override(**sets)
+    st, one_last = train(lcfg, device=dev, checkpoint_dir=os.path.join(root, "one"))
+    del st
+    a = load_params_npz(os.path.join(root, "cli", "step_4", "params.npz"))
+    b = load_params_npz(os.path.join(root, "one", "step_4", "params.npz"))
+    same = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    if not same or cli_last["loss"] != one_last["loss"]:
+        raise RuntimeError(f"phase 14: the NCCL world of one differs from one process "
+                           f"(params equal {same}; loss {cli_last['loss']} vs {one_last['loss']})")
+    print(f"phase 14 world of one (NCCL, python -m torch.distributed.run --nproc-per-node 1 -m "
+          f"qasr_torch.cli, timit_qcnn, 4 steps): params after 4 steps bit-equal to train() in "
+          f"one process, loss {cli_last['loss']!r} = {one_last['loss']!r}, dev_per "
+          f"{cli_last['dev_per']!r}; {cli_s:.1f} s with the launcher", flush=True)
+    torch.cuda.empty_cache()
+
+    # (b) the one-process references, on the same inputs as the ranks'
+    ref, init, ref_ms = {}, {}, {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = _p14_timit(dtype)
+        batch = _train_batch(cfg)
+        st = create_train_state(cfg, device=dev)
+        init[dtype] = {k: v.detach().clone() for k, v in st.model.state_dict().items()}
+        m0 = train_step(st, batch)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        m1 = train_step(st, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        ref_ms[dtype] = e0.elapsed_time(e1)
+        ref[dtype] = ([m0["loss"].item(), m1["loss"].item()],
+                      [m0["grad_norm"].item(), m1["grad_norm"].item()],
+                      {k: v.detach().clone() for k, v in st.model.state_dict().items()})
+        del st
+    cfg5 = _p14_large()
+    st = create_train_state(cfg5, device=dev)
+    init["large"] = {k: v.detach().clone() for k, v in st.model.state_dict().items()}
+    m5 = train_step(st, _p14_large_batch(cfg5))
+    whole5, _ = state_bytes(st)
+    # each rank's share: the kernels whose Cout 2 divides, halved (the
+    # reference's rule), and the rest whole; params and two moments f32, and
+    # AdamW's step counts where they lie on the card
+    from qasr_torch.parallel.sharding import param_spec
+
+    kern = rest = 0
+    for k, v in st.model.named_parameters():
+        if param_spec(tuple(k.split(".")), v) and v.shape[-1] % 2 == 0:
+            kern += v.numel()
+        else:
+            rest += v.numel()
+    steps = sum(v.numel() * v.element_size() for slot in st.optimizer.state.values()
+                for key, v in slot.items() if key == "step" and v.is_cuda)
+    want_tp = 4 * 3 * (rest + kern // 2) + steps
+    ref["large"] = (m5["loss"].item(), m5["grad_norm"].item(),
+                    {k: v.detach().clone() for k, v in st.model.state_dict().items()})
+    del st
+    x, w, g = _p14_conv_inputs(dev)
+    xw = _p14_stack(x).requires_grad_(True)
+    ww = w.clone().requires_grad_(True)
+    zero = torch.zeros(4 * ww.shape[-1], device=dev)
+    y_st = chain_layer(xw, ww.to(torch.bfloat16), zero, None, scheme="fast8")
+    from qasr_torch.models.layers import stacked_to_tf_packed
+
+    y_st.backward(_p14_stack(g))
+    conv_ref = {"y": stacked_to_tf_packed(y_st.detach()), "dx": stacked_to_tf_packed(xw.grad),
+                "dw": ww.grad}
+    del x, w, g, xw, ww, y_st
+    logits, labels, ll, tl = _p14_ctc_inputs(dev)
+    lg = logits.clone().requires_grad_(True)
+    ctc_ref = ctc_loss(lg, labels, ll, tl)
+    ctc_ref.sum().backward()
+    ctc_ref = {"loss": ctc_ref.detach(), "dlogits": lg.grad}
+    ecfg, ds = _p14_eval_set(_p14_timit("bfloat16"))
+    model = create_train_state(ecfg, device=dev).model
+    t0 = time.perf_counter()
+    beam_ref = evaluate(ecfg, model, ds, beam=True)
+    beam_ref_s = time.perf_counter() - t0
+    greedy_ref = evaluate(ecfg, model, ds)
+    del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the two ranks, both on this card
+    d = os.path.join(root, "ranks")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, P14_SCRIPT, "--phase14-rank", str(r),
+                               "--phase14-dir", d, "--phase14-device", str(dev)], cwd=repo, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for q in procs:
+            logs.append(q.communicate(timeout=max(1.0, P14_TIMEOUT_S - (time.perf_counter() - t0)))[0])
+    finally:
+        for q in procs:
+            if q.poll() is None:
+                q.kill()
+                q.wait()
+    ranks_s = time.perf_counter() - t0
+    if any(q.returncode != 0 for q in procs):
+        raise RuntimeError("phase 14 ranks failed:\n" + "\n".join(
+            f"--- rank {r} rc {q.returncode}\n{log[-4000:]}" for r, (q, log) in
+            enumerate(zip(procs, logs))))
+    res = [json.load(open(os.path.join(d, f"rank{r}.json"))) for r in range(2)]
+    got = torch.load(os.path.join(d, "rank0.pt"), map_location=dev, weights_only=True)
+
+    col = res[0]["collectives"]
+    for name in ("all_reduce", "broadcast", "all_gather"):
+        if col[name] != "ok":
+            raise RuntimeError(f"phase 14: gloo {name} on CUDA tensors: {col[name]}")
+    print(f"phase 14 collectives (gloo, CUDA tensors, two ranks on one card; torch "
+          f"{torch.__version__}): {json.dumps(col)}", flush=True)
+
+    # the update's limits: in bf16 the ranks' partial dW round to bf16 before
+    # their sum, where one process rounds the whole sum once, and the PReLU
+    # kink turns that into a layer's move (phase 6's TOL_GRAD_BF16); in f32
+    # only the two partial sums' order differs (TOL_GRAD_F32, phase 6's f32
+    # arithmetic limit), and a fault in the sharded optimizer (weight decay,
+    # moments, step count) moves the update far more
+    for dtype, tol_loss, tol_upd in (("bfloat16", TOL_LOSS_BF16, TOL_GRAD_BF16),
+                                     ("float32", TOL_LOSS_F32, TOL_GRAD_F32)):
+        key = f"dp2 {dtype}"
+        r_loss, r_norm, r_params = ref[dtype]
+        want = _want(qconv_ft8=9, qconv_dx8=9, qgemm8=3, qgemm8_dx=3)
+        for r in range(2):
+            if res[r][key]["launches"] != want:
+                raise RuntimeError(f"phase 14 {key} rank {r}: launches in a step "
+                                   f"{res[r][key]['launches']}, expected {want}")
+        loss, norm = res[0][key]["loss"], res[0][key]["grad_norm"]
+        rel = [abs(a_ - b_) / abs(b_) for a_, b_ in zip(loss + norm, r_loss + r_norm)]
+        if not max(rel) <= tol_loss:
+            raise RuntimeError(f"phase 14 {key}: loss {loss} / grad norm {norm} against one "
+                               f"process {r_loss} / {r_norm} (rel {max(rel):.3e} > {tol_loss})")
+        err = _p14_update_err(got[key], r_params, init[dtype])
+        _gate(f"phase 14 {key} update", err, tol_upd)
+        print(f"phase 14 dp2 {dtype} (timit_qcnn, B16 x T256, two steps, dropout "
+              f"{_p14_timit(dtype).model.dropout_rate}): launches a step per rank "
+              f"{ {k: v for k, v in res[0][key]['launches'].items() if v} } and "
+              f"{ {k: v for k, v in res[1][key]['launches'].items() if v} }; loss {loss} vs one "
+              f"process {r_loss}, grad norm {norm} vs {r_norm} (largest rel {max(rel):.3e}, tol "
+              f"{tol_loss}); the weights' update rel_norm {err['rel_norm']:.3e} max_rel "
+              f"{err['max_rel']:.3e} (tol {tol_upd}); step ms rank 0 "
+              f"{res[0][key]['step_ms']:.3f}, rank 1 {res[1][key]['step_ms']:.3f}, one process "
+              f"{ref_ms[dtype]:.3f} on {smi} (two ranks sharing one card: says nothing "
+              "of scaling across cards)", flush=True)
+
+    r_loss, r_norm, r_params = ref["large"]
+    lt = [res[r]["tp2 large"] for r in range(2)]
+    for r in range(2):
+        c = lt[r]["launches"]
+        if not (c["qconv_ft8"] and c["qconv_dx8"] and c["qgemm8"] and c["qgemm8_dx"]):
+            raise RuntimeError(f"phase 14 tp2 large rank {r}: kernels A, C, B not all launched {c}")
+        if lt[r]["persistent"] != want_tp:
+            raise RuntimeError(f"phase 14 tp2 large rank {r}: persistent state "
+                               f"{lt[r]['persistent']} bytes, expected {want_tp}")
+    rel = max(abs(lt[0]["loss"] - r_loss) / abs(r_loss), abs(lt[0]["grad_norm"] - r_norm) / r_norm)
+    if not rel <= TOL_LOSS_BF16:
+        raise RuntimeError(f"phase 14 tp2 large: loss {lt[0]['loss']} grad norm "
+                           f"{lt[0]['grad_norm']} vs one process {r_loss} {r_norm}")
+    err = _p14_update_err(got["tp2 large"], r_params, init["large"])
+    # both ranks run the one process's kernels on its rows and whole weights:
+    # only the clip norm's sum of squares is grouped otherwise, so the update
+    # is held at the kernels' f32 arithmetic limit
+    _gate("phase 14 tp2 large update", err, TOL_F32)
+    whole_b = sum(whole5.values())
+    print(f"phase 14 tp2 librispeech_large (DP 1 x TP 2, B8 x T256, one step, "
+          f"{(kern + rest) / 1e6:.2f} M params, {kern / (kern + rest):.1%} of them in sharded "
+          f"kernels): per-rank persistent state {lt[0]['persistent']} and {lt[1]['persistent']} "
+          f"bytes vs {whole_b} unsharded ({lt[0]['persistent'] / whole_b:.3f}x; the sharded "
+          f"kernels with their moments {(4 * 3 * kern // 2) / (4 * 3 * kern):.2f}x), gathered "
+          f"kernels {lt[0]['gathered']} bytes beside it; launches rank 0 "
+          f"{ {k: v for k, v in lt[0]['launches'].items() if v} }; loss {lt[0]['loss']!r} vs "
+          f"{r_loss!r} (bits equal {lt[0]['loss'] == r_loss}), grad norm {lt[0]['grad_norm']!r} "
+          f"vs {r_norm!r}; update rel_norm {err['rel_norm']:.3e} max_rel {err['max_rel']:.3e} "
+          f"(tol {TOL_F32}); step ms "
+          f"{lt[0]['step_ms']:.3f} / {lt[1]['step_ms']:.3f} on {smi} (two ranks on one card)",
+          flush=True)
+
+    hc = [res[r]["halo conv"] for r in range(2)]
+    for r in range(2):
+        if hc[r]["launches"] != _want(qconv_ft8=1, qconv_dx8=1):
+            raise RuntimeError(f"phase 14 halo conv rank {r}: launches {hc[r]['launches']}")
+    bits = {k: bool(torch.equal(got["halo conv"][k], conv_ref[k])) for k in ("y", "dx", "dw")}
+    herr = {k: _errors(got["halo conv"][k], conv_ref[k]) for k in ("y", "dx", "dw")}
+    for k in ("y", "dx", "dw"):
+        _gate(f"phase 14 halo conv {k}", herr[k], TOL_BF16)
+    print(f"phase 14 halo conv (qconv2d_seq_parallel fast8, 256 -> 256, B4 x T256 x F13, T "
+          f"split in two, bf16): kernel A 1 and C 1 a rank, against kernel A (and C) over the "
+          f"whole T: bits equal {bits}; "
+          + ", ".join(f"{k} rel_norm {herr[k]['rel_norm']:.3e} max_rel {herr[k]['max_rel']:.3e}"
+                      for k in ("y", "dx", "dw"))
+          + f" (dw sums the ranks' parts; tol {TOL_BF16}); forward + backward ms "
+          f"{hc[0]['ms']:.3f} / {hc[1]['ms']:.3f}", flush=True)
+
+    errs = {k: _errors(got["chunked ctc"][k], ctc_ref[k]) for k in ("loss", "dlogits")}
+    _gate("phase 14 chunked ctc loss", errs["loss"], TOL_CTC_LOSS)
+    _gate("phase 14 chunked ctc dlogits", errs["dlogits"], TOL_CTC_GRAD)
+    print(f"phase 14 chunked ctc (ctc_loss_seq_parallel, B16 x T256 x V62, ragged, T split in "
+          f"two) against ctc_loss: loss rel_norm {errs['loss']['rel_norm']:.3e} max_rel "
+          f"{errs['loss']['max_rel']:.3e} (tol {TOL_CTC_LOSS}), dlogits rel_norm "
+          f"{errs['dlogits']['rel_norm']:.3e} max_rel {errs['dlogits']['max_rel']:.3e} (tol "
+          f"{TOL_CTC_GRAD}); forward + backward ms {res[0]['chunked ctc']['ms']:.1f} / "
+          f"{res[1]['chunked ctc']['ms']:.1f}", flush=True)
+
+    n_eval = len(list(epoch_iterator(ds, ecfg.data, train=False)))
+    want = _want(qconv_ft8=9 * n_eval, qgemm8=3 * n_eval)  # 9/3 an eval forward
+    for r in range(2):
+        if res[r]["beam"]["launches"] != want:
+            raise RuntimeError(f"phase 14 sharded beam eval rank {r}: launches "
+                               f"{res[r]['beam']['launches']}, expected {want}")
+    bm = res[0]["beam"]
+    for key, want in (("beam", beam_ref), ("greedy", greedy_ref)):
+        if bm[key]["per"] != want["per"] or not (
+                abs(bm[key]["loss"] - want["loss"]) <= TOL_LOSS_F32 * abs(want["loss"])):
+            raise RuntimeError(f"phase 14 sharded {key} eval {bm[key]} vs one process {want}")
+    print(f"phase 14 sharded eval (DP 2, 13 utterances in batches of 8, W = 100): launches of "
+          f"the beam eval rank 0 { {k: v for k, v in res[0]['beam']['launches'].items() if v} }, "
+          f"rank 1 { {k: v for k, v in res[1]['beam']['launches'].items() if v} } ({n_eval} "
+          f"batches, 9/3 an eval forward); beam PER "
+          f"{bm['beam']['per']!r} = one process {beam_ref['per']!r}, greedy PER "
+          f"{bm['greedy']['per']!r} = {greedy_ref['per']!r}; beam eval {bm['beam_s']:.2f} s a "
+          f"rank vs {beam_ref_s:.2f} s in one process; two ranks' wall clock {ranks_s:.1f} s; "
+          f"phase {time.perf_counter() - t_phase:.1f} s on {smi}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def time_kernels(tree: str) -> int:
     """``--time-kernels TREE``: of the ``qasr_torch`` under ``TREE``, bf16, on
     CUDA events: the conv kernels at phase 5's shape, the rank-8 A (with its
@@ -2578,11 +3099,12 @@ def time_kernels(tree: str) -> int:
     call and as the launcher alone on ready weight combos (A and F also
     without the prologue); A and C at config 4's three stacked shapes (B32
     F13 T512, as its train step calls them) with cuDNN's ``F.conv2d`` on the
-    expanded (adjoint) weight beside them; kernels B and H, forward and dx, at every
-    path shape (config 2's dense layers at M4096 K3328 and K256, config 4's
-    M16384 K512 N256 and M2048 K1664 N2048 for B, the im2col convs' M53248
-    K2304 for H), each as the wrapper's call and as the launcher alone on
-    ready inputs, and ``torch.matmul`` on the Hamilton-expanded weight for
+    expanded (adjoint) weight and A's plain version beside them; kernels B
+    and H, forward and dx, at every path shape (config 2's dense layers at
+    M4096 K3328 and K256, config 4's M16384 K512 N256 (B's dx too) and M2048
+    K1664 N2048 for B, the im2col convs' M53248 K2304 for H), each as the
+    wrapper's call and as the launcher alone on ready inputs (B at config
+    4's shapes also as its plain version), and ``torch.matmul`` on the Hamilton-expanded weight for
     B at config 4's M16384 K512 N256 and B's dx at M4096 N256 -> K256;
     kernel I at phase 9's three shapes; kernel J at the probe's shape in
     both modes, on CUDA events and in CUDA-graph replays, with
@@ -2606,6 +3128,8 @@ def time_kernels(tree: str) -> int:
     from qasr_torch.models import build_model
     from qasr_torch.ops.initializers import quaternion_init
     from qasr_torch.ops.kernels import qgemm, qlstm_scan
+    from qasr_torch.ops.kernels import qconv_ft as qconv_ft_mod
+    from qasr_torch.ops.kernels import qgemm8 as qgemm8_mod
     from qasr_torch.ops.kernels.dgt import dgt
     from qasr_torch.ops.kernels.qconv_dx import conj_transpose_w, qconv_dx10, qconv_dx_cuda
     from qasr_torch.ops.kernels.qconv_ft import SCHEME8, SCHEME10, qconv_ft10, qconv_ft_cuda
@@ -2666,6 +3190,8 @@ def time_kernels(tree: str) -> int:
         pro, epi = (None, None) if first else (a4, (x4, s4))
         shape = f"B32 F13 T512 C{cin}->{cout}"
         times[f"qconv_ft8 {shape}"] = _time_ms(lambda: qconv_ft8(x4, w4, b4, pro), 10, 3)
+        times[f"qconv_ft8 {shape} plain"] = _time_ms(
+            lambda: qconv_ft_mod.qconv_stacked_plain(x4, w4, b4, pro), 3, 1)
         times[f"qconv_dx8 {shape}"] = _time_ms(
             lambda: qconv_dx8(dz4, w4, *(epi or (None, None))), 10, 3)
         x_lib = x4.permute(0, 1, 4, 2, 3).reshape(32, 4 * cin, 13, 512).contiguous()
@@ -2689,7 +3215,7 @@ def time_kernels(tree: str) -> int:
         del wg, w_lib, inp
     # B and H: (kernel, M, K, N, roles); dx maps [4, M, N] -> [4, M, K]
     gemms = [("qgemm8", 4096, 3328, 256, ("fwd", "dx")), ("qgemm8", 4096, 256, 256, ("fwd", "dx")),
-             ("qgemm8", 16384, 512, 256, ("fwd",)), ("qgemm8", 2048, 1664, 2048, ("fwd",)),
+             ("qgemm8", 16384, 512, 256, ("fwd", "dx")), ("qgemm8", 2048, 1664, 2048, ("fwd",)),
              ("qgemm10", 4096, 3328, 256, ("fwd", "dx")), ("qgemm10", 4096, 256, 256, ("fwd", "dx")),
              ("qgemm10", 53248, 2304, 256, ("fwd", "dx"))]
     for name, m, k, n, roles in gemms:
@@ -2706,6 +3232,9 @@ def time_kernels(tree: str) -> int:
             label = f"{name} {shape}" if role == "fwd" else f"{name}_dx {shape}"
             times[label] = _time_ms(lambda: calls[role](inp, wg), reps, 3)
             times[f"{label} alone"] = _time_ms(lambda: launcher(inp, wc, role=role), reps, 3)
+            if name == "qgemm8" and m != 4096:  # config 4's shapes: the plain version too
+                times[f"{label} plain"] = _time_ms(
+                    lambda: qgemm8_mod.qgemm8_cl_plain(inp, wr), reps, 3)
             del inp, wc
         del wg
         torch.cuda.empty_cache()
@@ -3133,6 +3662,10 @@ def main() -> int:
     # served, trained and timed, and the rank-8 GEMM's f32 products (their
     # own launch counts)
     phase13_qlstm_arms(dev, smi)
+    # 14. data, tensor and sequence parallelism: a world of one over NCCL
+    # through the CLI, two ranks sharing the card over gloo (their own
+    # launch counts, per rank)
+    phase14_parallel(dev, smi)
 
     def entry(name, source, replaces, bound, lib_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3169,5 +3702,10 @@ if __name__ == "__main__":
     ap.add_argument("--time-kernels", metavar="TREE",
                     help="only time kernels A to J, the train steps and config 4's encoder "
                          "forward of the qasr_torch under TREE")
+    ap.add_argument("--phase14-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--phase14-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--phase14-device", default="cuda:0", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.phase14_rank is not None:
+        sys.exit(phase14_rank(args.phase14_rank, args.phase14_dir, args.phase14_device))
     sys.exit(main() if args.time_kernels is None else time_kernels(args.time_kernels))

@@ -60,6 +60,10 @@ _API = {
     "train_step": "qasr_torch.train.step",
     "train": "qasr_torch.train.loop",
     "evaluate": "qasr_torch.train.loop",
+    # parallelism
+    "make_mesh": "qasr_torch.parallel.mesh",
+    "ctc_loss_seq_parallel": "qasr_torch.parallel.seq_parallel",
+    "qconv2d_seq_parallel": "qasr_torch.parallel.seq_parallel",
     # weights
     "params_from_jax": "qasr_torch.bridge",
     "save_params_npz": "qasr_torch.bridge",

@@ -9,6 +9,18 @@ checkpoint that training wrote.
   python -m qasr_torch.cli transcribe --ckpt /tmp/qasr_ckpt [--beam] [--fold] f1.wav ...
 
 Everything runs on the GPU unless ``--device cpu`` asks for the CPU.
+
+Under ``torch.distributed.run`` the command trains on a world of ranks, one
+process a card, on the mesh of ``cfg.mesh`` (data parallel over the rest of
+the world, tensor parallel over ``mesh.model_axis``); only rank 0 prints and
+writes:
+
+  python -m torch.distributed.run --nproc-per-node 4 -m qasr_torch.cli \
+      --preset librispeech_large --set mesh.model_axis=2
+
+Rank r takes ``cuda:LOCAL_RANK`` and NCCL, one rank a card (NCCL refuses
+two ranks on one card); ``--device cpu`` runs gloo on the CPU.
+
 ``python -m qasr_torch.tools.make_mini_timit`` and ``make_mini_librispeech``
 write small corpora in the two layouts.
 """
@@ -74,14 +86,39 @@ def main(argv=None):
         overrides[k] = v
     if overrides:
         cfg = cfg.override(**overrides)
-    if args.eval_only:
-        return eval_only(cfg, split=args.split, beam=args.beam, device=args.device)
+    device, rank = _join_world(args.device)
+    try:
+        if args.eval_only:
+            return eval_only(cfg, split=args.split, beam=args.beam, device=device)
 
-    from qasr_torch.train.loop import train
+        from qasr_torch.train.loop import train
 
-    state, last = train(cfg, device=args.device, resume=args.resume)
-    print(json.dumps({"step": state.step, **last}), flush=True)
-    return last
+        state, last = train(cfg, device=device, resume=args.resume)
+        if rank == 0:
+            print(json.dumps({"step": state.step, **last}), flush=True)
+        return last
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _join_world(device: str) -> tuple[str, int]:
+    """Under ``torch.distributed.run`` (its ``RANK`` and ``WORLD_SIZE`` in
+    the environment) join the world, NCCL on ``cuda:LOCAL_RANK`` or gloo on
+    the CPU; returns (device, rank). Elsewhere (device, 0)."""
+    if not ("RANK" in os.environ and "WORLD_SIZE" in os.environ):
+        return device, 0
+    import torch
+
+    from qasr_torch.parallel.mesh import initialize_multihost
+
+    if torch.device(device).type == "cuda":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        torch.cuda.set_device(torch.device(device))
+    rank, _ = initialize_multihost(device=device)
+    return device, rank
 
 
 def eval_only(cfg, *, split: str | None = None, beam: bool = False, device="cuda") -> dict:
@@ -91,9 +128,11 @@ def eval_only(cfg, *, split: str | None = None, beam: bool = False, device="cuda
     ``--eval-only`` does: ``qasr/cli.py:74``), decoded greedily or with the
     prefix beam (``beam``). Prints ``eval @ step N: {...} (split S)``;
     returns the metrics (``loss``, ``per``) with ``step``."""
+    import torch.distributed as dist
+
     from qasr_torch.models import build_model
     from qasr_torch.train.checkpoint import CheckpointManager
-    from qasr_torch.train.loop import build_dataset, evaluate
+    from qasr_torch.train.loop import build_dataset, build_mesh_from_config, evaluate
 
     ckpt = CheckpointManager(cfg, write_config=False)  # never overwrite the run's config
     best = ckpt.best_step()
@@ -104,8 +143,10 @@ def eval_only(cfg, *, split: str | None = None, beam: bool = False, device="cuda
     dataset = build_dataset(cfg, split=split, device=device)
     model = build_model(cfg, device=device)
     model.load_state_dict(ckpt.restore_params(step))
-    dev = evaluate(cfg, model, dataset, beam=beam)
-    print(f"[qasr] eval @ step {step}: {dev} (split {split})", flush=True)
+    mesh = build_mesh_from_config(cfg) if dist.is_initialized() else None
+    dev = evaluate(cfg, model, dataset, beam=beam, mesh=mesh)
+    if mesh is None or mesh.rank == 0:
+        print(f"[qasr] eval @ step {step}: {dev} (split {split})", flush=True)
     return {"step": step, **dev}
 
 

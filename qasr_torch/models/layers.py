@@ -98,8 +98,11 @@ class QConv(nn.Module):
     ) -> torch.Tensor:
         x = x.to(self.dtype)
         if self.layout == "stacked_ft":
+            # the kernel in the compute dtype before its combos are formed,
+            # as the reference's chain layer casts it (layers.py:251)
             return chain_layer(
-                x, self.kernel, self.bias, alpha_prev, scheme=self.scheme, plain=plain
+                x, self.kernel.to(self.dtype), self.bias, alpha_prev, scheme=self.scheme,
+                plain=plain,
             )
         if alpha_prev is not None:
             raise ValueError("the packed layout has no PReLU prologue")
@@ -219,7 +222,11 @@ class Dropout(nn.Module):
     is kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``;
     in eval mode, or at rate 0, the identity. The mask is drawn from the
     explicit ``generator`` the caller passes (on x's device); torch's global
-    RNG is never used."""
+    RNG is never used. Given ``global_rows = (start, total)``, x holds rows
+    ``start`` on of a ``total``-row batch (x's leading dim is the batch): the
+    mask is then the whole batch's, cut to x's rows, so a data-parallel
+    rank drops the same elements as one process on the whole batch, and
+    every rank's generator advances alike."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -227,11 +234,17 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
         self.rate = rate
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                global_rows: tuple[int, int] | None = None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if generator is None:
             raise ValueError("train-mode dropout needs an explicit torch.Generator")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        if global_rows is None:
+            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        else:
+            start, total = global_rows
+            draw = torch.rand((total, *x.shape[1:]), generator=generator, device=x.device)
+            mask = draw[start:start + x.shape[0]] < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))

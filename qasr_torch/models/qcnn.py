@@ -266,17 +266,19 @@ class QCNNEncoder(ConvTowerEncoder):
         lengths: torch.Tensor | None = None,
         plain: bool = False,
         generator: torch.Generator | None = None,
+        global_rows: tuple[int, int] | None = None,
     ) -> torch.Tensor:
         """``x [B, T, F, 4]`` -> logits ``[B, T, vocab]`` f32. ``plain=True``
         runs every kernel's plain PyTorch version, on any device. In train
-        mode the dropout masks come from ``generator`` (on x's device).
+        mode the dropout masks come from ``generator`` (on x's device),
+        cut to ``global_rows`` of a larger batch when given (:class:`Dropout`).
         ``lengths`` is accepted and unused: the model is frame-local, as the
         JAX encoder's (``qasr/models/qcnn.py:222``)."""
         del lengths
         x = self._run_tower(x, plain)
         for i in range(self.n_dense):
             x = getattr(self, f"dense_prelu_{i}")(getattr(self, f"qdense_{i}")(x, plain=plain))
-            x = getattr(self, f"dense_dropout_{i}")(x, generator)
+            x = getattr(self, f"dense_dropout_{i}")(x, generator, global_rows)
         return self.output(x).float()
 
 
@@ -374,14 +376,16 @@ class RealCNNEncoder(RealConvTower):
         lengths: torch.Tensor | None = None,
         plain: bool = False,
         generator: torch.Generator | None = None,
+        global_rows: tuple[int, int] | None = None,
     ) -> torch.Tensor:
         """``x [B, T, F, 4]`` -> logits ``[B, T, vocab]`` f32. In train mode
-        the dropout masks come from ``generator`` (on x's device).
+        the dropout masks come from ``generator`` (on x's device), cut to
+        ``global_rows`` of a larger batch when given (:class:`Dropout`).
         ``lengths`` is accepted and unused (the model is frame-local, as the
         JAX encoder's); so is ``plain``, as there is no kernel to swap."""
         del lengths, plain
         x = self._run_convs(x)
         for i in range(self.n_dense):
             x = getattr(self, f"dense_prelu_{i}")(getattr(self, f"dense_{i}")(x))
-            x = getattr(self, f"dense_dropout_{i}")(x, generator)
+            x = getattr(self, f"dense_dropout_{i}")(x, generator, global_rows)
         return self.output(x).float()

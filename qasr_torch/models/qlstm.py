@@ -396,17 +396,20 @@ class QLSTMEncoder(ConvTowerEncoder):
         lengths: torch.Tensor | None = None,
         plain: bool = False,
         generator: torch.Generator | None = None,
+        global_rows: tuple[int, int] | None = None,
     ) -> torch.Tensor:
         """``x [B, T, F, 4]`` -> logits ``[B, T, vocab]`` f32. ``lengths [B]``
         frame counts keep padding out of the recurrences. ``plain=True``
-        runs every kernel's plain PyTorch version, on any device."""
+        runs every kernel's plain PyTorch version, on any device. In train
+        mode the dropout masks come from ``generator``, cut to ``global_rows``
+        of a larger batch when given (:class:`Dropout`)."""
         x = self._run_tower(x, plain)
         for i in range(self.lstm_layers):
             x = self.lstm(i)(x, lengths, plain=plain)
-            x = getattr(self, f"lstm_dropout_{i}")(x, generator)
+            x = getattr(self, f"lstm_dropout_{i}")(x, generator, global_rows)
         for i in range(self.n_dense):
             x = getattr(self, f"dense_prelu_{i}")(getattr(self, f"qdense_{i}")(x, plain=plain))
-            x = getattr(self, f"dense_dropout_{i}")(x, generator)
+            x = getattr(self, f"dense_dropout_{i}")(x, generator, global_rows)
         return self.output(x).float()
 
 
@@ -525,15 +528,18 @@ class RealLSTMEncoder(RealConvTower):
         lengths: torch.Tensor | None = None,
         plain: bool = False,
         generator: torch.Generator | None = None,
+        global_rows: tuple[int, int] | None = None,
     ) -> torch.Tensor:
         """``x [B, T, F, 4]`` -> logits ``[B, T, vocab]`` f32. ``lengths [B]``
         reaches every LSTM layer; ``plain`` is accepted and unused (the model
-        runs no kernel of the port)."""
+        runs no kernel of the port). In train mode the dropout masks come
+        from ``generator``, cut to ``global_rows`` of a larger batch when
+        given (:class:`Dropout`)."""
         x = self._run_convs(x)
         for i in range(self.lstm_layers):
             x = getattr(self, f"bilstm_{i}")(x, lengths)
-            x = getattr(self, f"lstm_dropout_{i}")(x, generator)
+            x = getattr(self, f"lstm_dropout_{i}")(x, generator, global_rows)
         for i in range(self.n_dense):
             x = getattr(self, f"dense_prelu_{i}")(getattr(self, f"dense_{i}")(x))
-            x = getattr(self, f"dense_dropout_{i}")(x, generator)
+            x = getattr(self, f"dense_dropout_{i}")(x, generator, global_rows)
         return self.output(x).float()

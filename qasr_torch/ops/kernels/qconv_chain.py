@@ -72,8 +72,10 @@ class ChainLayerFn(torch.autograd.Function):
 
     ``x [B,4,F,T,Cin]`` in the compute dtype (the previous layer's
     pre-activation, or the chain's activated input when ``alpha`` is None);
-    ``w``, ``bias`` and ``alpha`` are the f32 master parameters. Gradients
-    come back in each input's dtype.
+    ``w`` is the kernel in the compute dtype (the layer casts its f32 master
+    kernel, as the reference does, so a bf16 kernel's combos get bf16 U8
+    coefficients); ``bias`` and ``alpha`` are the f32 master parameters.
+    Gradients come back in each input's dtype.
     """
 
     @staticmethod

@@ -177,7 +177,12 @@ def combine_weights(
     w: torch.Tensor, dtype: torch.dtype | None = None, table: np.ndarray = U8
 ) -> torch.Tensor:
     """Weight-side combos ``wc[p] = Σ_a table[p, a] w[a]``: ``[4, ...] ->
-    [P, ...]``, summed in f32 and returned in ``dtype`` (default w's)."""
-    t = device_table(table, torch.float32, w.device)
+    [P, ...]``, formed as the reference's ``einsum(w, asarray(table,
+    w.dtype))``: the table rounded to w's dtype, the products and their sum
+    in f32 (a bf16 product is exact there), one rounding to w's dtype, then
+    a cast to ``dtype`` (default w's). So bf16 weights get bf16-rounded U8
+    coefficients, and f32 weights (the recurrent combos) an f32 sum rounded
+    once to ``dtype``."""
+    t = device_table(table, w.dtype, w.device).float()
     wc = torch.tensordot(t, w.float(), dims=([1], [0]))
-    return wc.to(dtype or w.dtype)
+    return wc.to(w.dtype).to(dtype or w.dtype)

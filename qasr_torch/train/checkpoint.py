@@ -45,14 +45,16 @@ def _write_atomic(path: str, text: str) -> None:
 
 def save_checkpoint(state, directory: str) -> str:
     """Write ``params.npz``, ``config.json`` and ``train_state.pt`` of
-    ``state`` (a ``qasr_torch.train.state.TrainState``) into ``directory``;
-    returns it."""
+    ``state`` (a ``qasr_torch.train.state.TrainState``, or a sharded one:
+    its optimizer state gathered into the one-device layout, a collective)
+    into ``directory``; returns it."""
+    optimizer_state = state.full_optimizer_state()
     os.makedirs(directory, exist_ok=True)
     save_params_npz(state.model.state_dict(), os.path.join(directory, "params.npz"))
     with open(os.path.join(directory, "config.json"), "w") as f:
         f.write(state.cfg.to_json())
     torch.save(
-        {"step": state.step, "optimizer": state.optimizer.state_dict(),
+        {"step": state.step, "optimizer": optimizer_state,
          "generator": state.generator.get_state()},
         os.path.join(directory, "train_state.pt"),
     )
@@ -82,14 +84,23 @@ class CheckpointManager:
     """Saves and restores train states under ``directory`` (default
     ``cfg.train.checkpoint_dir``). Read-only consumers pass
     ``write_config=False`` so that they never overwrite the training run's
-    ``config.json``."""
+    ``config.json``.
+
+    In a world of ranks every rank calls :meth:`save` (a sharded state's
+    moments are gathered there, a collective) and only rank 0 writes; each
+    rank restores the same one-device layout and keeps its shards. So a
+    one-device ``--resume``, a TP world and ``Transcriber`` all read the
+    same checkpoint."""
 
     def __init__(self, cfg: Config, *, directory: str | None = None, write_config: bool = True):
+        from qasr_torch.parallel.mesh import world
+
         self.cfg = cfg
         self.dir = os.path.abspath(directory or cfg.train.checkpoint_dir)
         self.keep = cfg.train.keep_checkpoints
+        self.writes = world()[0] == 0
         os.makedirs(self.dir, exist_ok=True)
-        if write_config:
+        if write_config and self.writes:
             _write_atomic(os.path.join(self.dir, "config.json"), cfg.to_json())
 
     def step_dir(self, step: int) -> str:
@@ -101,12 +112,15 @@ class CheckpointManager:
         sidecar first), move ``best.json`` to it when ``dev_per`` is strictly
         lower than the best so far, and drop the steps beyond the newest
         ``keep_checkpoints`` but the best. Returns the step directory."""
+        final = self.step_dir(step)
+        if not self.writes:  # the gather save_checkpoint makes on rank 0
+            state.full_optimizer_state()
+            return final
         if data_state is not None:
             _write_atomic(os.path.join(self.dir, f"data_state_{step}.json"),
                           json.dumps(data_state))
         tmp = tempfile.mkdtemp(prefix=f"step_{step}.tmp-", dir=self.dir)
         save_checkpoint(state, tmp)
-        final = self.step_dir(step)
         if os.path.isdir(final):  # the same step saved again: replace it whole
             shutil.rmtree(final)
         os.replace(tmp, final)
@@ -156,10 +170,9 @@ class CheckpointManager:
         returns it."""
         d = self.step_dir(step)
         params = load_params_npz(os.path.join(d, "params.npz"))
-        state.model.load_state_dict(params)
         saved = torch.load(os.path.join(d, "train_state.pt"), map_location="cpu",
                            weights_only=True)
-        state.optimizer.load_state_dict(saved["optimizer"])
+        state.load_full(params, saved["optimizer"])
         state.generator.set_state(saved["generator"])
         state.step = int(saved["step"])
         return state

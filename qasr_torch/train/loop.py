@@ -1,5 +1,9 @@
-"""The training loop on one device (counterpart of ``qasr/train/loop.py``
-without its mesh).
+"""The training loop (counterpart of ``qasr/train/loop.py``), on one device
+or on a world of ranks (one process a card, ``torch.distributed``): there
+the (data, model) mesh comes from ``cfg.mesh`` (:func:`build_mesh_from_config`),
+every rank draws the same global batches and trains its own rows through
+the sharded step (``qasr_torch.parallel.train``), and only rank 0 writes
+metrics and checkpoints.
 
 A step loop over bucketed batches drawn by a prefetch thread: every
 ``log_every`` steps a metrics row (loss, grad norm, audio-seconds per second
@@ -16,6 +20,7 @@ drawn. Any model ``build_model`` builds trains here.
 from __future__ import annotations
 
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -25,7 +30,7 @@ from qasr_torch.data.batching import BatchStream, Prefetcher, epoch_iterator
 from qasr_torch.data.synthetic import SyntheticDataset
 from qasr_torch.decode.scoring import batch_per
 from qasr_torch.train.checkpoint import CheckpointManager
-from qasr_torch.train.metrics import MetricWriter, device_memory_stats, per_device_bytes
+from qasr_torch.train.metrics import MetricWriter, device_memory_stats, state_bytes
 from qasr_torch.train.state import TrainState, create_train_state
 from qasr_torch.train.step import beam_eval_step, eval_step, train_step
 
@@ -85,31 +90,88 @@ def _check_labels(batch, vocab: int) -> None:
         )
 
 
-def evaluate(cfg: Config, model: torch.nn.Module, dataset, *, beam: bool = False) -> dict:
+def build_mesh_from_config(cfg: Config):
+    """The (data, model) mesh of ``cfg.mesh`` over this world's ranks, by the
+    reference's rules (:func:`mesh_shape`)."""
+    from qasr_torch.parallel.mesh import make_mesh, world
+
+    n_data, n_model, used = mesh_shape(cfg, world()[1])
+    return make_mesh(n_data, n_model, ranks=list(range(used)))
+
+
+def mesh_shape(cfg: Config, n: int) -> tuple[int, int, int]:
+    """(n_data, n_model, ranks used) of ``cfg.mesh`` on ``n`` ranks, as
+    ``qasr/train/loop.py:build_mesh_from_config``: the model axis clamped
+    down to the largest divisor of ``n``; ``data_axis == -1`` takes every
+    remaining rank, an explicit one exactly ``data_axis * n_model`` of them
+    (fewer than the world is allowed, more raises)."""
+    m = cfg.mesh
+    n_model = min(m.model_axis, n)
+    while n % n_model:
+        n_model -= 1
+    if m.data_axis == -1:
+        return n // n_model, n_model, n
+    want = m.data_axis * n_model
+    if want > n:
+        raise ValueError(f"mesh {m.data_axis}x{n_model} needs {want} devices, have {n}")
+    return m.data_axis, n_model, want
+
+
+def evaluate(cfg: Config, model: torch.nn.Module, dataset, *, beam: bool = False,
+             mesh=None) -> dict:
     """Error rate (``per``) and per-token loss over one pass of ``dataset``,
     decoded greedily (the dev protocol) or with the prefix beam on the
     device (``beam=True``, the final numbers: one forward a batch for the
     loss and the beam, ``beam_eval_step``): the PER on the 39-phone fold for
     TIMIT, the raw symbol error rate otherwise (for LibriSpeech characters,
     the CER). Each batch's loss is weighted by its real label tokens;
-    remainder pad rows are scored once, never twice."""
-    step_fn = beam_eval_step if beam else eval_step
+    remainder pad rows are scored once, never twice.
+
+    On a ``mesh`` (every rank of the world calls this) each rank decodes its
+    rows of each batch (``qasr_torch.parallel.train``'s sharded steps) and
+    scores them against its rows of the references (``host_rows``), pad
+    rows dropped; the ranks of model index 0 count, and the counters are
+    summed over the world (``aggregate_per``): each utterance exactly once,
+    an uneven last batch included."""
+    counts = True
+    if mesh is None:
+        step = partial(beam_eval_step if beam else eval_step, cfg, model)
+    else:
+        from qasr_torch.parallel import (
+            aggregate_per,
+            host_rows,
+            make_sharded_beam_decode_step,
+            make_sharded_eval_step,
+        )
+        from qasr_torch.parallel.mesh import MODEL_AXIS
+
+        step = partial((make_sharded_beam_decode_step if beam else make_sharded_eval_step)(
+            cfg, mesh), model)
+        counts = mesh.shape[MODEL_AXIS] == 1 or mesh.index(MODEL_AXIS) == 0
     errs = total = 0
     losses = []
     for batch in epoch_iterator(dataset, cfg.data, train=False):
         _check_labels(batch, cfg.model.vocab)
-        out = step_fn(cfg, model, batch)
+        out = step(batch)
         real = np.asarray(batch["real_rows"])
         losses.append((float(out["loss"]), int(np.sum(batch["label_lengths"] * real))))
+        refs = {k: np.asarray(batch[k]) for k in ("labels", "label_lengths", "real_rows")}
+        if mesh is not None:
+            refs = host_rows(refs, mesh)
+        keep = refs["real_rows"]
+        if not counts or not keep.any():
+            continue
         e, n = batch_per(
-            np.asarray(batch["labels"])[real],
-            np.asarray(batch["label_lengths"])[real],
-            out["decoded"].cpu().numpy()[real],
-            out["decoded_lengths"].cpu().numpy()[real],
+            refs["labels"][keep],
+            refs["label_lengths"][keep],
+            out["decoded"].cpu().numpy()[keep],
+            out["decoded_lengths"].cpu().numpy()[keep],
             fold=cfg.data.dataset == "timit",
         )
         errs += e
         total += n
+    if mesh is not None:
+        errs, total = aggregate_per(errs, total)
     wsum = sum(w for _, w in losses)
     return {
         "loss": sum(v * w for v, w in losses) / wsum if wsum else float("nan"),
@@ -144,15 +206,70 @@ def train(
     return _train(cfg, **kw)
 
 
-def _train(cfg: Config, *, device, checkpoint_dir, metrics_dir, resume):
-    device = torch.device(device)
-    ckpt_dir = checkpoint_dir or cfg.train.checkpoint_dir
+def _build_datasets(cfg: Config, device, rank: int, size: int):
+    """The train and eval sets; in a world, rank 0 builds (and caches) them
+    first and the other ranks then read its cache."""
+    import torch.distributed as dist
+
+    if size > 1 and rank > 0:
+        dist.barrier()
     dataset = build_dataset(cfg, seed=cfg.train.seed, device=device)
     eval_dataset = build_eval_dataset(cfg, dataset, device=device)
+    if size > 1 and rank == 0:
+        dist.barrier()
+    return dataset, eval_dataset
+
+
+def _bytes_row(persistent: dict, gathered: dict, device, rank: int, size: int) -> dict:
+    """The metrics row of the state's bytes on the devices: the largest and
+    smallest rank's persistent state, the gathered kernels' bytes, and the
+    allocator's bytes in use; {} off the card."""
+    from qasr_torch.parallel.collectives import allsum_across_hosts
+
+    mem = device_memory_stats(device)
+    mine = np.zeros((3, size), np.int64)
+    mine[:, rank] = (sum(persistent.values()), sum(gathered.values()),
+                     sum(v["bytes_in_use"] for v in mem.values()))
+    per_rank = allsum_across_hosts(mine)
+    if not persistent:
+        return {}
+    row = {"state_bytes_per_device_max": int(per_rank[0].max()),
+           "state_bytes_per_device_min": int(per_rank[0].min())}
+    if gathered:
+        row["gathered_weight_bytes_per_device_max"] = int(per_rank[1].max())
+    if mem:
+        row["hbm_bytes_in_use_max"] = int(per_rank[2].max())
+    return row
+
+
+def _train(cfg: Config, *, device, checkpoint_dir, metrics_dir, resume):
+    import torch.distributed as dist
+
+    from qasr_torch.parallel.mesh import world
+
+    device = torch.device(device)
+    rank, size = world()
+    ckpt_dir = checkpoint_dir or cfg.train.checkpoint_dir
+    dataset, eval_dataset = _build_datasets(cfg, device, rank, size)
     stream = BatchStream(dataset, cfg.data, seed=cfg.train.seed)
     first = next(stream)
     _check_labels(first, cfg.model.vocab)
-    state = create_train_state(cfg, device=device)
+    mesh = None
+    step_fn = train_step
+    if dist.is_initialized():
+        from qasr_torch.parallel import (
+            create_sharded_train_state,
+            make_sharded_train_step,
+        )
+
+        mesh = build_mesh_from_config(cfg)
+        if mesh.coords is None:
+            raise ValueError(f"rank {rank} is outside the {mesh.shape} mesh of cfg.mesh; "
+                             f"launch {mesh.size} ranks")
+        state, _ = create_sharded_train_state(cfg, mesh, device=device)
+        step_fn = make_sharded_train_step(cfg, mesh)
+    else:
+        state = create_train_state(cfg, device=device)
     ckpt = CheckpointManager(cfg, directory=ckpt_dir)
     if resume and ckpt.latest_step() is not None:
         # the reference's order: `first` is drawn above, then the stream is
@@ -164,18 +281,16 @@ def _train(cfg: Config, *, device, checkpoint_dir, metrics_dir, resume):
             first = next(stream)
             _check_labels(first, cfg.model.vocab)
         ckpt.restore(latest, state)
-        print(f"[qasr] resumed from step {state.step}", flush=True)
+        if rank == 0:
+            print(f"[qasr] resumed from step {state.step}", flush=True)
 
-    writer = MetricWriter(metrics_dir or ckpt_dir)
-    # one-time accounting of the state's bytes on the device (and the
-    # allocator's), as the reference writes it
-    pdb = per_device_bytes((state.model.state_dict(), state.optimizer.state_dict()))
-    if pdb:
-        row = {"state_bytes_per_device_max": max(pdb.values()),
-               "state_bytes_per_device_min": min(pdb.values())}
-        mem = device_memory_stats(device)
-        if mem:
-            row["hbm_bytes_in_use_max"] = max(v["bytes_in_use"] for v in mem.values())
+    writer = MetricWriter((metrics_dir or ckpt_dir) if rank == 0 else None, console=rank == 0)
+    # one-time accounting of the state's bytes on each device (and the
+    # allocator's), as the reference writes it: a rank's persistent state
+    # (its shards and moments), and beside it the kernels it gathers
+    persistent, gathered = state_bytes(state)
+    row = _bytes_row(persistent, gathered, device, rank, size)
+    if row:
         writer.write(state.step, row)
 
     is_cuda = device.type == "cuda"
@@ -187,7 +302,7 @@ def _train(cfg: Config, *, device, checkpoint_dir, metrics_dir, resume):
     t_window, frames_window = time.perf_counter(), 0
     try:
         for step in range(state.step, cfg.train.num_steps):
-            m = train_step(state, batch)
+            m = step_fn(state, batch)
             frames_window += int(np.sum(batch["feature_lengths"]))
             if (step + 1) % cfg.train.log_every == 0:
                 if is_cuda:
@@ -196,12 +311,13 @@ def _train(cfg: Config, *, device, checkpoint_dir, metrics_dir, resume):
                 last = {
                     "loss": float(m["loss"]),
                     "grad_norm": float(m["grad_norm"]),
-                    "audio_s_per_s_per_chip": frames_window * FRAME_S / max(now - t_window, 1e-9),
+                    "audio_s_per_s_per_chip": frames_window * FRAME_S
+                    / max(now - t_window, 1e-9) / size,
                 }
                 writer.write(step + 1, last)
                 t_window, frames_window = now, 0
             if (step + 1) % cfg.train.eval_every == 0:
-                dev = evaluate(cfg, state.model, eval_dataset)
+                dev = evaluate(cfg, state.model, eval_dataset, mesh=mesh)
                 writer.write(step + 1, {f"dev_{k}": v for k, v in dev.items()})
                 last.update({f"dev_{k}": v for k, v in dev.items()})
                 last["checkpoint"] = ckpt.save(step + 1, state, dev_per=dev["per"],

@@ -28,15 +28,15 @@ def _tensors(tree):
             yield from _tensors(v)
 
 
-def per_device_bytes(tree) -> dict:
+def per_device_bytes(tree, *, cpu: bool = False) -> dict:
     """Bytes of the CUDA tensors in ``tree`` (tensors in nested dicts, lists
     and tuples: a state_dict, an optimizer's state) on each device, keyed by
     the device's name (``"cuda:0"``); ``{}`` when none lies on a CUDA
-    device."""
+    device. ``cpu=True`` counts CPU tensors too (under ``"cpu"``)."""
     out: dict = {}
     seen = set()
     for t in _tensors(tree):
-        if t.device.type != "cuda":
+        if t.device.type != "cuda" and not (cpu and t.device.type == "cpu"):
             continue
         key = (t.data_ptr(), t.numel(), t.dtype, t.device)
         if key in seen:  # a tensor reachable twice counts once
@@ -44,6 +44,22 @@ def per_device_bytes(tree) -> dict:
         seen.add(key)
         out[str(t.device)] = out.get(str(t.device), 0) + t.numel() * t.element_size()
     return out
+
+
+def state_bytes(state, *, cpu: bool = False) -> tuple[dict, dict]:
+    """(persistent, gathered) bytes of a train state on each device (see
+    :func:`per_device_bytes`): persistent is what the rank keeps between
+    steps, its parameters (under tensor parallelism its shards of the
+    sharded kernels) and AdamW's moments; gathered is the whole kernels a
+    tensor-parallel rank gathers for its forward and backward, transient
+    ({} without tensor parallelism)."""
+    shards = getattr(state, "shards", None)
+    opt = state.optimizer.state_dict()
+    if not shards:
+        return per_device_bytes((state.model.state_dict(), opt), cpu=cpu), {}
+    gathered = [p for k, p in state.model.named_parameters() if shards[k] is not p]
+    return (per_device_bytes((list(shards.values()), opt), cpu=cpu),
+            per_device_bytes(gathered, cpu=cpu))
 
 
 def device_memory_stats(device: torch.device | str = "cuda") -> dict:

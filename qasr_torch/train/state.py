@@ -67,6 +67,17 @@ class TrainState:
     schedule: Callable[[int], float]
     step: int = 0
 
+    def full_optimizer_state(self) -> dict:
+        """The optimizer's state_dict in the one-device layout, as a
+        checkpoint holds it."""
+        return self.optimizer.state_dict()
+
+    def load_full(self, params, optimizer_state: dict) -> None:
+        """Load whole weights (a state_dict) and a one-device optimizer
+        state_dict."""
+        self.model.load_state_dict(params)
+        self.optimizer.load_state_dict(optimizer_state)
+
 
 def create_train_state(
     cfg: Config,

@@ -36,10 +36,14 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     }
 
 
-def loss_fn(cfg: Config, logits: torch.Tensor, batch: dict) -> torch.Tensor:
+def loss_fn(cfg: Config, logits: torch.Tensor, batch: dict,
+            tokens: torch.Tensor | None = None) -> torch.Tensor:
     """CTC loss normalised per label token, as ``make_loss_fn``:
     ``sum(losses * real) / max(sum(label_lengths * real), 1)``; rows with
-    ``real_rows`` False (remainder-batch pads) count in neither."""
+    ``real_rows`` False (remainder-batch pads) count in neither. A
+    data-parallel rank passes ``tokens``, the global batch's real label
+    tokens (an int64 tensor), for the denominator: its share of the global
+    loss."""
     losses = ctc_loss(
         logits, batch["labels"], batch["feature_lengths"], batch["label_lengths"],
         blank_id=cfg.decode.blank_id,
@@ -49,7 +53,9 @@ def loss_fn(cfg: Config, logits: torch.Tensor, batch: dict) -> torch.Tensor:
     if mask is not None:
         losses = losses * mask
         label_lens = label_lens * mask
-    return losses.sum() / label_lens.sum().clamp_min(1)
+    if tokens is None:
+        tokens = label_lens.sum()
+    return losses.sum() / tokens.clamp_min(1)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -63,6 +69,14 @@ def apply_gradients(state: TrainState) -> torch.Tensor:
     update; advances ``state.step``. Returns the global norm before clipping."""
     grads = [p.grad for p in state.model.parameters()]
     gnorm = global_norm(grads)
+    clip_and_update(state, grads, gnorm)
+    return gnorm
+
+
+def clip_and_update(state: TrainState, grads: list, gnorm: torch.Tensor) -> None:
+    """Scale ``grads`` (the ``.grad`` of the optimizer's params) by optax's
+    clip rule for the global norm ``gnorm``, then one AdamW update at the
+    learning rate of the step count before it; advances ``state.step``."""
     clip = state.cfg.train.grad_clip
     # in place of the gradients: scale by max/norm only when norm >= max
     scale = torch.where(gnorm < clip, torch.ones_like(gnorm), clip / gnorm)
@@ -73,7 +87,24 @@ def apply_gradients(state: TrainState) -> torch.Tensor:
         group["lr"] = lr
     state.optimizer.step()
     state.step += 1
-    return gnorm
+
+
+def forward_backward(state: TrainState, batch: dict, *, plain: bool = False,
+                     tokens: torch.Tensor | None = None,
+                     global_rows: tuple[int, int] | None = None) -> torch.Tensor:
+    """The train-mode forward of ``batch`` (device tensors), its loss and the
+    backward into the model's ``.grad`` (cleared first). A data-parallel
+    rank passes ``tokens`` (:func:`loss_fn`) and ``global_rows``, where its
+    rows lie in the global batch (``qasr_torch.models.layers.Dropout``).
+    Returns the loss, detached."""
+    model = state.model
+    model.train()
+    logits = model(batch["features"], lengths=batch["feature_lengths"], plain=plain,
+                   generator=state.generator, global_rows=global_rows)
+    loss = loss_fn(state.cfg, logits, batch, tokens=tokens)
+    model.zero_grad(set_to_none=True)
+    loss.backward()
+    return loss.detach()
 
 
 def train_step(state: TrainState, batch: dict, *, plain: bool = False) -> dict:
@@ -83,21 +114,10 @@ def train_step(state: TrainState, batch: dict, *, plain: bool = False) -> dict:
     ``frames``. ``plain=True`` runs every kernel's plain version (the card's
     reference path).
     """
-    model = state.model
-    device = next(model.parameters()).device
-    batch = batch_to_device(batch, device)
-    model.train()
-    logits = model(batch["features"], lengths=batch["feature_lengths"], plain=plain,
-                   generator=state.generator)
-    loss = loss_fn(state.cfg, logits, batch)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    batch = batch_to_device(batch, next(state.model.parameters()).device)
+    loss = forward_backward(state, batch, plain=plain)
     gnorm = apply_gradients(state)
-    return {
-        "loss": loss.detach(),
-        "grad_norm": gnorm.detach(),
-        "frames": batch["feature_lengths"].sum(),
-    }
+    return {"loss": loss, "grad_norm": gnorm.detach(), "frames": batch["feature_lengths"].sum()}
 
 
 def _eval_forward(model: torch.nn.Module, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -115,23 +135,28 @@ def _eval_forward(model: torch.nn.Module, batch: dict) -> tuple[torch.Tensor, di
 
 
 @torch.no_grad()
-def eval_step(cfg: Config, model: torch.nn.Module, batch: dict) -> dict:
+def eval_step(cfg: Config, model: torch.nn.Module, batch: dict, *,
+              tokens: torch.Tensor | None = None) -> dict:
     """Eval-mode loss and greedy decode of ``batch``: ``loss`` (device
-    scalar), ``decoded [B, T]`` padded with -1 and ``decoded_lengths [B]``."""
+    scalar; ``tokens`` as :func:`loss_fn`'s), ``decoded [B, T]`` padded with
+    -1 and ``decoded_lengths [B]``."""
     logits, batch = _eval_forward(model, batch)
     decoded, lengths = ctc_greedy_decode(
         logits, batch["feature_lengths"], blank_id=cfg.decode.blank_id
     )
-    return {"loss": loss_fn(cfg, logits, batch), "decoded": decoded, "decoded_lengths": lengths}
+    return {"loss": loss_fn(cfg, logits, batch, tokens=tokens), "decoded": decoded,
+            "decoded_lengths": lengths}
 
 
 @torch.no_grad()
-def beam_eval_step(cfg: Config, model: torch.nn.Module, batch: dict) -> dict:
+def beam_eval_step(cfg: Config, model: torch.nn.Module, batch: dict, *,
+                   tokens: torch.Tensor | None = None) -> dict:
     """The final-numbers eval step: one eval-mode forward, then the loss and
     the prefix beam decode on the device (``cfg.decode``'s width, blank and
     pruning, ``max_len = cfg.data.max_label_len``), as
-    ``make_beam_eval_step``. Returns ``loss``, ``decoded [B, max_len]``
-    padded with -1, ``decoded_lengths [B]`` and ``log_score [B]``."""
+    ``make_beam_eval_step``. Returns ``loss`` (``tokens`` as
+    :func:`loss_fn`'s), ``decoded [B, max_len]`` padded with -1,
+    ``decoded_lengths [B]`` and ``log_score [B]``."""
     logits, batch = _eval_forward(model, batch)
     seq, lens, score = ctc_beam_search_decode(
         logits,
@@ -141,5 +166,5 @@ def beam_eval_step(cfg: Config, model: torch.nn.Module, batch: dict) -> dict:
         max_len=int(cfg.data.max_label_len),
         prune_logp=cfg.decode.beam_prune_logp,
     )
-    return {"loss": loss_fn(cfg, logits, batch), "decoded": seq, "decoded_lengths": lens,
-            "log_score": score}
+    return {"loss": loss_fn(cfg, logits, batch, tokens=tokens), "decoded": seq,
+            "decoded_lengths": lens, "log_score": score}

@@ -310,7 +310,6 @@ _API_RENAMED = {
 _API_PENDING = {
     "QBatchNorm": 5,
     "qconv_fast10": 3, "qconv_fast8_stacked": 3, "qconv_fast10_stacked": 3,
-    "make_mesh": 15, "ctc_loss_seq_parallel": 15, "qconv2d_seq_parallel": 15,
 }
 
 
@@ -331,5 +330,6 @@ def test_api_exports_match_reference():
     for name in port:
         assert getattr(qasr_torch, name) is not None
     for name in ("QLSTMLayer", "RealBiLSTM", "RealLSTMEncoder", "RealCNNEncoder",
-                 "tf_packed_to_stacked", "stacked_to_tf_packed", "batch_per", "evaluate"):
+                 "tf_packed_to_stacked", "stacked_to_tf_packed", "batch_per", "evaluate",
+                 "make_mesh", "ctc_loss_seq_parallel", "qconv2d_seq_parallel"):
         assert name in port, name
