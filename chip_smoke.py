@@ -5,10 +5,12 @@
 Drives the port's serving path and its training path (``qasr_torch``, no
 JAX; on synthetic batches and on small synthetic TIMIT and LibriSpeech
 corpora) at the full width of ``timit_qcnn`` (the paper's QCNN-256, bf16
-compute, random weights from a seeded ``torch.Generator``), the serving
-and training paths of ``librispeech_qlstm`` (its default arm, its block,
-fast8 and unidirectional arms and its real ablation) and of the real-CNN
-baseline ``timit_real_cnn``, and the row-contracting product's probe,
+compute, random weights from a seeded ``torch.Generator``; also on its
+packed XLA conv arms), the serving and training paths of
+``librispeech_qlstm`` (its default arm, its block, fast8 and
+unidirectional arms and its real ablation), of the real-CNN baseline
+``timit_real_cnn`` and of ``librispeech_large`` (config 5, with its
+tools and tensor parallelism), and the row-contracting product's probe,
 through the hand-written CUDA kernels, and checks them. Phases, one line each (or a
 few):
 
@@ -125,11 +127,13 @@ few):
               printed), and the dW's f32-output GEMM on the card against
               f32 operands (gated); then ``op_variant`` block and fast8
               (on the default arm's weights), the unidirectional encoder
-              and the real ablation ``real_lstm``: each served, its kernel
+              and the real ablation ``real_lstm``: at one LSTM layer (depth
+              cut: the plain loops are host-bound) each served, its kernel
               path against its plain path and the f32 plain path, block
               and fast8 against the default arm (f32 plain 1e-4, bf16
-              phase 4's limits), launches a forward and a step (D and E
-              none), gradient parity where a kernel is on the path; at one
+              phase 4's limits), launches a forward, gradient parity where
+              a kernel is on the path; at full depth launches a step (D and
+              E none); at one
               LSTM layer and T128 (depth and length cut: the loops are
               host-bound), twenty steps on one batch lower the loss, a
               2-step ``train()`` (for
@@ -139,6 +143,27 @@ few):
               against cuDNN's ``nn.LSTM``, a torch.profiler breakdown of a
               block-arm step, and the dW's cost with f32 products against
               bf16 ones
+ 14. parallel a world of one rank over NCCL through ``python -m
+              torch.distributed.run -m qasr_torch.cli``, bit-equal to one
+              process; two ranks sharing the card over gloo: DP 2, TP 2 of
+              config 5, the halo conv, the chunked CTC and the sharded beam
+              against one process (gated)
+ 15. config 5 ``librispeech_large`` (conv 64..256 x 10, dense 1024 x 3,
+              bf16) with its tools: one step with ``train.remat_convs`` off
+              and on from the same weights and batch (loss and gradients the
+              same bits, launches A 18 / C 9 / B 3 + 3 with remat, peak bytes
+              and step ms); ``qasr_torch.tools.memory_envelope`` at the
+              reference's seven points (every row measured or out of memory,
+              remat below no remat, B8 x T2048 fits); the docs' run on
+              mini-LibriSpeech through ``python -m qasr_torch.cli`` (400
+              of its 1200 steps, cut for time; streaming, B8, dev-clean
+              evals, ``best.json`` CER <= 0.15,
+              ``--resume``, ``transcribe --beam``); TP 4 on the one card
+              through ``torch.distributed.run`` (gloo: losses finite, a
+              rank's state 0.25-0.27x, ``--resume``); ``timit_qcnn`` on each
+              packed XLA conv arm (logits, gradients against f32, launches);
+              ``run_scaling_table`` in a world of one (all gated); then, not
+              gated, featurization, step times and a profiled corpus step
 
 then one JSON line with the per-kernel results, the nvidia-smi line and,
 last, the device line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -2401,18 +2426,21 @@ def phase13_qlstm_arms(dev: torch.device, smi: str) -> None:
 
     # the arms' weights: the default arm's (kernel D), which block and fast8
     # load under the same names; the unidirectional and real encoders draw
-    # their own
+    # their own. Serving and gradient parity run at one LSTM layer (depth
+    # cut: the plain loops are host-bound), launches and times at full depth
     tcfg, batch = _qlstm_train_batch(cfg)
     lens = torch.as_tensor(batch["feature_lengths"], device=dev)
     feats = torch.as_tensor(batch["features"], device=dev)
     audio_s = B * T * FRAME_S
-    default = build_model(cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    one = {"model.lstm_layers": 1}
+    default = build_model(cfg.override(**one), generator=torch.Generator().manual_seed(SEED),
+                          device=dev)
     if default.recurrent != "pallas8":
         raise RuntimeError(f"config 4's default arm routes to {default.recurrent}")
     params = default.state_dict()
     with torch.no_grad():
         ref_bf16 = default(feats, lengths=lens)
-        cfg32 = cfg.override(**{"model.compute_dtype": "float32"})
+        cfg32 = cfg.override(**{**one, "model.compute_dtype": "float32"})
         d32 = build_model(cfg32, device=dev)
         d32.load_state_dict(params)
         ref_f32 = d32(feats, lengths=lens, plain=True)
@@ -2424,9 +2452,10 @@ def phase13_qlstm_arms(dev: torch.device, smi: str) -> None:
     rows = {}
     for arm, (over, proj) in QLSTM_ARMS.items():
         acfg = cfg.override(**over)
-        fwd_want = _arm_launches(proj, acfg.model.lstm_layers, B * T, False)
+        fwd_want = _arm_launches(proj, 1, B * T, False)
         step_want = _arm_launches(proj, acfg.model.lstm_layers, B * T, True)
-        enc = build_model(acfg, generator=torch.Generator().manual_seed(SEED + 1), device=dev)
+        enc = build_model(acfg.override(**one), generator=torch.Generator().manual_seed(SEED + 1),
+                          device=dev)
         same_weights = arm in ("block", "fast8")
         if same_weights:
             enc.load_state_dict(params)
@@ -2439,7 +2468,8 @@ def phase13_qlstm_arms(dev: torch.device, smi: str) -> None:
             if counts != _want(**fwd_want):
                 raise RuntimeError(f"{arm}: launches a forward {counts}, expected {fwd_want}")
             plain = enc(feats, lengths=lens, plain=True)
-            e32 = build_model(acfg.override(**{"model.compute_dtype": "float32"}), device=dev)
+            e32 = build_model(acfg.override(**{**one, "model.compute_dtype": "float32"}),
+                              device=dev)
             e32.load_state_dict(enc.state_dict())
             plain32 = e32(feats, lengths=lens, plain=True)
             del e32
@@ -2450,7 +2480,8 @@ def phase13_qlstm_arms(dev: torch.device, smi: str) -> None:
         kerr32 = _errors(logits, plain32)
         _gate(f"{arm} logits kernel vs f32 plain", kerr32, TOL_LOGITS_F32)
         _gate(f"{arm} logits plain bf16 vs f32 plain", _errors(plain, plain32), TOL_LOGITS_F32)
-        line = (f"phase 13 serving {arm}: B{B}xT{T} ragged, logits finite; launches a forward "
+        line = (f"phase 13 serving {arm}: one LSTM layer, B{B}xT{T} ragged, logits finite; "
+                f"launches a forward "
                 f"{ {k: v for k, v in counts.items() if v} }; kernel vs plain rel_norm "
                 f"{lerr['rel_norm']:.3e}, vs f32 plain {kerr32['rel_norm']:.3e}")
         if same_weights:
@@ -2464,12 +2495,13 @@ def phase13_qlstm_arms(dev: torch.device, smi: str) -> None:
         del logits, plain, plain32
         torch.cuda.empty_cache()
 
-        # training at full depth: gradient parity where a kernel is on the
-        # path, the launches of one step; then (not gated) a second step's
-        # and a forward's time, and a profiled block-arm step
+        # training: gradient parity where a kernel is on the path (one LSTM
+        # layer), the launches of one step at full depth; then (not gated) a
+        # second step's and a forward's time, and a profiled block-arm step
         atcfg = tcfg.override(**over)
         if proj is not None:
-            _grad_parity(atcfg, batch, dev, 13, f"{arm}: ")
+            _grad_parity(atcfg.override(**one), batch, dev, 13, f"{arm}: one LSTM layer, ")
+        enc = build_model(acfg, generator=torch.Generator().manual_seed(SEED + 1), device=dev)
         state = create_train_state(atcfg, device=dev)
         _reset_counts()
         train_step(state, batch)
@@ -3091,6 +3123,451 @@ def phase14_parallel(dev: torch.device, smi: str) -> None:
     shutil.rmtree(root, ignore_errors=True)
 
 
+# config 5's run on mini-LibriSpeech: 400 of the docs' 1200 steps
+# (docs/end_to_end.md:103-110), cut to keep the script within its time (the
+# 1200 took 95.5 s on an H100, the phase then ~306 s), with evals and
+# checkpoints every 200
+P15_STEPS = 400
+P15_RESUME_STEPS = 20  # the --resume run's further steps
+P15_TP_STEPS = 4  # each of the TP-4 run's two halves
+P15_TIMEOUT_S = 420  # a subprocess's wall-clock limit
+P15_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "qasr_torch", "_build",
+                        "smoke_cfg5")
+P15_ARMS = ("fast", "fast10", "fast8", "legacy_auto")
+# config 5's run: the docs' overrides (B8, 3e-4 after 200 warmup steps) on
+# mini-LibriSpeech
+P15_SETS = {"data.batch_size": 8, "train.learning_rate": 3e-4, "train.warmup_steps": 200,
+            "train.eval_every": 200, "train.checkpoint_every": 200}
+P15_CER_MAX = 0.15  # about twice the JAX record at step 400 (0.069)
+# a TP-4 rank's persistent state over the unsharded state: the sharded
+# kernels (99.9% of the parameters) and their moments a quarter each
+P15_TP4_RATIO = (0.25, 0.27)
+
+
+def _p15_cli(args: list, what: str, torchrun: int = 0) -> str:
+    """``python -m <args>`` from the repository's root (under
+    ``torch.distributed.run`` with ``torchrun`` ranks when given) as a
+    subprocess; its stdout, or a raise with its output."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo}
+    launcher = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", str(torchrun), "-m"] if torchrun else [sys.executable, "-m"])
+    p = subprocess.run([*launcher, *args], cwd=repo, env=env, capture_output=True, text=True,
+                       timeout=P15_TIMEOUT_S)
+    if p.returncode != 0:
+        raise RuntimeError(f"phase 15 {what}: rc {p.returncode}\n{p.stdout[-3000:]}\n"
+                           f"{p.stderr[-3000:]}")
+    return p.stdout
+
+
+def _p15_sets(sets: dict) -> list:
+    return ["--set", *[f"{k}={v}" for k, v in sets.items()]]
+
+
+def _p15_rows(directory: str) -> list:
+    with open(os.path.join(directory, "metrics.jsonl")) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def _p15_resumed(directory: str, stdout: str, first: int, last: int, what: str) -> None:
+    """Gate a ``--resume`` run: it continued from step ``first`` (its data
+    state), reached ``last`` and wrote a data state that moved on."""
+    states = [os.path.join(directory, f"data_state_{n}.json") for n in (first, last)]
+    if f"resumed from step {first}" not in stdout or not all(map(os.path.exists, states)):
+        raise RuntimeError(f"phase 15 {what}: the --resume run did not continue from step "
+                           f"{first}:\n{stdout[-2000:]}")
+    a, b = (open(s).read() for s in states)
+    if a == b:
+        raise RuntimeError(f"phase 15 {what}: the data state did not move from step {first} "
+                           f"to {last}")
+
+
+def _p15_remat(dev: torch.device, smi: str, large) -> int:
+    """(a) One config-5 step with ``train.remat_convs`` off and on from the
+    same weights and batch (B8 x T512): the loss and gradients the same bits
+    (a gradient that two runs without remat already differ on is held at
+    ``TOL_BF16``), launches, peak bytes and step ms. Returns the f32
+    parameters' bytes."""
+    from qasr_torch.tools import memory_envelope
+    from qasr_torch.train.state import create_train_state
+    from qasr_torch.train.step import batch_to_device, forward_backward, train_step
+
+    t0 = time.perf_counter()
+    cfg5 = large.override(**{"data.batch_size": 8, "data.bucket_sizes": (512,)})
+    batch = batch_to_device(memory_envelope.point_batch(cfg5, 8, 512), dev)
+    init = {k: v.detach().clone()
+            for k, v in create_train_state(cfg5, device=dev).model.state_dict().items()}
+    param_bytes = _nbytes(*init.values())
+    res = {}
+    for remat in (False, False, True):
+        held = torch.cuda.memory_allocated(dev)  # what lives before this state: its peak's base
+        st = create_train_state(cfg5.override(**{"train.remat_convs": remat}), device=dev,
+                                params=init)
+        _reset_counts()
+        loss = forward_backward(st, batch)
+        counts = _read_counts()
+        grads = {k: p.grad.detach().clone() for k, p in st.model.named_parameters()}
+        if remat in res:  # the second run without remat: its determinism, nothing timed
+            res["again"] = {"loss": loss, "grads": grads}
+            continue
+        train_step(st, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = _time_ms(lambda: train_step(st, batch), 3, 1)
+        res[remat] = {"loss": loss, "grads": grads, "counts": counts, "ms": ms,
+                      "peak": torch.cuda.max_memory_allocated(dev) - held}
+        del st
+        torch.cuda.empty_cache()
+    want = {False: _want(qconv_ft8=9, qconv_dx8=9, qgemm8=3, qgemm8_dx=3),
+            True: _want(qconv_ft8=18, qconv_dx8=9, qgemm8=3, qgemm8_dx=3)}
+    for remat in (False, True):
+        if res[remat]["counts"] != want[remat]:
+            raise RuntimeError(f"phase 15 remat={remat}: launches {res[remat]['counts']}, "
+                               f"expected {want[remat]}")
+    off, on, again = res[False], res[True], res["again"]
+    if not torch.equal(off["loss"], on["loss"]):
+        raise RuntimeError(f"phase 15 remat: loss {on['loss'].item()!r} vs "
+                           f"{off['loss'].item()!r} without remat")
+    # a gradient that two runs without remat give in the same bits must be
+    # those bits with remat; one that they do not (a non-deterministic
+    # library reduction) is held at TOL_BF16 against the first run
+    same, loose, worst = 0, [], 0.0
+    for k, g in off["grads"].items():
+        if torch.equal(g, again["grads"][k]):
+            if not torch.equal(on["grads"][k], g):
+                raise RuntimeError(f"phase 15 remat: gradient {k} differs with remat, though "
+                                   "two runs without remat give the same bits")
+            same += 1
+        else:
+            err = _errors(on["grads"][k], g)
+            _gate(f"phase 15 remat grad {k}", err, TOL_BF16)
+            loose.append(k)
+            worst = max(worst, err["rel_norm"])
+    del res, off["grads"], on["grads"], again
+    print(f"phase 15 remat (librispeech_large B8 x T512 bf16, one step from the same weights "
+          f"and batch): loss {on['loss'].item()!r} both ways (bits equal); {same} gradients "
+          f"bit-equal, {len(loose)} non-deterministic without remat too, held at "
+          f"{TOL_BF16} (worst rel_norm {worst:.3e}: {loose}); launches a step without remat "
+          f"{ {k: v for k, v in off['counts'].items() if v} }, with "
+          f"{ {k: v for k, v in on['counts'].items() if v} }; peak bytes (the state's and the "
+          f"step's, above what lived before) {off['peak']} -> "
+          f"{on['peak']} ({on['peak'] / off['peak']:.3f}x); step ms {off['ms']:.3f} -> "
+          f"{on['ms']:.3f} ({on['ms'] / off['ms']:.3f}x) on {smi}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return param_bytes
+
+
+def _p15_envelope(dev: torch.device, smi: str, large) -> None:
+    """(b) ``memory_envelope`` at the reference's seven points, with and
+    without remat: every row measured or out of memory, remat lower where
+    both are measured, B8 x T2048 without remat fits."""
+    from qasr_torch.tools import memory_envelope
+
+    t0 = time.perf_counter()
+    hbm_gb = torch.cuda.get_device_properties(dev).total_memory / memory_envelope.GB
+    points = [tuple(int(v) for v in p.split(":")) for p in memory_envelope.POINTS.split(",")]
+    rows = memory_envelope.envelope(large, points, hbm_gb=hbm_gb, device=dev)
+    by = {(r["b"], r["t"], r["remat"]): r for r in rows}
+    for r in rows:
+        if "error" not in r and not r["total_gb"] > r["args_gb"] > 0:
+            raise RuntimeError(f"phase 15 envelope: row {r}")
+        if "error" in r and "out of memory" not in r["error"].lower():
+            raise RuntimeError(f"phase 15 envelope: row {r}")
+    for b, t in points:
+        r0, r1 = by[(b, t, False)], by[(b, t, True)]
+        if "error" not in r0 and "error" not in r1 and not r1["total_gb"] < r0["total_gb"]:
+            raise RuntimeError(f"phase 15 envelope B{b} T{t}: remat {r1['total_gb']:.3f} GB "
+                               f"not below {r0['total_gb']:.3f} GB")
+    if not by[(8, 2048, False)].get("fits"):
+        raise RuntimeError(f"phase 15 envelope: B8 x T2048 without remat does not fit: "
+                           f"{by[(8, 2048, False)]}")
+    print(f"phase 15 envelope (python -m qasr_torch.tools.memory_envelope, librispeech_large, "
+          f"bf16, one warmed-up train step a point, peak torch.cuda.max_memory_allocated) on "
+          f"{smi}, {hbm_gb:.1f} GB: " + "; ".join(
+              memory_envelope.format_row(r, hbm_gb)
+              + ("" if "error" in r else f" {r['step_ms']:.1f} ms") for r in rows)
+          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _p15_run(dev: torch.device, smi: str, large) -> str:
+    """(c) The docs' config-5 run on mini-LibriSpeech through the command
+    line (streaming, B8, dev-clean evals): the loss falls, the ``best.json``
+    step's CER, ``--resume`` from the last data state, a ``transcribe
+    --beam`` of one dev utterance; then, not gated, featurization, a
+    corpus step and its profile. Returns the corpus's directory."""
+    import contextlib
+    import io
+
+    from qasr_torch import cli
+    from qasr_torch.data.batching import BatchStream, Prefetcher
+    from qasr_torch.data.pipeline import LibriFeaturePipeline
+    from qasr_torch.tools import make_mini_librispeech
+    from qasr_torch.train.state import create_train_state
+    from qasr_torch.train.step import train_step
+
+    root = P15_ROOT
+    t0 = time.perf_counter()
+    libri = os.path.join(root, "libri")
+    written = make_mini_librispeech.write_corpus(libri, speakers=8, utts_per_speaker=12,
+                                                 dev_speakers=4, seed=SEED)
+    run = os.path.join(root, "run")
+    sets = {**P15_SETS, "data.data_dir": libri, "train.checkpoint_dir": run}
+    _reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["--preset", "librispeech_large",
+                  *_p15_sets({**sets, "train.num_steps": P15_STEPS})])
+    train_s = time.perf_counter() - t0
+    counts = _read_counts()
+    rows = _p15_rows(run)
+    losses = [(r["step"], r["loss"]) for r in rows if "loss" in r]
+    evals = {r["step"]: r["dev_per"] for r in rows if "dev_per" in r}
+    rates = [r["audio_s_per_s_per_chip"] for r in rows if "audio_s_per_s_per_chip" in r]
+    with open(os.path.join(run, "best.json")) as f:
+        best = json.load(f)["step"]
+    if not (losses[-1][1] < losses[0][1] and all(math.isfinite(v) for _, v in losses)):
+        raise RuntimeError(f"phase 15 config 5: the loss did not fall: {losses}")
+    if not evals[best] <= P15_CER_MAX:
+        raise RuntimeError(f"phase 15 config 5: dev CER {evals[best]} at the best step {best} "
+                           f"exceeds {P15_CER_MAX} ({evals})")
+    if not (counts["qconv_ft8"] and counts["qconv_dx8"] and counts["qgemm8"]
+            and counts["qgemm8_dx"]):
+        raise RuntimeError(f"phase 15 config 5: kernels A, C, B not all launched: {counts}")
+    t1 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["--preset", "librispeech_large", "--resume",
+                  *_p15_sets({**sets, "train.num_steps": P15_STEPS + P15_RESUME_STEPS,
+                              "train.checkpoint_every": P15_RESUME_STEPS})])
+    resume_s = time.perf_counter() - t1
+    _p15_resumed(run, out.getvalue(), P15_STEPS, P15_STEPS + P15_RESUME_STEPS, "config 5")
+    resumed = [r["loss"] for r in _p15_rows(run) if "loss" in r and r["step"] > P15_STEPS]
+    if not resumed or not all(math.isfinite(v) for v in resumed):
+        raise RuntimeError(f"phase 15 config 5: the resumed run's losses {resumed}")
+    dev_dir = os.path.join(libri, "dev-clean", "900", "1")
+    wav = os.path.join(dev_dir, "900-1-0000.wav")
+    with open(os.path.join(dev_dir, "900-1.trans.txt")) as f:
+        ref_text = f.readline().split(" ", 1)[1].strip()
+    said = _p15_cli(["qasr_torch.cli", "transcribe", "--ckpt", run, "--step", str(best),
+                     "--beam", wav], "transcribe --beam")
+    text = said.strip().splitlines()[-1].partition("\t")[2]
+    if not text.strip():
+        raise RuntimeError(f"phase 15 transcribe --beam: empty transcript:\n{said}")
+    # not gated: streaming featurization, a corpus step, its idle share
+    ccfg = large.override(**{**sets, "train.num_steps": P15_STEPS})
+    pipe = LibriFeaturePipeline(ccfg, "train-clean-100", device=dev)
+    audio_s = sum(len(pipe.corpus.load(i)[0]) for i in range(len(pipe))) / ccfg.data.sample_rate
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pipe.prefetch(range(len(pipe)))
+    feat_s = time.perf_counter() - t1
+    st = create_train_state(ccfg, device=dev)
+    pf = Prefetcher(BatchStream(LibriFeaturePipeline(ccfg, "train-clean-100", device=dev),
+                                ccfg.data, seed=SEED), depth=2)
+    try:
+        corpus_batch = next(pf)[0]
+        for _ in range(3):
+            train_step(st, corpus_batch)
+        step_ms = _time_ms(lambda: train_step(st, corpus_batch), 5, 1)
+        for _ in range(2):
+            train_step(st, next(pf)[0])
+        prof = _profile(lambda: train_step(st, next(pf)[0]), "one config-5 train step on "
+                        "mini-LibriSpeech, streaming, fed by the prefetch thread", 15, smi, 3)
+    finally:
+        pf.close()
+    n_train = len(pipe)
+    del st, pipe
+    torch.cuda.empty_cache()
+    b_frames = corpus_batch["features"].shape[1]
+    print(f"phase 15 config 5 (python -m qasr_torch.cli --preset librispeech_large, "
+          f"mini-LibriSpeech {written} utterances, streaming, B8, 3e-4 after 200 warmup steps): "
+          f"{P15_STEPS} steps (of the docs' 1200: cut for time) in {train_s:.1f} s, loss "
+          f"{losses[0]} -> {losses[-1]}, dev CER "
+          f"{ {k: round(v, 4) for k, v in sorted(evals.items())} }, best.json step {best} CER "
+          f"{evals[best]:.4f} (limit {P15_CER_MAX}); launches "
+          f"{ {k: v for k, v in counts.items() if v} }; --resume to step "
+          f"{P15_STEPS + P15_RESUME_STEPS} from data_state_{P15_STEPS}.json in {resume_s:.1f} s, "
+          f"losses {[round(v, 6) for v in resumed]}; transcribe --beam of {os.path.basename(wav)} "
+          f"at step {best}: {text!r} (reference {ref_text!r})", flush=True)
+    print(f"phase 15 config 5 timing on {smi}: streaming featurization of train-clean-100 "
+          f"({n_train} utterances, "
+          f"{audio_s:.1f} audio-s) {feat_s:.3f} s ({audio_s / feat_s:.1f} audio-s/s); a corpus "
+          f"train step B8 x T{b_frames} {step_ms:.3f} ms; the loop's audio_s_per_s_per_chip "
+          f"median {float(np.median(rates)):.1f} (min {min(rates):.1f}, max {max(rates):.1f}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(prof, flush=True)
+    return libri
+
+
+def _p15_tp4(smi: str, libri: str, param_bytes: int) -> None:
+    """(d) Config 5 at TP 4 through ``torch.distributed.run`` on the one
+    card (the CLI picks gloo): 4 steps, ``--resume``, 4 more; the losses
+    finite, a rank's persistent state 0.25-0.27x the unsharded, the data
+    state continued."""
+    root = P15_ROOT
+    t0 = time.perf_counter()
+    tp = os.path.join(root, "tp4")
+    tsets = {"data.data_dir": libri, "data.batch_size": 8, "train.log_every": 1,
+             "train.eval_every": 1000, "train.checkpoint_every": P15_TP_STEPS,
+             "train.checkpoint_dir": tp, "train.warmup_steps": 2, "train.learning_rate": 1e-4}
+    _p15_cli(["qasr_torch.cli", "--preset", "librispeech_large",
+                      *_p15_sets({**tsets, "train.num_steps": P15_TP_STEPS})],
+                     "TP 4", torchrun=4)
+    second = _p15_cli(["qasr_torch.cli", "--preset", "librispeech_large", "--resume",
+                       *_p15_sets({**tsets, "train.num_steps": 2 * P15_TP_STEPS})],
+                      "TP 4 --resume", torchrun=4)
+    _p15_resumed(tp, second, P15_TP_STEPS, 2 * P15_TP_STEPS, "TP 4")
+    trows = _p15_rows(tp)
+    tlosses = [(r["step"], r["loss"]) for r in trows if "loss" in r]
+    if [s for s, _ in tlosses] != list(range(1, 2 * P15_TP_STEPS + 1)) or not all(
+            math.isfinite(v) for _, v in tlosses):
+        raise RuntimeError(f"phase 15 TP 4: losses {tlosses}")
+    whole = 3 * param_bytes  # the f32 parameters and AdamW's two moments
+    per_rank = [r["state_bytes_per_device_max"] for r in trows
+                if "state_bytes_per_device_max" in r]
+    ratio = max(per_rank) / whole
+    if not P15_TP4_RATIO[0] <= ratio <= P15_TP4_RATIO[1]:
+        raise RuntimeError(f"phase 15 TP 4: a rank's persistent state {per_rank} bytes is "
+                           f"{ratio:.4f}x the unsharded {whole}")
+    step_s = [r["step_time_s"] for r in trows if "loss" in r and r["step"] > 1]
+    print(f"phase 15 tp4 (python -m torch.distributed.run --nproc-per-node 4 -m qasr_torch.cli "
+          f"--preset librispeech_large: mesh.model_axis=4, four ranks on one card over gloo, "
+          f"streaming, B8): losses {[round(v, 4) for _, v in tlosses]} (steps 1-"
+          f"{2 * P15_TP_STEPS}, --resume after {P15_TP_STEPS} from its data state); a rank's "
+          f"persistent state {max(per_rank)} bytes vs {whole} unsharded ({ratio:.4f}x, limits "
+          f"{P15_TP4_RATIO}); step s {[round(v, 3) for v in step_s]} (four ranks sharing one "
+          f"card's SMs, gloo through the host: says nothing of scaling); "
+          f"{time.perf_counter() - t0:.1f} s on {smi}", flush=True)
+
+
+def _p15_arms(dev: torch.device, smi: str) -> float:
+    """(e) ``timit_qcnn`` at full width on each packed XLA conv arm: the
+    logits against the f32 plain path (``TOL_LOGITS_F32``) and against the
+    rank-8 path (two bf16 paths, ``TOL_LOGITS``), one step's bf16 gradients
+    against the same arm in f32, launches (B only); then the step ms.
+    Returns the rank-8 step's ms."""
+    from qasr_torch.configs import get_config
+    from qasr_torch.models import build_model
+    from qasr_torch.train.state import create_train_state
+    from qasr_torch.train.step import batch_to_device, loss_fn, train_step
+
+    t0 = time.perf_counter()
+    tcfg = get_config("timit_qcnn").override(**TRAIN_OVERRIDES)
+    tbatch = _train_batch(tcfg)
+    feats = torch.from_numpy(tbatch["features"]).to(dev)
+    base = build_model(tcfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    weights = {k: v.detach().clone() for k, v in base.state_dict().items()}
+    with torch.no_grad():
+        ref = base(feats)
+        f32 = build_model(tcfg.override(**{"model.compute_dtype": "float32"}), device=dev)
+        f32.load_state_dict(weights)
+        ref32 = f32(feats, plain=True)
+    del base, f32
+    e_base = _errors(ref, ref32)
+    st = create_train_state(tcfg, device=dev, params=weights)
+    arm_ms = {"auto": _time_ms(lambda: train_step(st, tbatch), 3, 1)}
+    del st
+    summary = []
+    for arm in P15_ARMS:
+        acfg = tcfg.override(**{"model.op_variant": arm})
+        model = build_model(acfg, device=dev)
+        model.load_state_dict(weights)
+        _reset_counts()
+        with torch.no_grad():
+            logits = model(feats)
+        fwd_counts = _read_counts()
+        if fwd_counts != _want(qgemm8=3):
+            raise RuntimeError(f"phase 15 {arm} forward: launches {fwd_counts}")
+        # each bf16 path against the f32 plain path (phase 4's limit), and
+        # two bf16 paths against each other (phase 4's kernel vs plain limit)
+        e_rank8, e_f32 = _errors(logits, ref), _errors(logits, ref32)
+        _gate(f"phase 15 {arm} logits vs f32 plain", e_f32, TOL_LOGITS_F32)
+        _gate(f"phase 15 {arm} logits vs the rank-8 path", e_rank8, TOL_LOGITS)
+        del model
+        # one step's gradients against the same arm in f32, dropout off
+        got = {}
+        for dtype in ("bfloat16", "float32"):
+            gcfg = acfg.override(**{"model.compute_dtype": dtype, "model.dropout_rate": 0.0})
+            st = create_train_state(gcfg, device=dev, params=weights)
+            b = batch_to_device(tbatch, dev)
+            _reset_counts()
+            loss = loss_fn(gcfg, st.model(b["features"], generator=st.generator), b)
+            loss.backward()
+            got[dtype] = (loss.item(), _read_counts(),
+                          {k: p.grad.float() for k, p in st.model.named_parameters()})
+            del st
+        step_counts = got["bfloat16"][1]
+        if step_counts != _want(qgemm8=3, qgemm8_dx=3):
+            raise RuntimeError(f"phase 15 {arm} step: launches {step_counts}")
+        dl = abs(got["bfloat16"][0] - got["float32"][0]) / abs(got["float32"][0])
+        if not dl <= TOL_LOSS_BF16:
+            raise RuntimeError(f"phase 15 {arm}: loss bf16 {got['bfloat16'][0]} f32 "
+                               f"{got['float32'][0]}")
+        worst = 0.0
+        for k, g in got["float32"][2].items():
+            err = _errors(got["bfloat16"][2][k], g)
+            _gate(f"phase 15 {arm} grad {k}", err, TOL_GRAD_BF16)
+            worst = max(worst, err["rel_norm"])
+        del got
+        st = create_train_state(acfg, device=dev, params=weights)
+        arm_ms[arm] = _time_ms(lambda: train_step(st, tbatch), 3, 1)
+        del st
+        torch.cuda.empty_cache()
+        summary.append(f"{arm}: logits vs rank-8 rel_norm {e_rank8['rel_norm']:.3e} max_rel "
+                       f"{e_rank8['max_rel']:.3e}, vs f32 plain {e_f32['rel_norm']:.3e} / "
+                       f"{e_f32['max_rel']:.3e}; loss bf16 vs f32 rel {dl:.3e}, worst grad "
+                       f"rel_norm {worst:.3e}")
+    print(f"phase 15 packed arms (timit_qcnn full width, op_variant "
+          f"{' | '.join(P15_ARMS)}: every layer packed, cuDNN convs, no conv kernel; launches a "
+          f"forward B 3, a step B 3 + 3, A and C 0; the rank-8 path vs f32 plain rel_norm "
+          f"{e_base['rel_norm']:.3e} max_rel {e_base['max_rel']:.3e}): " + "; ".join(summary)
+          + f" (tol logits vs f32 plain {TOL_LOGITS_F32}, vs rank-8 {TOL_LOGITS}, grads "
+          f"{TOL_GRAD_BF16}, loss {TOL_LOSS_BF16})",
+          flush=True)
+    print(f"phase 15 packed arms timing on {smi}: train step B16xT256 bf16 ms "
+          + ", ".join(f"{k} {v:.3f}" for k, v in arm_ms.items())
+          + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    return arm_ms["auto"]
+
+
+def _p15_scaling(smi: str, rank8_ms: float) -> None:
+    """(f) ``run_scaling_table`` in a world of one (NCCL): one row,
+    efficiency 1.0."""
+    t0 = time.perf_counter()
+    said = _p15_cli(["qasr_torch.tools.run_scaling_table"], "run_scaling_table",
+                    torchrun=1)
+    line = json.loads([ln for ln in said.splitlines() if ln.startswith("{")][-1])
+    row = line["rows"][0] if len(line["rows"]) == 1 else None
+    if (row is None or row["efficiency"] != 1.0 or not row["step_ms"] > 0
+            or line["backend"] != "cuda"):
+        raise RuntimeError(f"phase 15 scaling table: {line}")
+    print(f"phase 15 scaling table (python -m torch.distributed.run --nproc-per-node 1 -m "
+          f"qasr_torch.tools.run_scaling_table, NCCL): {json.dumps(line)}; train step "
+          f"{row['step_ms']} ms beside the packed arms' auto {rank8_ms:.3f} ms; "
+          f"{time.perf_counter() - t0:.1f} s on {smi}", flush=True)
+
+
+def phase15_config5(dev: torch.device, smi: str) -> None:
+    """Config 5 (``librispeech_large``: conv 64..256 x 10, dense 1024 x 3,
+    36.2 M parameters, bf16, the rank-8 chain on kernels A and C, the dense
+    layers on B) end to end with its tools, and the packed XLA conv arms:
+    (a) :func:`_p15_remat`, (b) :func:`_p15_envelope`, (c) :func:`_p15_run`,
+    (d) :func:`_p15_tp4`, (e) :func:`_p15_arms`, (f) :func:`_p15_scaling`."""
+    from qasr_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(P15_ROOT, ignore_errors=True)
+    os.makedirs(P15_ROOT)
+    large = get_config("librispeech_large")
+    param_bytes = _p15_remat(dev, smi, large)
+    _p15_envelope(dev, smi, large)
+    libri = _p15_run(dev, smi, large)
+    _p15_tp4(smi, libri, param_bytes)
+    shutil.rmtree(P15_ROOT, ignore_errors=True)
+    rank8_ms = _p15_arms(dev, smi)
+    _p15_scaling(smi, rank8_ms)
+    print(f"phase 15 {time.perf_counter() - t_phase:.1f} s on {smi}", flush=True)
+
 def time_kernels(tree: str) -> int:
     """``--time-kernels TREE``: of the ``qasr_torch`` under ``TREE``, bf16, on
     CUDA events: the conv kernels at phase 5's shape, the rank-8 A (with its
@@ -3666,6 +4143,10 @@ def main() -> int:
     # through the CLI, two ranks sharing the card over gloo (their own
     # launch counts, per rank)
     phase14_parallel(dev, smi)
+    # 15. config 5 end to end with its tools (remat, the memory envelope, the
+    # CLI on mini-LibriSpeech, TP 4 on the card, the scaling table) and the
+    # packed XLA conv arms (their own launch counts)
+    phase15_config5(dev, smi)
 
     def entry(name, source, replaces, bound, lib_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

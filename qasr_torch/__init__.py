@@ -19,6 +19,7 @@ _API = {
     # layers / models
     "QConv": "qasr_torch.models.layers",
     "QDense": "qasr_torch.models.layers",
+    "QBatchNorm": "qasr_torch.models.layers",
     "PReLU": "qasr_torch.models.layers",
     "Dropout": "qasr_torch.models.layers",
     "QCNNEncoder": "qasr_torch.models.qcnn",
@@ -31,8 +32,11 @@ _API = {
     "build_model": "qasr_torch.models",
     # functional ops
     "qconv": "qasr_torch.ops.qlinalg",
+    "qconv_fast10": "qasr_torch.ops.qlinalg",
     "qdense": "qasr_torch.ops.qlinalg",
     "qdense_fast8": "qasr_torch.ops.qlinalg",
+    "qconv_fast8_stacked": "qasr_torch.ops.kernels.qconv_ft",
+    "qconv_fast10_stacked": "qasr_torch.ops.kernels.qconv_ft",
     "tf_packed_to_stacked": "qasr_torch.models.layers",
     "stacked_to_tf_packed": "qasr_torch.models.layers",
     "hamilton_product": "qasr_torch.ops.quaternion",

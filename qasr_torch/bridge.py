@@ -7,6 +7,12 @@ exports a restored tree with ``jax.tree.map(np.asarray, params)``; the port
 reads it, or a ``.npz`` written from it, without JAX. The other way,
 :func:`params_to_jax` gives a port-trained state_dict as a JAX tree.
 
+``QBatchNorm``'s running statistics (its ``mean`` and ``cov`` buffers) are
+the JAX ``batch_stats`` collection: :func:`params_from_jax` takes a
+variables dict ``{"params": ..., "batch_stats": ...}`` into one state_dict,
+and :func:`params_to_jax` gives such a dict back when the state_dict holds
+them.
+
 ``.npz`` files hold flat ``"qconv_3/kernel"`` keys in f32.
 """
 
@@ -28,32 +34,42 @@ def _flatten(tree: Mapping, prefix: str, sep: str, out: dict) -> dict:
     return out
 
 
+# the leaves of the JAX batch_stats collection (QBatchNorm's running statistics)
+BATCH_STATS = ("mean", "cov")
+
+
 def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     """Nested JAX param tree of numpy arrays -> state_dict (f32 tensors).
 
-    A tree that still carries the ``{"params": ...}`` collection level is
-    accepted as well.
+    A variables dict with the ``"params"`` collection level, and a
+    ``"batch_stats"`` collection beside it, is accepted as well: both land
+    in the one state_dict, the statistics as their layers' buffers.
     """
-    if set(tree) == {"params"} and isinstance(tree["params"], Mapping):
-        tree = tree["params"]
-    flat = _flatten(tree, "", ".", {})
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        flat = {}
+        for collection in tree.values():
+            _flatten(collection, "", ".", flat)
+    else:
+        flat = _flatten(tree, "", ".", {})
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in flat.items()}
 
 
 def params_to_jax(state_dict: Mapping) -> dict:
     """state_dict -> the nested JAX param tree of f32 numpy arrays
     (``{"qconv_3": {"kernel": ...}}``), which the JAX package's
-    ``model.apply({"params": tree}, ...)`` takes as it is."""
-    tree: dict = {}
+    ``model.apply({"params": tree}, ...)`` takes as it is. A state_dict
+    holding running statistics (:data:`BATCH_STATS` leaves) gives the
+    variables dict ``{"params": tree, "batch_stats": stats}`` instead."""
+    trees: dict = {"params": {}, "batch_stats": {}}
     for key, value in state_dict.items():
         *path, leaf = key.split(".")
-        node = tree
+        node = trees["batch_stats" if leaf in BATCH_STATS else "params"]
         for name in path:
             node = node.setdefault(name, {})
         if torch.is_tensor(value):
             value = value.detach().to("cpu", torch.float32).numpy()
         node[leaf] = np.asarray(value, np.float32)
-    return tree
+    return trees if trees["batch_stats"] else trees["params"]
 
 
 def save_params_npz(params: Mapping, path: str) -> None:

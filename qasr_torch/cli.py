@@ -18,8 +18,15 @@ writes:
   python -m torch.distributed.run --nproc-per-node 4 -m qasr_torch.cli \
       --preset librispeech_large --set mesh.model_axis=2
 
-Rank r takes ``cuda:LOCAL_RANK`` and NCCL, one rank a card (NCCL refuses
-two ranks on one card); ``--device cpu`` runs gloo on the CPU.
+Rank r takes ``cuda:LOCAL_RANK`` and NCCL, one rank a card. When a node
+starts more ranks than it has cards (NCCL refuses two ranks on one card),
+rank r takes card ``LOCAL_RANK % cards`` and the world runs gloo on CUDA
+tensors, so that config 5's ``mesh.model_axis=4`` runs on one card:
+
+  python -m torch.distributed.run --nproc-per-node 4 -m qasr_torch.cli \
+      --preset librispeech_large
+
+``--device cpu`` runs gloo on the CPU.
 
 ``python -m qasr_torch.tools.make_mini_timit`` and ``make_mini_librispeech``
 write small corpora in the two layouts.
@@ -106,18 +113,25 @@ def main(argv=None):
 
 def _join_world(device: str) -> tuple[str, int]:
     """Under ``torch.distributed.run`` (its ``RANK`` and ``WORLD_SIZE`` in
-    the environment) join the world, NCCL on ``cuda:LOCAL_RANK`` or gloo on
-    the CPU; returns (device, rank). Elsewhere (device, 0)."""
-    if not ("RANK" in os.environ and "WORLD_SIZE" in os.environ):
+    the environment) join the world; returns (device, rank). On the GPU,
+    NCCL on ``cuda:LOCAL_RANK``, or, where the node's ranks
+    (``LOCAL_WORLD_SIZE``) outnumber its cards, gloo on card ``LOCAL_RANK %
+    cards``; on the CPU gloo. Elsewhere (device, 0)."""
+    env = os.environ
+    if not ("RANK" in env and "WORLD_SIZE" in env):
         return device, 0
     import torch
 
     from qasr_torch.parallel.mesh import initialize_multihost
 
+    backend = None
     if torch.device(device).type == "cuda":
-        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        local_rank, cards = int(env.get("LOCAL_RANK", 0)), torch.cuda.device_count()
+        if int(env.get("LOCAL_WORLD_SIZE", 1)) > cards:
+            local_rank, backend = local_rank % cards, "gloo"
+        device = f"cuda:{local_rank}"
         torch.cuda.set_device(torch.device(device))
-    rank, _ = initialize_multihost(device=device)
+    rank, _ = initialize_multihost(device=device, backend=backend)
     return device, rank
 
 

@@ -66,3 +66,20 @@ class SyntheticDataset:
 
     def __getitem__(self, i) -> SyntheticExample:
         return self._examples[i]
+
+
+def random_batch(b: int, t: int, n_mels: int, vocab: int, label_len: int, *,
+                 pad_to: int | None = None, seed: int = 0) -> dict:
+    """A batch of random numbers for timing and memory runs (the port's
+    counterpart of ``bench.py:_make_batch``): ``features [b, t, n_mels, 4]``
+    standard normal, every row ``t`` frames long, ``labels [b, pad_to]``
+    (default ``label_len``) of random symbols in ``[1, vocab)`` of which the
+    first ``label_len`` count; without ``pad_to`` the same arrays as the
+    reference's at the same arguments."""
+    rng = np.random.RandomState(seed)
+    return {
+        "features": rng.randn(b, t, n_mels, 4).astype(np.float32),
+        "feature_lengths": np.full((b,), t, np.int32),
+        "labels": rng.randint(1, vocab, size=(b, pad_to or label_len)).astype(np.int32),
+        "label_lengths": np.full((b,), label_len, np.int32),
+    }

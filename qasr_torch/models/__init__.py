@@ -2,9 +2,9 @@
 ``qasr/train/state.py:build_model``).
 
 Routing: every value of ``op_variant``, ``dense_variant`` and ``use_pallas``
-that the JAX package takes either routes to a ported path computing the JAX
-route's function or raises ``NotImplementedError`` naming its ROADMAP item;
-a value the JAX package does not know raises ``ValueError``. Kernels: A/C
+that the JAX package takes routes to a ported path computing the JAX
+route's function; a value the JAX package does not know raises
+``ValueError``. Kernels: A/C
 the rank-8 stacked conv and its transpose, F/G the 10-product ones, B the
 rank-8 GEMM, H/I the 10-product GEMM and its dW, D/E the QLSTM recurrence
 and its backward.
@@ -26,16 +26,22 @@ stacked, fused, fusedchain              post-pool layers stacked in the
                                         10-product scheme (F, G); the rest
                                         on the block path
 block                                   every layer packed, block path
-fast, fast10, fast8, legacy_auto        NotImplementedError: the packed XLA
-                                        conv arms (Queue 1 item 3)
+fast, fast10, fast8                     every layer packed on that arm:
+                                        ``qconv_fast`` (one grouped cuDNN
+                                        conv of 10 groups), ``qconv_fast10``
+                                        / ``qconv_fast8`` (10 / 8 cuDNN convs
+                                        of the input combos); no conv kernel
+legacy_auto                             every layer packed: ``fast10`` where
+                                        ``min(Cin, features) >= 128``, else
+                                        the block path
 ======================================  =====================================
 
 The port's stacked layers are those its kernels take (post-pool, channels a
 multiple of 8), not the TPU's ``>= 128`` (``qcnn.stacked_routing``).
 ``use_pallas=True`` keeps every layer packed, whatever ``op_variant`` says
 of the stack: layers with ``Cin * kh * kw >= 32`` run slice-im2col and the
-10-product GEMM (H, I), the others the block path (the packed XLA arms
-still raise). Dense layers:
+10-product GEMM (H, I), the others their packed arm (the block path, or
+the packed XLA arm ``op_variant`` names). Dense layers:
 
 ==========================================  =================================
 ``dense_variant``                           dense layers
@@ -158,7 +164,7 @@ def build_model(
     m = cfg.model
     dtype = _DTYPES[m.compute_dtype]
     if m.arch == "qcnn":
-        conv_scheme(m.op_variant, m.use_pallas)  # raises on an unported or unknown arm
+        conv_scheme(m.op_variant, m.use_pallas)  # raises on an unknown arm
         return QCNNEncoder(
             n_feats=cfg.data.n_mels,
             conv_features=tuple(m.conv_features),

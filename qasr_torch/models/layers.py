@@ -23,7 +23,12 @@ from qasr_torch.ops.kernels import qconv_ft
 from qasr_torch.ops.kernels.qconv_chain import chain_layer
 from qasr_torch.ops.kernels.qgemm import qconv2d_pallas, qdense_pallas
 from qasr_torch.ops.kernels.qgemm8 import qdense_pallas8
-from qasr_torch.ops.qlinalg import qconv
+from qasr_torch.ops.qlinalg import qconv, qconv_fast, qconv_fast8, qconv_fast10
+from qasr_torch.ops.quaternion import split_components
+
+# QConv's packed arms (qasr/models/layers.py:142-153): the block path and the
+# JAX package's packed XLA arms, each on cuDNN convs
+PACKED_CONVS = {"block": qconv, "fast": qconv_fast, "fast10": qconv_fast10, "fast8": qconv_fast8}
 
 
 def flatten_quaternion(x: torch.Tensor) -> torch.Tensor:
@@ -48,11 +53,15 @@ def stacked_to_tf_packed(x: torch.Tensor) -> torch.Tensor:
 class QConv(nn.Module):
     """Quaternion 2-D convolution.
 
-    ``layout="btfc"``: packed ``[B, T, F, 4*Cin]`` in and out, on the block
-    path (one ``F.conv2d`` on the 4x-expanded kernel) — the thin layer — or,
-    with ``use_pallas`` where ``Cin * kh * kw >= 32`` (``layers.py:132-140``),
-    on slice-im2col and the 10-product GEMM (:func:`qconv2d_pallas`: kernels
-    H and I on a CUDA tensor).
+    ``layout="btfc"``: packed ``[B, T, F, 4*Cin]`` in and out, with
+    ``use_pallas`` where ``Cin * kh * kw >= 32`` (``layers.py:132-140``) on
+    slice-im2col and the 10-product GEMM (:func:`qconv2d_pallas`: kernels
+    H and I on a CUDA tensor), else on the packed ``arm``
+    (:data:`PACKED_CONVS`, ``layers.py:107-153``): ``"block"`` (one
+    ``F.conv2d`` on the 4x-expanded kernel; the thin layer), ``"fast"``,
+    ``"fast10"`` or ``"fast8"`` (the 10-product and rank-8 schemes on cuDNN
+    convs), or ``"legacy_auto"``, the TPU's measured routing: ``fast10``
+    where ``min(Cin, features) >= 128``, else ``block``.
     ``layout="stacked_ft"``: ``[B, 4, F, T, Cin]`` in and out through
     :func:`chain_layer` in ``scheme`` (``"fast8"``: kernels A and C;
     ``"fast10"``: kernels F and G), optionally applying the previous layer's
@@ -68,6 +77,7 @@ class QConv(nn.Module):
         *,
         layout: str = "btfc",
         scheme: str = "fast8",
+        arm: str = "block",
         use_pallas: bool = False,
         dtype: torch.dtype = torch.float32,
         generator: torch.Generator | None = None,
@@ -76,8 +86,14 @@ class QConv(nn.Module):
         super().__init__()
         if layout not in ("btfc", "stacked_ft"):
             raise ValueError(f"unknown layout {layout!r}")
+        if arm == "legacy_auto":
+            arm = "fast10" if min(cin, features) >= 128 else "block"
+        if arm not in PACKED_CONVS:
+            raise ValueError(f"unknown packed arm {arm!r} (choose {' | '.join(PACKED_CONVS)}"
+                             " | legacy_auto)")
         self.layout = layout
         self.scheme = scheme
+        self.arm = arm
         # the im2col GEMM pays off once its contraction reaches a few tiles
         self.im2col = (
             use_pallas and layout == "btfc" and len(kernel_size) == 2
@@ -109,7 +125,7 @@ class QConv(nn.Module):
         if self.im2col:
             y = qconv2d_pallas(x, self.kernel.to(self.dtype), plain=plain)
         else:
-            y = qconv(x, self.kernel.to(self.dtype))
+            y = PACKED_CONVS[self.arm](x, self.kernel.to(self.dtype))
         return y + self.bias.to(self.dtype)
 
 
@@ -159,6 +175,82 @@ class PReLU(nn.Module):
         if x.ndim == 5 and x.shape[1] == 4:
             a = a.reshape(4, 1, 1, x.shape[-1])
         return torch.where(x >= 0, x, a * x)
+
+
+def get_r(x: torch.Tensor) -> torch.Tensor:
+    """The real component of packed ``[..., 4C]`` (reference ``GetReal``,
+    ``qasr/models/layers.py:386``)."""
+    return split_components(x)[0]
+
+
+def get_i(x: torch.Tensor) -> torch.Tensor:
+    return split_components(x)[1]
+
+
+def get_j(x: torch.Tensor) -> torch.Tensor:
+    return split_components(x)[2]
+
+
+def get_k(x: torch.Tensor) -> torch.Tensor:
+    return split_components(x)[3]
+
+
+class QBatchNorm(nn.Module):
+    """Quaternion whitening batch norm (``qasr/models/layers.py:403-469``;
+    in the reference's layer library, unused by the paper's models) on
+    packed ``[..., 4*features]``: per quaternion channel, the 4-component
+    covariance whitened by the inverse of its Cholesky factor (``chol(cov +
+    eps I)``, in f32), then the learnable ``gamma [C, 4, 4]`` (initialised
+    to diag 1/2, so whitened unit components recombine to unit variance)
+    and ``beta [4, C]``. The running ``mean [4, C]`` (zeros) and ``cov [C,
+    4, 4]`` (I / 4) are buffers, the JAX ``batch_stats`` collection (the
+    bridge carries them): a batch-statistics call moves them to ``momentum
+    * running + (1 - momentum) * batch``. ``use_running_average`` (the
+    call's, else the module's, else eval mode) normalises by them instead.
+    """
+
+    def __init__(
+        self,
+        features: int,
+        momentum: float = 0.99,
+        eps: float = 1e-4,
+        use_running_average: bool | None = None,
+        *,
+        device: torch.device | str = "cuda",
+    ):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.use_running_average = use_running_average
+        eye = torch.eye(4, device=device)
+        self.gamma = nn.Parameter((eye * 0.5).repeat(features, 1, 1))
+        self.beta = nn.Parameter(torch.zeros(4, features, device=device))
+        self.register_buffer("mean", torch.zeros(4, features, device=device))
+        self.register_buffer("cov", (eye / 4.0).repeat(features, 1, 1))
+
+    def forward(self, x: torch.Tensor, use_running_average: bool | None = None) -> torch.Tensor:
+        use_ra = use_running_average
+        if use_ra is None:
+            use_ra = self.use_running_average
+        if use_ra is None:
+            use_ra = not self.training
+        *lead, c4 = x.shape
+        c = c4 // 4
+        xs = x.reshape(-1, 4, c).float()  # [N, 4, C]
+        if use_ra:
+            mean, cov = self.mean, self.cov
+        else:
+            mean = xs.mean(dim=0)  # [4, C]
+            xc = xs - mean[None]
+            cov = torch.einsum("nac,nbc->cab", xc, xc) / xs.shape[0]  # [C, 4, 4]
+            with torch.no_grad():
+                self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
+                self.cov.copy_(self.momentum * self.cov + (1 - self.momentum) * cov)
+        eye = torch.eye(4, device=x.device)
+        chol = torch.linalg.cholesky(cov + self.eps * eye[None])
+        white = torch.linalg.solve_triangular(chol, eye.expand(c, 4, 4), upper=False)
+        y = torch.einsum("cab,nbc->nac", self.gamma @ white, xs - mean[None]) + self.beta[None]
+        return y.reshape(*lead, c4).to(x.dtype)
 
 
 class Dense(nn.Module):

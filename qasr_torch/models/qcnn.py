@@ -26,6 +26,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from qasr_torch.models.layers import (
     Conv,
@@ -43,34 +44,30 @@ from qasr_torch.ops.kernels import qconv_ft
 
 
 # op_variant -> the scheme of the stacked layers, or None where every layer
-# stays packed on the block path (qasr/models/qcnn.py:64-80 and
-# layers.py:179-204, 255; stacked8g is the rank-8 products in one grouped
-# XLA dispatch, the same arithmetic as kernels A and C)
+# stays packed (qasr/models/qcnn.py:64-80 and layers.py:107-153, 179-204,
+# 255; stacked8g is the rank-8 products in one grouped XLA dispatch, the
+# same arithmetic as kernels A and C): on the block path, or for the packed
+# XLA arms (fast, fast10, fast8, legacy_auto) on their own (PACKED_ARMS)
 CONV_SCHEMES = {
     "auto": "fast8", "stacked8": "fast8", "fused8": "fast8", "fusedchain8": "fast8",
     "stacked8g": "fast8",
     "stacked": "fast10", "fused": "fast10", "fusedchain": "fast10",
-    "block": None,
+    "block": None, "fast": None, "fast10": None, "fast8": None, "legacy_auto": None,
 }
-# the packed XLA conv arms of qasr/models/layers.py:116-153, not ported
-UNPORTED_CONV_VARIANTS = ("fast", "fast10", "fast8", "legacy_auto")
+# the op_variants whose every layer runs QConv's packed arm of that name
+PACKED_ARMS = ("fast", "fast10", "fast8", "legacy_auto")
 
 
 def conv_scheme(op_variant: str, use_pallas: bool = False) -> str | None:
     """The scheme of a qcnn tower's stacked layers for ``op_variant``
     (``"fast8"`` or ``"fast10"``), or None when every layer stays packed:
-    ``use_pallas`` (the im2col GEMM, ``qcnn.py:75-80``) or ``"block"``.
-    Raises ``NotImplementedError`` for the packed XLA arms and
-    ``ValueError`` for a value the JAX package does not know."""
-    if op_variant in UNPORTED_CONV_VARIANTS:
-        raise NotImplementedError(
-            f"op_variant={op_variant!r} (the packed XLA conv arms) is not ported yet "
-            "(ROADMAP.md Queue 1 item 3)"
-        )
+    ``use_pallas`` (the im2col GEMM, ``qcnn.py:75-80``), ``"block"`` and the
+    packed XLA arms. Raises ``ValueError`` for a value the JAX package does
+    not know."""
     if op_variant not in CONV_SCHEMES:
         raise ValueError(
             f"unknown op_variant {op_variant!r} for arch='qcnn' (choose "
-            f"{' | '.join([*CONV_SCHEMES, *UNPORTED_CONV_VARIANTS])})"
+            f"{' | '.join(CONV_SCHEMES)})"
         )
     return None if use_pallas else CONV_SCHEMES[op_variant]
 
@@ -111,6 +108,24 @@ def freq_max_pool(x: torch.Tensor, pool_size: int) -> torch.Tensor:
     ).permute(0, 2, 3, 1)
 
 
+def segment(fn, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``fn(x)``; with ``remat`` (``train.remat_convs``) one checkpoint
+    segment: its activations are dropped after the forward and recomputed
+    in the backward (``torch.utils.checkpoint``, non-reentrant), as the
+    reference's ``jax.checkpoint`` over the train forward
+    (``qasr/train/step.py:35-38``) trades FLOPs for memory. The towers make
+    a segment of each conv layer: eager PyTorch recomputes a segment all at
+    once, so one segment over the whole forward would hardly lower the peak.
+
+    The recompute would replay torch's global RNG state only, never an
+    explicit ``torch.Generator``, so no segment may hold a ``Dropout`` (no
+    preset has conv dropout, and the dense layers' dropout stays outside);
+    as no segment draws, none stashes the RNG state."""
+    if not remat:
+        return fn(x)
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+
+
 def quaternion_conv_tower(
     x: torch.Tensor,
     convs: Sequence[QConv],
@@ -120,6 +135,7 @@ def quaternion_conv_tower(
     pool_after: int,
     pool_size: int,
     plain: bool = False,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, bool]:
     """Run the conv tower (counterpart of ``qasr.models.qcnn.quaternion_conv_tower``
     without conv dropout) on packed ``x [B, T, F, 4*C]``.
@@ -127,9 +143,12 @@ def quaternion_conv_tower(
     ``stacked[i]`` says whether layer i runs in the stacked layout (see
     :func:`stacked_routing`; the layers were built to match). A run of
     stacked layers passes pre-activations: each layer's PReLU is applied in
-    the next layer's prologue, and the run's last PReLU in torch. Returns
-    ``(x, in_stacked)``: when ``in_stacked`` the result is still
-    ``[B, 4, F, T, C]`` and the caller owns the exit transpose.
+    the next layer's prologue, and the run's last PReLU in torch. With
+    ``remat`` each layer is a :func:`segment`: a packed layer with its PReLU
+    (and the pool where it follows), a stacked layer with the previous
+    layer's PReLU in its prologue. Returns ``(x, in_stacked)``: when
+    ``in_stacked`` the result is still ``[B, 4, F, T, C]`` and the caller
+    owns the exit transpose.
     """
     in_stacked = False
     pending = None  # PReLU deferred into the next stacked conv's prologue
@@ -137,17 +156,21 @@ def quaternion_conv_tower(
         if in_stacked and not stacked[i]:
             x = stacked_to_tf_packed(pending(x))
             in_stacked, pending = False, None
+        pool = i + 1 == pool_after
         if stacked[i]:
             if not in_stacked:
                 x = tf_packed_to_stacked(x).contiguous()
                 in_stacked = True
             alpha = None if pending is None else pending.alpha
-            x = conv(x, alpha_prev=alpha, plain=plain)
+
+            def layer(x, conv=conv, alpha=alpha):
+                return conv(x, alpha_prev=alpha, plain=plain)
             pending = act
         else:
-            x = act(conv(x, plain=plain))
-        if i + 1 == pool_after:
-            x = freq_max_pool(x, pool_size)
+            def layer(x, conv=conv, act=act, pool=pool):
+                x = act(conv(x, plain=plain))
+                return freq_max_pool(x, pool_size) if pool else x
+        x = segment(layer, x, remat)
     if in_stacked:
         x = pending(x)
     return x, in_stacked
@@ -171,8 +194,11 @@ class ConvTowerEncoder(nn.Module):
         **common,
     ) -> int:
         """Add the conv layers, routed as :func:`stacked_routing` and
-        :func:`conv_scheme` say for ``op_variant`` and ``use_pallas``;
-        returns the quaternion width ``F * C`` that the tower hands on."""
+        :func:`conv_scheme` say for ``op_variant`` and ``use_pallas``; the
+        packed layers on QConv's arm of that name for the packed XLA arms
+        (:data:`PACKED_ARMS`, as the JAX tower passes them to every layer),
+        else on the block path; returns the quaternion width ``F * C`` that
+        the tower hands on."""
         self.pool_after = pool_after
         self.pool_size = pool_size
         self.conv_scheme = conv_scheme(op_variant, use_pallas)
@@ -180,13 +206,14 @@ class ConvTowerEncoder(nn.Module):
             conv_features, kernel_size, pool_after, op_variant=op_variant, use_pallas=use_pallas
         )
         device = common["device"]
+        arm = op_variant if op_variant in PACKED_ARMS else "block"
         cin, f = 1, n_feats
         for i, feats in enumerate(conv_features):
             layout = "stacked_ft" if self.stacked[i] else "btfc"
             self.add_module(
                 f"qconv_{i}",
                 QConv(cin, feats, kernel_size, layout=layout, scheme=self.conv_scheme or "fast8",
-                      use_pallas=use_pallas, **common),
+                      arm=arm, use_pallas=use_pallas, **common),
             )
             self.add_module(f"conv_prelu_{i}", PReLU(4 * feats, device=device))
             if i + 1 == pool_after:
@@ -194,8 +221,9 @@ class ConvTowerEncoder(nn.Module):
             cin = feats
         return f * cin
 
-    def _run_tower(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
-        """``x [B, T, F, 4]`` -> ``[B, T, 4*(F*C)]`` in the compute dtype."""
+    def _run_tower(self, x: torch.Tensor, plain: bool, remat: bool = False) -> torch.Tensor:
+        """``x [B, T, F, 4]`` -> ``[B, T, 4*(F*C)]`` in the compute dtype;
+        ``remat`` makes each conv layer a checkpoint :func:`segment`."""
         if x.ndim != 4:
             raise ValueError(f"expected [B, T, F, 4*C] input, got {tuple(x.shape)}")
         n = len(self.stacked)
@@ -207,6 +235,7 @@ class ConvTowerEncoder(nn.Module):
             pool_after=self.pool_after,
             pool_size=self.pool_size,
             plain=plain,
+            remat=remat,
         )
         if in_stacked:
             # the single exit transpose: [B,4,F,T,C] -> [B,T,4*(F*C)]
@@ -267,15 +296,18 @@ class QCNNEncoder(ConvTowerEncoder):
         plain: bool = False,
         generator: torch.Generator | None = None,
         global_rows: tuple[int, int] | None = None,
+        remat: bool = False,
     ) -> torch.Tensor:
         """``x [B, T, F, 4]`` -> logits ``[B, T, vocab]`` f32. ``plain=True``
         runs every kernel's plain PyTorch version, on any device. In train
         mode the dropout masks come from ``generator`` (on x's device),
         cut to ``global_rows`` of a larger batch when given (:class:`Dropout`).
-        ``lengths`` is accepted and unused: the model is frame-local, as the
-        JAX encoder's (``qasr/models/qcnn.py:222``)."""
+        ``remat`` (``train.remat_convs``) recomputes each conv layer in the
+        backward (:func:`segment`). ``lengths`` is accepted and unused: the
+        model is frame-local, as the JAX encoder's
+        (``qasr/models/qcnn.py:222``)."""
         del lengths
-        x = self._run_tower(x, plain)
+        x = self._run_tower(x, plain, remat)
         for i in range(self.n_dense):
             x = getattr(self, f"dense_prelu_{i}")(getattr(self, f"qdense_{i}")(x, plain=plain))
             x = getattr(self, f"dense_dropout_{i}")(x, generator, global_rows)
@@ -307,15 +339,18 @@ class RealConvTower(nn.Module):
             cin = 4 * feats
         return f * cin
 
-    def _run_convs(self, x: torch.Tensor) -> torch.Tensor:
-        """``[B, T, F, 4]`` -> ``[B, T, F' * C]`` in the compute dtype."""
+    def _run_convs(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """``[B, T, F, 4]`` -> ``[B, T, F' * C]`` in the compute dtype;
+        ``remat`` makes each conv with its PReLU (and the pool where it
+        follows) a checkpoint :func:`segment`."""
         if x.ndim != 4:
             raise ValueError(f"expected [B, T, F, 4] input, got {tuple(x.shape)}")
         x = x.to(self.dtype)
         for i in range(self.n_conv):
-            x = getattr(self, f"conv_prelu_{i}")(getattr(self, f"conv_{i}")(x))
-            if i + 1 == self.pool_after:
-                x = freq_max_pool(x, self.pool_size)
+            def layer(x, i=i):
+                x = getattr(self, f"conv_prelu_{i}")(getattr(self, f"conv_{i}")(x))
+                return freq_max_pool(x, self.pool_size) if i + 1 == self.pool_after else x
+            x = segment(layer, x, remat)
         b, t = x.shape[:2]
         return x.reshape(b, t, -1)
 
@@ -377,14 +412,16 @@ class RealCNNEncoder(RealConvTower):
         plain: bool = False,
         generator: torch.Generator | None = None,
         global_rows: tuple[int, int] | None = None,
+        remat: bool = False,
     ) -> torch.Tensor:
         """``x [B, T, F, 4]`` -> logits ``[B, T, vocab]`` f32. In train mode
         the dropout masks come from ``generator`` (on x's device), cut to
-        ``global_rows`` of a larger batch when given (:class:`Dropout`).
+        ``global_rows`` of a larger batch when given (:class:`Dropout`);
+        ``remat`` recomputes each conv layer in the backward (:func:`segment`).
         ``lengths`` is accepted and unused (the model is frame-local, as the
         JAX encoder's); so is ``plain``, as there is no kernel to swap."""
         del lengths, plain
-        x = self._run_convs(x)
+        x = self._run_convs(x, remat)
         for i in range(self.n_dense):
             x = getattr(self, f"dense_prelu_{i}")(getattr(self, f"dense_{i}")(x))
             x = getattr(self, f"dense_dropout_{i}")(x, generator, global_rows)

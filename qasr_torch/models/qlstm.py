@@ -397,13 +397,16 @@ class QLSTMEncoder(ConvTowerEncoder):
         plain: bool = False,
         generator: torch.Generator | None = None,
         global_rows: tuple[int, int] | None = None,
+        remat: bool = False,
     ) -> torch.Tensor:
         """``x [B, T, F, 4]`` -> logits ``[B, T, vocab]`` f32. ``lengths [B]``
         frame counts keep padding out of the recurrences. ``plain=True``
         runs every kernel's plain PyTorch version, on any device. In train
         mode the dropout masks come from ``generator``, cut to ``global_rows``
-        of a larger batch when given (:class:`Dropout`)."""
-        x = self._run_tower(x, plain)
+        of a larger batch when given (:class:`Dropout`). ``remat``
+        recomputes each conv layer of the tower in the backward
+        (``qcnn.segment``)."""
+        x = self._run_tower(x, plain, remat)
         for i in range(self.lstm_layers):
             x = self.lstm(i)(x, lengths, plain=plain)
             x = getattr(self, f"lstm_dropout_{i}")(x, generator, global_rows)
@@ -529,13 +532,15 @@ class RealLSTMEncoder(RealConvTower):
         plain: bool = False,
         generator: torch.Generator | None = None,
         global_rows: tuple[int, int] | None = None,
+        remat: bool = False,
     ) -> torch.Tensor:
         """``x [B, T, F, 4]`` -> logits ``[B, T, vocab]`` f32. ``lengths [B]``
         reaches every LSTM layer; ``plain`` is accepted and unused (the model
         runs no kernel of the port). In train mode the dropout masks come
         from ``generator``, cut to ``global_rows`` of a larger batch when
-        given (:class:`Dropout`)."""
-        x = self._run_convs(x)
+        given (:class:`Dropout`); ``remat`` recomputes each conv layer in
+        the backward (``qcnn.segment``)."""
+        x = self._run_convs(x, remat)
         for i in range(self.lstm_layers):
             x = getattr(self, f"bilstm_{i}")(x, lengths)
             x = getattr(self, f"lstm_dropout_{i}")(x, generator, global_rows)

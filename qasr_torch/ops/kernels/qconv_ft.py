@@ -149,6 +149,7 @@ def qconv_stacked_plain(
     alpha: torch.Tensor | None = None,
     *,
     scheme: _Scheme = SCHEME8,
+    padding: str = "SAME",
 ) -> torch.Tensor:
     """Plain version of kernels A and F: ``bias + qconv(act(x_st))`` in
     ``scheme``.
@@ -157,18 +158,23 @@ def qconv_stacked_plain(
     formed in x's dtype, on the weight combos ``combine_weights(w, dtype,
     scheme.u)``, recombined with the scheme's output table in f32.
     ``x_st [B,4,F,T,Cin]`` in the compute dtype; ``w [4,kh,kw,Cin,Cout]``;
-    ``bias [4*Cout]`` and ``alpha [4*Cin]`` optional. Returns
-    ``[B,4,F,T,Cout]`` in x's dtype.
+    ``bias [4*Cout]`` and ``alpha [4*Cin]`` optional; ``padding`` "SAME"
+    (odd kernels; the kernels' case) or "VALID". Returns
+    ``[B,4,F',T',Cout]`` in x's dtype.
     """
-    b, _, f, t, cin = x_st.shape
     _, kh, kw, _, cout = w.shape
-    if kh % 2 == 0 or kw % 2 == 0:
-        raise ValueError(f"the stacked SAME conv needs odd kernels, got {(kh, kw)}")
+    if padding == "SAME":
+        if kh % 2 == 0 or kw % 2 == 0:
+            raise ValueError(f"the stacked SAME conv needs odd kernels, got {(kh, kw)}")
+        pad = ((kw - 1) // 2, (kh - 1) // 2)
+    elif padding == "VALID":
+        pad = (0, 0)
+    else:
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
     if alpha is not None:
         x_st = _prelu_stacked(x_st, alpha)
     # [P, kh, kw, Cin, Cout] -> per product [Cout, Cin, kw (F), kh (T)]
     wc = combine_weights(w, x_st.dtype, scheme.u).permute(0, 4, 3, 2, 1)
-    pad = ((kw - 1) // 2, (kh - 1) // 2)
     prods = []
     for p, terms in enumerate(scheme.fwd_in):
         xc = _combo(x_st, terms)  # [B, F, T, Cin]
@@ -303,3 +309,18 @@ def qconv_ft10(
 qconv_ft8.launches = 0
 qconv_ft10.launches = 0
 _WRAPPERS = {"fast8": qconv_ft8, "fast10": qconv_ft10}
+
+
+def qconv_fast8_stacked(x_st: torch.Tensor, w: torch.Tensor, *, padding: str = "SAME") -> torch.Tensor:
+    """The rank-8 quaternion conv on the stacked F-major layout
+    (``qasr/ops/pallas/qconv_ft.py:qconv_fast8_stacked``, the JAX package's
+    XLA arm): :func:`qconv_stacked_plain` in ``SCHEME8``, differentiable by
+    autograd (P cuDNN convs and their adjoints; no kernel of the port)."""
+    return qconv_stacked_plain(x_st, w, scheme=SCHEME8, padding=padding)
+
+
+def qconv_fast10_stacked(x_st: torch.Tensor, w: torch.Tensor, *, padding: str = "SAME") -> torch.Tensor:
+    """The 10-product quaternion conv on the stacked F-major layout
+    (``qasr/ops/pallas/qconv_ft.py:qconv_fast10_stacked``), as
+    :func:`qconv_fast8_stacked` in ``SCHEME10``."""
+    return qconv_stacked_plain(x_st, w, scheme=SCHEME10, padding=padding)

@@ -161,6 +161,28 @@ def hamilton_expand(w: torch.Tensor, conjugate: bool = False) -> torch.Tensor:
     return wb.reshape(*w.shape[1:-2], 4 * w.shape[-2], 4 * w.shape[-1])
 
 
+def hamilton_tensor() -> np.ndarray:
+    """The 4x4x4 product tensor T with ``y_k = Σ_ij T[i,j,k] w_i x_j``, the
+    object the 10- and 8-product schemes decompose
+    (``qasr/ops/quaternion.py:hamilton_tensor``; a test oracle)."""
+    return HAMILTON_E.astype(np.float64)
+
+
+def qdense_naive(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Oracle: quaternion dense as 16 explicit component GEMMs
+    (``qasr/ops/quaternion.py:qdense_naive``). ``x [..., 4*Cin]`` packed,
+    ``w [4, Cin, Cout]``; used only by tests."""
+    xs = split_components(x)
+    outs = []
+    for b in range(4):
+        acc = None
+        for a in range(4):
+            term = float(HAMILTON_SIGN[a, b]) * (xs[a] @ w[int(HAMILTON_COMP[a, b])])
+            acc = term if acc is None else acc + term
+        outs.append(acc)
+    return torch.cat(outs, dim=-1)
+
+
 def hamilton_product(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Elementwise Hamilton product of packed quaternion tensors (q1 ⊗ q2)."""
     ar, ai, aj, ak = split_components(q1)

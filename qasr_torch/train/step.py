@@ -96,11 +96,14 @@ def forward_backward(state: TrainState, batch: dict, *, plain: bool = False,
     backward into the model's ``.grad`` (cleared first). A data-parallel
     rank passes ``tokens`` (:func:`loss_fn`) and ``global_rows``, where its
     rows lie in the global batch (``qasr_torch.models.layers.Dropout``).
-    Returns the loss, detached."""
+    ``train.remat_convs`` recomputes the conv tower layer by layer in the
+    backward (``qasr_torch.models.qcnn.segment``): the same loss and
+    gradients for less memory. Returns the loss, detached."""
     model = state.model
     model.train()
     logits = model(batch["features"], lengths=batch["feature_lengths"], plain=plain,
-                   generator=state.generator, global_rows=global_rows)
+                   generator=state.generator, global_rows=global_rows,
+                   remat=state.cfg.train.remat_convs)
     loss = loss_fn(state.cfg, logits, batch, tokens=tokens)
     model.zero_grad(set_to_none=True)
     loss.backward()

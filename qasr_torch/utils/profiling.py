@@ -124,7 +124,8 @@ def conv_roofline(
     Returns a dict with achieved TFLOP/s, % of peak, and seconds/step for the
     quaternion path and the explicitly 4x-expanded real conv baseline (one
     cuDNN conv). ``variant="block"`` runs :func:`qasr_torch.ops.qlinalg.qconv`
-    (cuDNN on the expanded weight); ``use_pallas=True`` runs
+    (cuDNN on the expanded weight), ``"fast"`` and ``"fast10"`` the packed
+    10-product arms ``qconv_fast`` and ``qconv_fast10``; ``use_pallas=True`` runs
     :func:`qasr_torch.ops.kernels.qgemm.qconv2d_pallas` (slice-im2col and
     kernel H on a CUDA tensor). FLOPs are always counted as the 16-product
     equivalent (the reference's per-step computation). ``device="cpu"``
@@ -132,15 +133,11 @@ def conv_roofline(
     device metric.
     """
     from qasr_torch.ops.kernels.qgemm import qconv2d_pallas
-    from qasr_torch.ops.qlinalg import qconv
+    from qasr_torch.ops.qlinalg import qconv, qconv_fast, qconv_fast10
     from qasr_torch.ops.quaternion import hamilton_expand
 
-    if variant in ("fast", "fast10"):
-        raise NotImplementedError(
-            f"variant={variant!r} (the packed XLA conv arms) is not ported yet "
-            "(ROADMAP.md Queue 1 item 3)"
-        )
-    if variant != "block":
+    paths = {"block": qconv, "fast": qconv_fast, "fast10": qconv_fast10}
+    if variant not in paths:
         raise ValueError(f"unknown variant {variant!r} (choose block | fast | fast10)")
     if cin != cout:
         raise ValueError("the roofline harness chains outputs; it needs cin == cout")
@@ -151,7 +148,7 @@ def conv_roofline(
     w = torch.randn((4, 3, 3, cin, cout), generator=g, device=dev).to(dt)
     w_real = hamilton_expand(w).to(dt).permute(3, 2, 0, 1).contiguous()  # OIHW
 
-    q_fn = qconv2d_pallas if use_pallas else qconv
+    q_fn = qconv2d_pallas if use_pallas else paths[variant]
 
     def real_fn(c, wr):
         # NHWC in and out, as the quaternion path's layout

@@ -216,8 +216,9 @@ _SMALL = {"model.conv_features": (8, 16), "model.dense_features": (8,), "data.n_
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_qcnn_routing_table(train, use_pallas):
     """Every op_variant and dense_variant the JAX package takes builds as
-    the table says, or raises NotImplementedError naming its ROADMAP item;
-    an unknown value raises ValueError. Train and eval mode alike."""
+    the table says (the packed XLA arms every layer packed on their arm;
+    legacy_auto on the block path below 128 channels); an unknown value
+    raises ValueError. Train and eval mode alike."""
     base = get_config("tiny_synthetic").override(**_SMALL, **{"model.use_pallas": use_pallas})
     for ov, scheme in _QCNN_ROUTES.items():
         for dv, dscheme in _DENSE_ROUTES.items():
@@ -232,8 +233,11 @@ def test_qcnn_routing_table(train, use_pallas):
             assert [m.qconv_0.im2col, m.qconv_1.im2col] == [False, use_pallas]
             assert m.qdense_0.scheme == ("fast10" if use_pallas else dscheme), (ov, dv)
     for ov in ("fast", "fast10", "fast8", "legacy_auto"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            build_model(base.override(**{"model.op_variant": ov}), device="cpu", train=train)
+        m = build_model(base.override(**{"model.op_variant": ov}), device="cpu", train=train)
+        assert m.conv_scheme is None and m.stacked == [False, False], ov
+        arm = "block" if ov == "legacy_auto" else ov
+        assert [m.qconv_0.arm, m.qconv_1.arm] == [arm, arm], ov
+        assert [m.qconv_0.im2col, m.qconv_1.im2col] == [False, use_pallas]
     with pytest.raises(ValueError, match="unknown op_variant"):
         build_model(base.override(**{"model.op_variant": "fused9"}), device="cpu", train=train)
     with pytest.raises(ValueError, match="unknown dense_variant"):

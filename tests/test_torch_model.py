@@ -307,10 +307,7 @@ _API_RENAMED = {
     "qconv2d_ft_stacked": "qconv_ft10",   # kernel F's
     "quaternion_initializer": "quaternion_init",  # a draw, not a flax init factory
 }
-_API_PENDING = {
-    "QBatchNorm": 5,
-    "qconv_fast10": 3, "qconv_fast8_stacked": 3, "qconv_fast10_stacked": 3,
-}
+_API_PENDING = {}
 
 
 def test_api_exports_match_reference():

@@ -340,3 +340,40 @@ def test_cli_two_ranks_on_the_cpu(tmp_path):
     rows = [json.loads(ln) for ln in open(ckpt / "metrics.jsonl")]
     assert [r["step"] for r in rows if "loss" in r] == [1, 2]  # one writer
     assert (ckpt / "step_2" / "params.npz").exists()
+
+
+def test_cli_config5_tensor_parallel_streams_and_resumes(tmp_path):
+    """Config 5 (``librispeech_large``) at its real widths (256-wide convs,
+    1024-wide dense layers; depth cut to 2 convs and 1 dense layer, T to
+    one 512-frame bucket, f32) on two CPU ranks, TP 2 over gloo, through
+    ``python -m torch.distributed.run -m qasr_torch.cli``: streaming
+    features from a tiny mini-LibriSpeech, 2 steps with a dev-clean eval and
+    a checkpoint, then ``--resume`` for 2 more, which continues from the
+    step-2 checkpoint and its data state."""
+    from qasr_torch.tools.make_mini_librispeech import write_corpus
+
+    data, ckpt = tmp_path / "libri", tmp_path / "ckpt"
+    write_corpus(str(data), speakers=2, utts_per_speaker=2, dev_speakers=1)
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
+    sets = ["model.conv_features=16,256", "model.dense_features=1024",
+            "model.compute_dtype=float32", "data.bucket_sizes=512", "data.batch_size=1",
+            f"data.data_dir={data}", "train.log_every=1", "train.eval_every=2",
+            "train.checkpoint_every=2", f"train.checkpoint_dir={ckpt}", "mesh.model_axis=2"]
+    runs = []
+    for steps, extra in ((2, []), (4, ["--resume"])):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2", "-m", "qasr_torch.cli", "--device", "cpu",
+               "--preset", "librispeech_large", *extra, "--set", *sets,
+               f"train.num_steps={steps}"]
+        p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+        assert p.returncode == 0, p.stdout + p.stderr
+        runs.append(p.stdout)
+    assert "resumed from step 2" in runs[1]
+    last = json.loads([ln for ln in runs[1].splitlines() if ln.startswith("{")][-1])
+    assert last["step"] == 4 and np.isfinite(last["loss"]) and 0.0 <= last["dev_per"]
+    rows = [json.loads(ln) for ln in open(ckpt / "metrics.jsonl")]
+    assert [r["step"] for r in rows if "loss" in r] == [1, 2, 3, 4]
+    for step in (2, 4):
+        assert (ckpt / f"step_{step}" / "params.npz").exists()
+        assert (ckpt / f"data_state_{step}.json").exists()
+    assert not (ckpt / "features").exists()  # streaming: no feature cache

@@ -55,8 +55,8 @@ def test_chips_hold_the_h100_only():
 
 def test_conv_roofline_keys_and_refusals():
     """At a tiny shape on the host (its times are the host's, not a device
-    metric) the block path returns the JAX function's keys; the packed XLA
-    arms raise. The times are difference quotients of host wall times, which
+    metric) the block path and the packed XLA arms return the JAX
+    function's keys. The times are difference quotients of host wall times, which
     a loaded host can make zero or negative, so only their finiteness is
     checked here; chip_smoke.py gates them positive on the card."""
     kw = dict(batch=1, t=4, f=3, cin=2, cout=2, dtype="float32", repeats=1)
@@ -67,8 +67,9 @@ def test_conv_roofline_keys_and_refusals():
     assert got["variant"] == "block" and got["chip"] == "h100"
     assert math.isfinite(got["qconv_s"]) and math.isfinite(got["expanded_real_s"])
     for variant in ("fast", "fast10"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            profiling.conv_roofline(device="cpu", variant=variant, **kw)
+        arm = profiling.conv_roofline(device="cpu", variant=variant, **kw)
+        assert set(arm) == set(want) and arm["variant"] == variant
+        assert arm["flops_per_step"] == got["flops_per_step"] and math.isfinite(arm["qconv_s"])
     with pytest.raises(ValueError, match="cin == cout"):
         profiling.conv_roofline(device="cpu", **{**kw, "cout": 4})
 
