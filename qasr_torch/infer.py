@@ -31,6 +31,7 @@ from qasr_torch.features.frontend import FrontendConfig, featurize_waveform
 from qasr_torch.models import build_model
 from qasr_torch.native import flac_decode_native, flac_probe
 from qasr_torch.ops.ctc import ctc_greedy_decode
+from qasr_torch.utils.profiling import span
 
 
 def _next_time_pad(t: int, bucket_sizes: tuple[int, ...]) -> int:
@@ -97,34 +98,37 @@ class Transcriber:
         gets their frame counts (a QLSTM freezes its state on the padding).
         ``plain=True`` runs every kernel's plain PyTorch version (the
         reference path)."""
-        feats = [featurize_waveform(w, self.fcfg, device=self.device) for w in wavs]
-        lengths = torch.tensor([f.shape[0] for f in feats], device=self.device)
-        t_pad = _next_time_pad(int(lengths.max()), self.cfg.data.bucket_sizes)
-        batch = torch.zeros(
-            (len(feats), t_pad, self.cfg.data.n_mels, 4), device=self.device
-        )
-        for i, f in enumerate(feats):
-            batch[i, : f.shape[0]] = f
-        return self.model(batch, lengths=lengths, plain=plain), lengths
+        with span("qasr.frontend"):
+            feats = [featurize_waveform(w, self.fcfg, device=self.device) for w in wavs]
+            lengths = torch.tensor([f.shape[0] for f in feats], device=self.device)
+            t_pad = _next_time_pad(int(lengths.max()), self.cfg.data.bucket_sizes)
+            batch = torch.zeros(
+                (len(feats), t_pad, self.cfg.data.n_mels, 4), device=self.device
+            )
+            for i, f in enumerate(feats):
+                batch[i, : f.shape[0]] = f
+        with span("qasr.forward"):
+            return self.model(batch, lengths=lengths, plain=plain), lengths
 
     def decode(self, logits: torch.Tensor, lengths: torch.Tensor):
         """Logits -> (sequences ``[B, L]`` padded with -1, lengths ``[B]``) as
         numpy arrays, decoded on the logits' device."""
-        if self.beam:
-            # max_len = the padded frame count: CTC emits at most one symbol
-            # a frame, so nothing truncates (cfg.data.max_label_len bounds
-            # the training labels, not a transcription)
-            seq, lens, _ = ctc_beam_search_decode(
-                logits,
-                lengths,
-                beam_width=self.cfg.decode.beam_width,
-                blank_id=self.cfg.decode.blank_id,
-                max_len=int(logits.shape[1]),
-                prune_logp=self.cfg.decode.beam_prune_logp,
-            )
-        else:
-            seq, lens = ctc_greedy_decode(logits, lengths, blank_id=self.cfg.decode.blank_id)
-        return seq.cpu().numpy(), lens.cpu().numpy()
+        with span("qasr.decode"):
+            if self.beam:
+                # max_len = the padded frame count: CTC emits at most one symbol
+                # a frame, so nothing truncates (cfg.data.max_label_len bounds
+                # the training labels, not a transcription)
+                seq, lens, _ = ctc_beam_search_decode(
+                    logits,
+                    lengths,
+                    beam_width=self.cfg.decode.beam_width,
+                    blank_id=self.cfg.decode.blank_id,
+                    max_len=int(logits.shape[1]),
+                    prune_logp=self.cfg.decode.beam_prune_logp,
+                )
+            else:
+                seq, lens = ctc_greedy_decode(logits, lengths, blank_id=self.cfg.decode.blank_id)
+            return seq.cpu().numpy(), lens.cpu().numpy()
 
     # -- symbol mapping ------------------------------------------------------
 
@@ -143,8 +147,10 @@ class Transcriber:
 
     def transcribe_batch(self, wavs, *, fold: bool = False):
         """Transcribe a list of ``[N]`` float32 waveforms in one batch."""
-        seq, lens = self.decode(*self.logits(wavs))
-        return [self.ids_to_symbols(seq[i][: int(lens[i])], fold=fold) for i in range(len(wavs))]
+        with span("qasr.transcribe"):
+            seq, lens = self.decode(*self.logits(wavs))
+            return [self.ids_to_symbols(seq[i][: int(lens[i])], fold=fold)
+                    for i in range(len(wavs))]
 
     def transcribe(self, wav, *, fold: bool = False):
         """Transcribe one ``[N]`` float32 waveform at cfg.data.sample_rate."""

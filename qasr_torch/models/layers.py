@@ -25,6 +25,7 @@ from qasr_torch.ops.kernels.qgemm import qconv2d_pallas, qdense_pallas
 from qasr_torch.ops.kernels.qgemm8 import qdense_pallas8
 from qasr_torch.ops.qlinalg import qconv, qconv_fast, qconv_fast8, qconv_fast10
 from qasr_torch.ops.quaternion import split_components
+from qasr_torch.utils.profiling import traced
 
 # QConv's packed arms (qasr/models/layers.py:142-153): the block path and the
 # JAX package's packed XLA arms, each on cuDNN convs
@@ -115,10 +116,11 @@ class QConv(nn.Module):
         x = x.to(self.dtype)
         if self.layout == "stacked_ft":
             # the kernel in the compute dtype before its combos are formed,
-            # as the reference's chain layer casts it (layers.py:251)
-            return chain_layer(
-                x, self.kernel.to(self.dtype), self.bias, alpha_prev, scheme=self.scheme,
-                plain=plain,
+            # as the reference's chain layer casts it (layers.py:251);
+            # chain_layer is looked up here, at the call
+            return traced(
+                "qasr.qconv", chain_layer, x, self.kernel.to(self.dtype), self.bias, alpha_prev,
+                scheme=self.scheme, plain=plain,
             )
         if alpha_prev is not None:
             raise ValueError("the packed layout has no PReLU prologue")

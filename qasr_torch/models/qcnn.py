@@ -41,6 +41,7 @@ from qasr_torch.models.layers import (
 )
 from qasr_torch.ops.initializers import lecun_normal
 from qasr_torch.ops.kernels import qconv_ft
+from qasr_torch.utils.profiling import traced
 
 
 # op_variant -> the scheme of the stacked layers, or None where every layer
@@ -243,6 +244,17 @@ class ConvTowerEncoder(nn.Module):
             return x.permute(0, 3, 1, 2, 4).reshape(b, t, 4 * f * c)
         return flatten_quaternion(x)
 
+    def _run_dense(self, x: torch.Tensor, plain: bool, generator, global_rows) -> torch.Tensor:
+        """The quaternion dense layers (``qdense_<i>``, each with its PReLU
+        and dropout) and the real output layer -> f32 logits, under the
+        ``qasr.dense`` span."""
+        def head(x):
+            for i in range(self.n_dense):
+                x = getattr(self, f"dense_prelu_{i}")(getattr(self, f"qdense_{i}")(x, plain=plain))
+                x = getattr(self, f"dense_dropout_{i}")(x, generator, global_rows)
+            return self.output(x).float()
+        return traced("qasr.dense", head, x)
+
 
 class QCNNEncoder(ConvTowerEncoder):
     """Quaternion CNN encoder -> framewise CTC logits ``[B, T, vocab]``.
@@ -308,10 +320,7 @@ class QCNNEncoder(ConvTowerEncoder):
         (``qasr/models/qcnn.py:222``)."""
         del lengths
         x = self._run_tower(x, plain, remat)
-        for i in range(self.n_dense):
-            x = getattr(self, f"dense_prelu_{i}")(getattr(self, f"qdense_{i}")(x, plain=plain))
-            x = getattr(self, f"dense_dropout_{i}")(x, generator, global_rows)
-        return self.output(x).float()
+        return self._run_dense(x, plain, generator, global_rows)
 
 
 class RealConvTower(nn.Module):

@@ -54,6 +54,7 @@ from qasr_torch.ops.kernels.qgemm8 import qdense_pallas8
 from qasr_torch.ops.kernels.qlstm_scan import qlstm_scan_fast8
 from qasr_torch.ops.qlinalg import qdense
 from qasr_torch.ops.quaternion import O8, V8, combine_weights, device_table, hamilton_expand
+from qasr_torch.utils.profiling import traced
 
 # M = B * T from which the input projection takes the block product
 # (``qlstm.py:62-63``, measured on the TPU). On the H100 the block product is
@@ -293,6 +294,10 @@ class QBiLSTM(nn.Module):
     def forward(
         self, x: torch.Tensor, lengths: torch.Tensor | None = None, *, plain: bool = False
     ) -> torch.Tensor:
+        return traced("qasr.bilstm", self._forward, x, lengths, plain=plain)
+
+    def _forward(self, x: torch.Tensor, lengths: torch.Tensor | None, *, plain: bool
+                 ) -> torch.Tensor:
         b, t, cin4 = x.shape
         dt = self.dtype
         # both directions' input projections as one quaternion GEMM
@@ -410,10 +415,7 @@ class QLSTMEncoder(ConvTowerEncoder):
         for i in range(self.lstm_layers):
             x = self.lstm(i)(x, lengths, plain=plain)
             x = getattr(self, f"lstm_dropout_{i}")(x, generator, global_rows)
-        for i in range(self.n_dense):
-            x = getattr(self, f"dense_prelu_{i}")(getattr(self, f"qdense_{i}")(x, plain=plain))
-            x = getattr(self, f"dense_dropout_{i}")(x, generator, global_rows)
-        return self.output(x).float()
+        return self._run_dense(x, plain, generator, global_rows)
 
 
 class RealBiLSTM(nn.Module):

@@ -41,6 +41,7 @@ import torch
 from qasr_torch.ops.kernels import _build
 from qasr_torch.ops.kernels.qconv_ft import _DTYPE_CODE, _O8_F32, _V8_F32, _check_cuda_tensor
 from qasr_torch.ops.quaternion import O8, V8, device_table
+from qasr_torch.utils.profiling import span, traced
 
 # 2-sparse V8 rows as ((component, coefficient), (component, coefficient)),
 # the coefficients rounded to f32 as the kernel and the JAX twin use them
@@ -427,10 +428,11 @@ def qlstm_scan_fwd(
     grad, both paths go through :class:`QLstmScanFn`, whose backward is
     kernel E on the kernel path and the plain backward on the plain path."""
     if torch.is_grad_enabled() and (xz_gm.requires_grad or wc8.requires_grad):
-        return QLstmScanFn.apply(xz_gm, wc8, lengths, plain)
-    if plain or not xz_gm.is_cuda:
-        return qlstm_scan_fwd_plain(xz_gm, wc8, lengths)
-    return qlstm_scan_cuda(xz_gm.contiguous(), wc8.contiguous(), lengths)
+        return traced("qasr.qlstm_scan", QLstmScanFn.apply, xz_gm, wc8, lengths, plain)
+    with span("qasr.qlstm_scan"):
+        if plain or not xz_gm.is_cuda:
+            return qlstm_scan_fwd_plain(xz_gm, wc8, lengths)
+        return qlstm_scan_cuda(xz_gm.contiguous(), wc8.contiguous(), lengths)
 
 
 def qlstm_scan_fast8(

@@ -44,6 +44,7 @@ from qasr_torch.train.step import (
     eval_step,
     forward_backward,
 )
+from qasr_torch.utils.profiling import span
 
 
 def host_rows(tree, mesh: Mesh | None = None):
@@ -181,37 +182,39 @@ def make_sharded_train_step(cfg: Config, mesh: Mesh):
     data_group, model_group = mesh.group(DATA_AXIS), mesh.group(MODEL_AXIS)
 
     def train_step(state: ShardedTrainState, batch: dict, *, plain: bool = False) -> dict:
-        model = state.model
-        device = next(model.parameters()).device
-        n = len(batch["label_lengths"])
-        rows = shard_rows(mesh, n)
-        local = batch_to_device({k: v[rows] for k, v in batch.items()}, device)
-        loss = forward_backward(state, local, plain=plain, tokens=_global_tokens(batch, device),
-                                global_rows=(rows.start, n))
-        named = list(model.named_parameters())
-        if data_group is not None:
-            _sum_over([p.grad for _, p in named], data_group)
-        grads = []
-        for k, p in named:
-            shard = state.shards[k]
-            if shard is not p:
-                shard.grad = shard_leaf(mesh, state.specs[k], p.grad)
-            grads.append(shard.grad)
-        sq = [g.float().square().sum() for g in grads]
-        if model_group is not None:
-            split = torch.tensor([state.shards[k] is not p for k, p in named], device=device)
-            vec = torch.stack(sq)
-            part = torch.where(split, vec, torch.zeros_like(vec))
-            dist.all_reduce(part, group=model_group)
-            sq = list(torch.where(split, part, vec).unbind())
-        gnorm = torch.sqrt(sum(sq))
-        clip_and_update(state, grads, gnorm)
-        state.gather_params()
-        if data_group is not None:
-            dist.all_reduce(loss, group=data_group)
-        frames = int(np.sum(np.asarray(batch["feature_lengths"])))
-        return {"loss": loss, "grad_norm": gnorm.detach(),
-                "frames": torch.tensor(frames, device=device)}
+        with span("qasr.train_step"):
+            model = state.model
+            device = next(model.parameters()).device
+            n = len(batch["label_lengths"])
+            rows = shard_rows(mesh, n)
+            local = batch_to_device({k: v[rows] for k, v in batch.items()}, device)
+            loss = forward_backward(state, local, plain=plain, tokens=_global_tokens(batch, device),
+                                    global_rows=(rows.start, n))
+            named = list(model.named_parameters())
+            if data_group is not None:
+                _sum_over([p.grad for _, p in named], data_group)
+            grads = []
+            for k, p in named:
+                shard = state.shards[k]
+                if shard is not p:
+                    shard.grad = shard_leaf(mesh, state.specs[k], p.grad)
+                grads.append(shard.grad)
+            sq = [g.float().square().sum() for g in grads]
+            if model_group is not None:
+                split = torch.tensor([state.shards[k] is not p for k, p in named], device=device)
+                vec = torch.stack(sq)
+                part = torch.where(split, vec, torch.zeros_like(vec))
+                dist.all_reduce(part, group=model_group)
+                sq = list(torch.where(split, part, vec).unbind())
+            gnorm = torch.sqrt(sum(sq))
+            with span("qasr.optimizer"):
+                clip_and_update(state, grads, gnorm)
+            state.gather_params()
+            if data_group is not None:
+                dist.all_reduce(loss, group=data_group)
+            frames = int(np.sum(np.asarray(batch["feature_lengths"])))
+            return {"loss": loss, "grad_norm": gnorm.detach(),
+                    "frames": torch.tensor(frames, device=device)}
 
     return train_step
 

@@ -3,7 +3,9 @@ the greedy and the beam eval steps (counterpart of ``qasr/train/step.py``).
 
 PyTorch runs eagerly, so a step is a sequence of kernel launches on the
 current stream; nothing here synchronises with the device except reading a
-metric back.
+metric back. Under a profiler each phase is a span
+(``qasr_torch.utils.profiling.SPANS``): ``qasr.train_step``, ``qasr.h2d``,
+``qasr.forward``, ``qasr.ctc``, ``qasr.backward``, ``qasr.optimizer``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from qasr_torch.configs import Config
 from qasr_torch.decode.beam import ctc_beam_search_decode
 from qasr_torch.ops.ctc import ctc_greedy_decode, ctc_loss
 from qasr_torch.train.state import TrainState
+from qasr_torch.utils.profiling import span, traced
 
 
 _BATCH_DTYPES = {
@@ -29,11 +32,12 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     """A batch of numpy arrays (``qasr_torch.data.batching.make_batch``) or
     tensors, as tensors on ``device``: f32 features, int64 lengths and
     labels, bool ``real_rows`` (when present)."""
-    return {
-        k: torch.as_tensor(v).to(device, dtype, non_blocking=True)
-        for k, dtype in _BATCH_DTYPES.items()
-        if (v := batch.get(k)) is not None
-    }
+    with span("qasr.h2d"):
+        return {
+            k: torch.as_tensor(v).to(device, dtype, non_blocking=True)
+            for k, dtype in _BATCH_DTYPES.items()
+            if (v := batch.get(k)) is not None
+        }
 
 
 def loss_fn(cfg: Config, logits: torch.Tensor, batch: dict,
@@ -43,7 +47,12 @@ def loss_fn(cfg: Config, logits: torch.Tensor, batch: dict,
     ``real_rows`` False (remainder-batch pads) count in neither. A
     data-parallel rank passes ``tokens``, the global batch's real label
     tokens (an int64 tensor), for the denominator: its share of the global
-    loss."""
+    loss. Its forward and backward are the ``qasr.ctc`` span."""
+    return traced("qasr.ctc", _loss, cfg, logits, batch, tokens)
+
+
+def _loss(cfg: Config, logits: torch.Tensor, batch: dict,
+          tokens: torch.Tensor | None) -> torch.Tensor:
     losses = ctc_loss(
         logits, batch["labels"], batch["feature_lengths"], batch["label_lengths"],
         blank_id=cfg.decode.blank_id,
@@ -67,10 +76,11 @@ def apply_gradients(state: TrainState) -> torch.Tensor:
     """optax's ``chain(clip_by_global_norm, adamw)`` on the gradients held in
     the params' ``.grad``, at the learning rate of the step count before the
     update; advances ``state.step``. Returns the global norm before clipping."""
-    grads = [p.grad for p in state.model.parameters()]
-    gnorm = global_norm(grads)
-    clip_and_update(state, grads, gnorm)
-    return gnorm
+    with span("qasr.optimizer"):
+        grads = [p.grad for p in state.model.parameters()]
+        gnorm = global_norm(grads)
+        clip_and_update(state, grads, gnorm)
+        return gnorm
 
 
 def clip_and_update(state: TrainState, grads: list, gnorm: torch.Tensor) -> None:
@@ -101,12 +111,14 @@ def forward_backward(state: TrainState, batch: dict, *, plain: bool = False,
     gradients for less memory. Returns the loss, detached."""
     model = state.model
     model.train()
-    logits = model(batch["features"], lengths=batch["feature_lengths"], plain=plain,
-                   generator=state.generator, global_rows=global_rows,
-                   remat=state.cfg.train.remat_convs)
+    with span("qasr.forward"):
+        logits = model(batch["features"], lengths=batch["feature_lengths"], plain=plain,
+                       generator=state.generator, global_rows=global_rows,
+                       remat=state.cfg.train.remat_convs)
     loss = loss_fn(state.cfg, logits, batch, tokens=tokens)
-    model.zero_grad(set_to_none=True)
-    loss.backward()
+    with span("qasr.backward"):
+        model.zero_grad(set_to_none=True)
+        loss.backward()
     return loss.detach()
 
 
@@ -117,10 +129,12 @@ def train_step(state: TrainState, batch: dict, *, plain: bool = False) -> dict:
     ``frames``. ``plain=True`` runs every kernel's plain version (the card's
     reference path).
     """
-    batch = batch_to_device(batch, next(state.model.parameters()).device)
-    loss = forward_backward(state, batch, plain=plain)
-    gnorm = apply_gradients(state)
-    return {"loss": loss, "grad_norm": gnorm.detach(), "frames": batch["feature_lengths"].sum()}
+    with span("qasr.train_step"):
+        batch = batch_to_device(batch, next(state.model.parameters()).device)
+        loss = forward_backward(state, batch, plain=plain)
+        gnorm = apply_gradients(state)
+        return {"loss": loss, "grad_norm": gnorm.detach(),
+                "frames": batch["feature_lengths"].sum()}
 
 
 def _eval_forward(model: torch.nn.Module, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -131,7 +145,8 @@ def _eval_forward(model: torch.nn.Module, batch: dict) -> tuple[torch.Tensor, di
     was_training = model.training
     model.eval()
     try:
-        logits = model(batch["features"], lengths=batch["feature_lengths"])
+        with span("qasr.forward"):
+            logits = model(batch["features"], lengths=batch["feature_lengths"])
     finally:
         model.train(was_training)
     return logits, batch

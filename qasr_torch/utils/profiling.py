@@ -2,6 +2,10 @@
 ``qasr/utils/profiling.py``).
 
 * :func:`trace` wraps ``torch.profiler`` and writes a Chrome trace;
+* :func:`span` and :func:`traced` open the port's own ranges (:data:`SPANS`)
+  on the profiler's clock, at each layer of the train step and the serving
+  path, forward and backward; with no profiler recording they cost one flag
+  check;
 * :func:`steady_state_time` is the timing harness: the difference quotient
   of two chained run lengths, which cancels the fixed cost of starting and
   ending a run (here: the host's launch ramp and the final synchronise);
@@ -22,6 +26,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch._C._profiler import _RecordFunctionFast
 
 
 @dataclass(frozen=True)
@@ -68,6 +73,88 @@ def trace(log_dir: str, *, force: bool = False):
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+#: every range the port opens. Readers match a range by ``name in
+#: event.name``, so no name is a part of another.
+SPANS = (
+    "qasr.train_step",   # train/step.py:train_step and the sharded step
+    "qasr.h2d",          # batch_to_device: the batch's host-to-device copies
+    "qasr.forward",      # the model's call: train, eval and serving
+    "qasr.backward",     # zero_grad and loss.backward()
+    "qasr.optimizer",    # global norm, clip and AdamW (sharded: clip and AdamW)
+    "qasr.ctc",          # loss_fn and its backward
+    "qasr.qconv",        # a stacked layer's chain_layer and its backward
+    "qasr.bilstm",       # QBiLSTM: projection, glue, recurrence; and its backward
+    "qasr.qlstm_scan",   # QLstmScanFn: kernels D and E, the dW einsums
+    "qasr.dense",        # the encoders' dense layers and output; and its backward
+    "qasr.transcribe",   # Transcriber.transcribe_batch
+    "qasr.frontend",     # Transcriber.logits: featurization and padding
+    "qasr.decode",       # Transcriber.decode
+)
+
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named ``name`` (one of :data:`SPANS`) while a
+    profiler records, on the clock of the device activity it covers;
+    otherwise a shared null context, after one flag check. The range is
+    PyTorch's C++ ``RecordFunctionFast``, which costs the host about a tenth
+    of what ``torch.profiler.record_function`` does."""
+    if torch.autograd._profiler_enabled():
+        return _RecordFunctionFast(name)
+    return _NULL
+
+
+class _Bracket:
+    """A layer's backward range: :meth:`open` is a pre-hook on the node that
+    receives the output's gradient, :meth:`close` a hook on the input's
+    gradient. The engine runs a node's tensor hooks before its pre-hooks, so
+    where one layer's input is the next one's output, the later layer's
+    range closes before the earlier one's opens."""
+
+    __slots__ = ("name", "rf")
+
+    def __init__(self, name: str):
+        self.name, self.rf = name, None
+
+    def open(self, _grads) -> None:
+        if self.rf is None:
+            self.rf = _RecordFunctionFast(self.name)
+            self.rf.__enter__()
+
+    def close(self, _grad) -> None:
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+            self.rf = None
+
+
+def traced(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under :func:`span` ``(name)``, its backward
+    under a range of the same name.
+
+    While a profiler records, with grad enabled and a tensor argument that
+    requires grad (the first such is the layer's input), two hooks bracket
+    the layer's backward: one on the outputs' nodes opens the range when
+    their gradients arrive, one on the input closes it when the input's
+    gradient is done. The layer's parameters come out of the same nodes as
+    its input's gradient. Hooks add no autograd node and change no value:
+    the gradients are the same bits with or without a profiler. ``fn``
+    returns a tensor or a tuple of tensors (and non-tensors)."""
+    if not torch.autograd._profiler_enabled():
+        return fn(*args, **kwargs)
+    with _RecordFunctionFast(name):
+        out = fn(*args, **kwargs)
+    x = next((a for a in args if isinstance(a, torch.Tensor) and a.requires_grad), None)
+    if x is None or not torch.is_grad_enabled():
+        return out
+    bracket = _Bracket(name)
+    x.register_hook(bracket.close)
+    for o in (out,) if isinstance(out, torch.Tensor) else out:
+        if isinstance(o, torch.Tensor) and o.grad_fn is not None:
+            o.grad_fn.register_prehook(bracket.open)
+    return out
 
 
 def steady_state_times(runs: dict, *, n_small=5, n_big=25, repeats=3) -> dict:
