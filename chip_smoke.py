@@ -29,7 +29,9 @@ few):
               against the plain path's, gated
   5. timing   encoder forward and train step at B16 x T256, and each kernel
               at its path shape, against its plain version and one library
-              call (CUDA events; not gated)
+              call (CUDA events; not gated); kernel K (the stacked conv's dW
+              operands and db) with and without the PReLU, its combos bit
+              for bit and its db against its plain version's (gated)
   6. train    gradient parity of one train step, kernel path against plain
               path (bf16 and f32); launches per step; twenty steps on one
               batch lower the loss; one ``train()`` call with an eval and a
@@ -228,6 +230,11 @@ TOL_LOSS_F32 = 1e-4
 # largest of 254k elements ~4.5x that. The loss (~300 nats) errs by ~1e-6.
 TOL_CTC_GRAD = {"rel_norm": 1e-3, "max_rel": 5e-3}
 TOL_CTC_LOSS = {"rel_norm": 1e-5, "max_rel": 1e-5}
+# Kernel K's db against its plain version's: both f32 sums of the same
+# B*F*T terms a channel in another order, each term's rounding at most
+# 2^-24 of the running sum, so the two part by a few 1e-7 of the sum of
+# the terms' magnitudes at the most; limit 1e-5 of it, a channel
+TOL_DB = 1e-5
 
 FRAME_S = 0.010  # 10 ms hop: one frame is 10 ms of audio
 # The training runs of the TIMIT models here (phases 6, 9 and 10; why the
@@ -388,6 +395,7 @@ def _h2d_copies(fn) -> list[str]:
 
 def _counters():
     from qasr_torch.ops.kernels.dgt import dgt
+    from qasr_torch.ops.kernels.qconv_dw_prep import qconv_dw_prep
     from qasr_torch.ops.kernels.qconv_dx import qconv_dx8, qconv_dx10
     from qasr_torch.ops.kernels.qconv_ft import qconv_ft8, qconv_ft10
     from qasr_torch.ops.kernels.qgemm import qgemm10, qgemm10_dw, qgemm10_dx
@@ -398,7 +406,7 @@ def _counters():
             "qconv_dx8": qconv_dx8, "qlstm_scan8": qlstm_scan_fast8,
             "qlstm_scan8_bwd": qlstm_scan_bwd, "qconv_ft10": qconv_ft10,
             "qconv_dx10": qconv_dx10, "qgemm10": qgemm10, "qgemm10_dx": qgemm10_dx,
-            "qgemm10_dw": qgemm10_dw, "dgt": dgt}
+            "qgemm10_dw": qgemm10_dw, "dgt": dgt, "qconv_dw_prep": qconv_dw_prep}
 
 
 def _want(**launches) -> dict:
@@ -1009,7 +1017,7 @@ def phase8_qlstm_train(dev: torch.device, smi: str) -> dict:
     losses = [train_step(state, batch)["loss"].item()]
     step_counts = _read_counts()
     want = _want(qconv_ft8=3, qconv_dx8=3, qgemm8=n_b, qgemm8_dx=n_b, qlstm_scan8=3,
-                 qlstm_scan8_bwd=3)
+                 qlstm_scan8_bwd=3, qconv_dw_prep=3)
     if step_counts != want or n_b != 1:
         raise RuntimeError(f"config 4 launches in one train step {step_counts}, expected {want}")
     for _ in range(19):
@@ -1031,7 +1039,8 @@ def phase8_qlstm_train(dev: torch.device, smi: str) -> dict:
     lcfg = tcfg.override(**{"train.num_steps": 4, "train.log_every": 2, "train.eval_every": 4,
                             "train.checkpoint_every": 4})
     last, train_counts, hyp, train_s = _train_and_serve(
-        lcfg, dev, "smoke_train_qlstm", wavs, {"qlstm_scan8_bwd": 3, "qconv_dx8": 3})
+        lcfg, dev, "smoke_train_qlstm", wavs,
+        {"qlstm_scan8_bwd": 3, "qconv_dx8": 3, "qconv_dw_prep": 3})
     print(f"phase 8 train(): librispeech_qlstm full width, {lcfg.train.num_steps} steps in "
           f"{train_s:.2f} s, last log {json.dumps({k: last[k] for k in sorted(last)})}; "
           f"launches {train_counts}; checkpoint served {len(hyp)} utterances "
@@ -1353,7 +1362,8 @@ def phase9_fast10(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: list) -
     _reset_counts()
     losses = [train_step(state, batch)["loss"].item()]
     step_counts = _read_counts()
-    want = _want(qconv_ft10=9, qconv_dx10=9, qgemm10=3, qgemm10_dx=3, qgemm10_dw=3)
+    want = _want(qconv_ft10=9, qconv_dx10=9, qgemm10=3, qgemm10_dx=3, qgemm10_dw=3,
+                 qconv_dw_prep=9)
     if step_counts != want:
         raise RuntimeError(f"10-product launches in one train step {step_counts}, expected {want}")
     for _ in range(19):
@@ -1384,7 +1394,8 @@ def phase9_fast10(dev: torch.device, smi: str, tcfg8, batch: dict, wavs: list) -
     train_counts = _read_counts()
     n_eval = train_counts["qconv_ft10"] // 9 - n_steps
     want = _want(qconv_ft10=9 * (n_steps + n_eval), qconv_dx10=9 * n_steps,
-                 qgemm10=3 * (n_steps + n_eval), qgemm10_dx=3 * n_steps, qgemm10_dw=3 * n_steps)
+                 qgemm10=3 * (n_steps + n_eval), qgemm10_dx=3 * n_steps, qgemm10_dw=3 * n_steps,
+                 qconv_dw_prep=9 * n_steps)
     if train_counts != want or n_eval < 1 or not math.isfinite(last["loss"]):
         raise RuntimeError(f"the CLI's train run: launches {train_counts}, expected {want} "
                            f"({n_eval} eval forwards); last log {last}")
@@ -1885,10 +1896,11 @@ def phase11_corpus(dev: torch.device, smi: str, tcfg8, batch: dict) -> None:
                            f"{written['dev']} utterances twice")
     n_eval = len(list(epoch_iterator(dev_pipe, cfg.data, train=False)))
     want = _want(qconv_ft8=9 * (8 + 2 * n_eval), qconv_dx8=9 * 8,
-                 qgemm8=3 * (8 + 2 * n_eval), qgemm8_dx=3 * 8)
+                 qgemm8=3 * (8 + 2 * n_eval), qgemm8_dx=3 * 8, qconv_dw_prep=9 * 8)
     if counts != want:
         raise RuntimeError(f"the corpus run's launches {counts}, expected {want} (9/9/3/3 a "
-                           f"step, 9/3 an eval forward, {n_eval} eval batches twice)")
+                           f"step and 9 of K, 9/3 an eval forward, {n_eval} eval batches "
+                           f"twice)")
     # resume: the same batches and data states, losses within 1e-3 relative
     if batches_s != batches_w or len(batches_w) != 8:
         raise RuntimeError("the resumed run trained on other batches than the uninterrupted one")
@@ -1959,7 +1971,7 @@ def phase11_corpus(dev: torch.device, smi: str, tcfg8, batch: dict) -> None:
     q_s = time.perf_counter() - t0
     qcounts = _read_counts()
     qwant = _want(qconv_ft8=3 * (4 + n_qeval), qconv_dx8=3 * 4, qlstm_scan8=3 * (4 + n_qeval),
-                  qlstm_scan8_bwd=3 * 4, qgemm8=4 + n_qeval, qgemm8_dx=4)
+                  qlstm_scan8_bwd=3 * 4, qgemm8=4 + n_qeval, qgemm8_dx=4, qconv_dw_prep=3 * 4)
     if qcounts != qwant or qstate.step != 4 or not math.isfinite(qlast["loss"]):
         raise RuntimeError(f"config 4's corpus run: launches {qcounts}, expected {qwant}; "
                            f"last {qlast}")
@@ -2200,7 +2212,7 @@ def phase12_protocol(dev: torch.device, smi: str) -> None:
     n_fwd = n_steps + (n_steps // pcfg.train.eval_every + 1) * n_batches["dev"] \
         + n_batches["core_test"]
     want = _want(qconv_ft8=9 * n_fwd, qconv_dx8=9 * n_steps, qgemm8=3 * n_fwd,
-                 qgemm8_dx=3 * n_steps)
+                 qgemm8_dx=3 * n_steps, qconv_dw_prep=9 * n_steps)
     evals = [(b, sp) for b, sp, _ in seen["evals"]]
     want_evals = [(False, "dev")] * (n_steps // pcfg.train.eval_every) + [(True, "dev"),
                                                                         (True, "core_test")]
@@ -2337,7 +2349,8 @@ def _arm_launches(proj: str | None, layers: int, rows: int, step: bool) -> dict:
     if proj is None:
         return {}
     n_b = 1 + (layers if input_proj_fn(proj, rows) is qdense_pallas8 else 0)
-    return dict(qconv_ft8=3, qgemm8=n_b, **(dict(qconv_dx8=3, qgemm8_dx=n_b) if step else {}))
+    return dict(qconv_ft8=3, qgemm8=n_b,
+                **(dict(qconv_dx8=3, qgemm8_dx=n_b, qconv_dw_prep=3) if step else {}))
 
 
 # the f32 plain paths of the block, fast8 and default arms on the same
@@ -2558,7 +2571,7 @@ def phase13_qlstm_arms(dev: torch.device, smi: str) -> None:
             last, _, hyp, train_s = _train_and_serve(
                 lcfg, dev, f"smoke_qlstm_{arm}",
                 wavs, {k: v for k, v in _arm_launches(proj, 1, B * T // 4, True).items()
-                       if "dx" in k})
+                       if "dx" in k or k == "qconv_dw_prep"})
             how = "train()"
         print(f"phase 13 train {arm}: launches a step {({k: v for k, v in counts.items() if v})};"
               f" one LSTM layer, B{B}xT{T // 4}: loss over 20 steps on one batch {losses[0]:.4f} -> "
@@ -3020,7 +3033,7 @@ def phase14_parallel(dev: torch.device, smi: str) -> None:
                                      ("float32", TOL_LOSS_F32, TOL_GRAD_F32)):
         key = f"dp2 {dtype}"
         r_loss, r_norm, r_params = ref[dtype]
-        want = _want(qconv_ft8=9, qconv_dx8=9, qgemm8=3, qgemm8_dx=3)
+        want = _want(qconv_ft8=9, qconv_dx8=9, qgemm8=3, qgemm8_dx=3, qconv_dw_prep=9)
         for r in range(2):
             if res[r][key]["launches"] != want:
                 raise RuntimeError(f"phase 14 {key} rank {r}: launches in a step "
@@ -3047,8 +3060,10 @@ def phase14_parallel(dev: torch.device, smi: str) -> None:
     lt = [res[r]["tp2 large"] for r in range(2)]
     for r in range(2):
         c = lt[r]["launches"]
-        if not (c["qconv_ft8"] and c["qconv_dx8"] and c["qgemm8"] and c["qgemm8_dx"]):
-            raise RuntimeError(f"phase 14 tp2 large rank {r}: kernels A, C, B not all launched {c}")
+        if not (c["qconv_ft8"] and c["qconv_dx8"] and c["qgemm8"] and c["qgemm8_dx"]
+                and c["qconv_dw_prep"]):
+            raise RuntimeError(f"phase 14 tp2 large rank {r}: kernels A, C, B, K not all "
+                               f"launched {c}")
         if lt[r]["persistent"] != want_tp:
             raise RuntimeError(f"phase 14 tp2 large rank {r}: persistent state "
                                f"{lt[r]['persistent']} bytes, expected {want_tp}")
@@ -3077,7 +3092,7 @@ def phase14_parallel(dev: torch.device, smi: str) -> None:
 
     hc = [res[r]["halo conv"] for r in range(2)]
     for r in range(2):
-        if hc[r]["launches"] != _want(qconv_ft8=1, qconv_dx8=1):
+        if hc[r]["launches"] != _want(qconv_ft8=1, qconv_dx8=1, qconv_dw_prep=1):
             raise RuntimeError(f"phase 14 halo conv rank {r}: launches {hc[r]['launches']}")
     bits = {k: bool(torch.equal(got["halo conv"][k], conv_ref[k])) for k in ("y", "dx", "dw")}
     herr = {k: _errors(got["halo conv"][k], conv_ref[k]) for k in ("y", "dx", "dw")}
@@ -3218,8 +3233,8 @@ def _p15_remat(dev: torch.device, smi: str, large) -> int:
                       "peak": torch.cuda.max_memory_allocated(dev) - held}
         del st
         torch.cuda.empty_cache()
-    want = {False: _want(qconv_ft8=9, qconv_dx8=9, qgemm8=3, qgemm8_dx=3),
-            True: _want(qconv_ft8=18, qconv_dx8=9, qgemm8=3, qgemm8_dx=3)}
+    want = {False: _want(qconv_ft8=9, qconv_dx8=9, qgemm8=3, qgemm8_dx=3, qconv_dw_prep=9),
+            True: _want(qconv_ft8=18, qconv_dx8=9, qgemm8=3, qgemm8_dx=3, qconv_dw_prep=9)}
     for remat in (False, True):
         if res[remat]["counts"] != want[remat]:
             raise RuntimeError(f"phase 15 remat={remat}: launches {res[remat]['counts']}, "
@@ -3331,8 +3346,8 @@ def _p15_run(dev: torch.device, smi: str, large) -> str:
         raise RuntimeError(f"phase 15 config 5: dev CER {evals[best]} at the best step {best} "
                            f"exceeds {P15_CER_MAX} ({evals})")
     if not (counts["qconv_ft8"] and counts["qconv_dx8"] and counts["qgemm8"]
-            and counts["qgemm8_dx"]):
-        raise RuntimeError(f"phase 15 config 5: kernels A, C, B not all launched: {counts}")
+            and counts["qgemm8_dx"] and counts["qconv_dw_prep"]):
+        raise RuntimeError(f"phase 15 config 5: kernels A, C, B, K not all launched: {counts}")
     t1 = time.perf_counter()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -3781,6 +3796,57 @@ def time_kernels(tree: str) -> int:
     return 0
 
 
+def phase5_kernel_k(xa: torch.Tensor, dza: torch.Tensor, alpha: torch.Tensor,
+                    smi: str) -> dict:
+    """Kernel K at phase 5's layer (``xa``, ``dza``: B16 F13 T256 256->256
+    bf16) in ``fast8``, with the previous layer's PReLU of ``alpha`` and
+    without: the input and output combos bit for bit against its plain
+    version's and db within ``TOL_DB`` (gated); K and its plain version in
+    turns (CUDA events). Returns the ``kernels`` entry of the PReLU case
+    with its launches left to fill; its bound is the bytes: x, dz and the slopes read
+    once, the 2P combos and db written."""
+    from qasr_torch.ops.kernels.qconv_dw_prep import qconv_dw_prep, qconv_dw_prep_plain
+    from qasr_torch.ops.kernels.qconv_ft import SCHEME8
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    scale = dza.float().abs().sum(dim=(0, 2, 3)).reshape(-1)
+    rows = {}
+    for what, a in (("with the PReLU", alpha), ("without the PReLU", None)):
+        got = qconv_dw_prep(xa, dza, a, scheme=SCHEME8)
+        want = qconv_dw_prep_plain(xa, dza, a, scheme=SCHEME8)
+        for part, g, w in zip(("input combos", "output combos"), got[:2], want[:2]):
+            if g.shape != w.shape or not torch.equal(bits(g), bits(w)):
+                raise RuntimeError(f"kernel K {what}: its {part} are not its plain version's "
+                                   f"bits")
+        err = _errors(got[2], want[2])
+        worst = ((got[2] - want[2]).abs() / scale).max().item()
+        if not worst <= TOL_DB:
+            raise RuntimeError(f"kernel K {what}: db off its plain version's by {worst:.3e} "
+                               f"of a channel's sum of magnitudes (limit {TOL_DB:.0e})")
+        ms = _alternating(lambda a=a: qconv_dw_prep(xa, dza, a, scheme=SCHEME8),
+                          lambda a=a: qconv_dw_prep_plain(xa, dza, a, scheme=SCHEME8), 20, 5)
+        rows[what] = (ms, err, worst)
+    n_prods = SCHEME8.n_prods
+    nbytes = (_nbytes(xa, dza, alpha) + n_prods * (xa.numel() + dza.numel()) // 4
+              * xa.element_size() + 4 * dza.shape[-1] * 4)
+    bound = _bound(0.0, nbytes)
+    (k_ms, p_ms), err, _ = rows["with the PReLU"]
+    b, _, nf, t, cin = xa.shape
+    print(f"phase 5 kernel K on {smi}: B{b} F{nf} T{t} {cin}->{dza.shape[-1]} {xa.dtype} fast8, "
+          f"bound {bound[0]:.4f} ms ({nbytes / 1e9:.3f} GB); " + "; ".join(
+              f"{what} kernel {ms[0]:.4f} ms plain {ms[1]:.4f} ms ({ms[0] / bound[0]:.2f}x the "
+              f"bound), combos bit-equal, db max_abs {e['max_abs_err']:.3e} ({w:.2e} of the "
+              f"sum of magnitudes, limit {TOL_DB:.0e})" for what, (ms, e, w) in rows.items()),
+          flush=True)
+    return {"name": "qconv_dw_prep", "route": "cuda", "source": "qasr_torch/csrc/qconv_dw_prep.cu",
+            "replaces": "qasr/ops/pallas/qconv_ft.py:490 (_ft_dw_impl's operands, left to XLA)",
+            "launches": None, "max_abs_err": max(e["max_abs_err"] for _, e, _ in rows.values()),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -4017,7 +4083,9 @@ def main() -> int:
         bound_c = _bound(fl_a, 3 * _nbytes(dza) + 8 * 9 * 256 * 256 * 2 + 2 * _nbytes(sa))
         # kernel C without its epilogue (the first stacked layer's dx)
         c0_k, c0_p = _alternating(lambda: qconv_dx8(dza, wa), lambda: qconv_dx_plain(dza, wa), 10)
-        # the layer's dW (plain PyTorch: eight cuDNN weight-gradient convs)
+        # kernel K alone (gated against its plain version), then the layer's
+        # dW and db whole: K, eight cuDNN weight-gradient convs, the U fold
+        k_entry = phase5_kernel_k(xa, dza, sa, smi)
         dw_ms = _time_ms(lambda: qconv_dw(xa, dza, (3, 3)), 5)
         # kernel B, forward and dx role, and their library calls: one matmul
         # on the Hamilton-expanded weight
@@ -4066,7 +4134,7 @@ def main() -> int:
           f"{lib_a:.3f} ms bound {bound_a[0]:.3f} ms; qconv_dx8 same shape kernel "
           f"{tk['qconv_dx8'][0]:.3f} ms plain {tk['qconv_dx8'][1]:.3f} ms library "
           f"{lib_c:.3f} ms bound {bound_c[0]:.3f} ms; qconv_dx8 without epilogue kernel "
-          f"{c0_k:.3f} ms plain {c0_p:.3f} ms; conv dW (cuDNN) {dw_ms:.3f} ms; "
+          f"{c0_k:.3f} ms plain {c0_p:.3f} ms; qconv_dw (K + cuDNN wgrad) {dw_ms:.3f} ms; "
           f"qgemm8 M4096 K3328 N256 kernel "
           f"{tk['qgemm8'][0]:.3f} ms plain {tk['qgemm8'][1]:.3f} ms library {lib_b:.3f} ms "
           f"bound {bound_b[0]:.3f} ms; qgemm8_dx M4096 N256 -> K3328 kernel "
@@ -4084,7 +4152,7 @@ def main() -> int:
     _reset_counts()
     losses = [train_step(state, batch)["loss"].item()]
     step_counts = _read_counts()
-    want = _want(qconv_ft8=9, qconv_dx8=9, qgemm8=3, qgemm8_dx=3)
+    want = _want(qconv_ft8=9, qconv_dx8=9, qgemm8=3, qgemm8_dx=3, qconv_dw_prep=9)
     if step_counts != want:
         raise RuntimeError(f"launches in one train step {step_counts}, expected {want}")
     for _ in range(19):
@@ -4112,7 +4180,7 @@ def main() -> int:
     lcfg = tcfg.override(**{"train.num_steps": 4, "train.log_every": 2,
                             "train.eval_every": 4, "train.checkpoint_every": 4})
     last, train_counts, hyp, train_s = _train_and_serve(
-        lcfg, dev, "smoke_train", wavs, {"qconv_dx8": 9, "qgemm8_dx": 3})
+        lcfg, dev, "smoke_train", wavs, {"qconv_dx8": 9, "qgemm8_dx": 3, "qconv_dw_prep": 9})
     print(f"phase 6 train(): {lcfg.model.conv_features[0]}-wide qcnn, {lcfg.train.num_steps} "
           f"steps in {train_s:.2f} s, last log {json.dumps({k: last[k] for k in sorted(last)})}; "
           f"launches {train_counts}; checkpoint served {len(hyp)} utterances "
@@ -4165,6 +4233,7 @@ def main() -> int:
               bound_b, lib_b),
         entry("qgemm8_dx", "qasr_torch/csrc/qgemm8.cu",
               "qasr/ops/pallas/qgemm8.py:84 (in_kind=dx)", bound_bdx, lib_bdx),
+        {**k_entry, "launches": train_counts["qconv_dw_prep"]},
         scan_entry,
         scan_bwd_entry,
         *fast10_entries,

@@ -59,6 +59,10 @@ _ENTRIES = {
     "qasr_qlstm_scan8_bwd": [_P] * 10 + [_I] * 5 + [_P] * 3,
     # x, y, part, out, M, K, N, splits, rows, dtype, stream
     "qasr_dgt": [_P] * 4 + [_I] * 6 + [_P],
+    # x, alpha, dz, xc, dzc, part, db, B, F, T, Cin, Cout, P, dtype, v, o, stream
+    "qasr_qconv_dw_prep": [_P] * 7 + [_I] * 7 + [_P] * 3,
+    # B, F, T
+    "qasr_qconv_dw_prep_blocks": [_I] * 3,
 }
 
 

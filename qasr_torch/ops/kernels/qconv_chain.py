@@ -13,62 +13,67 @@ layout ``[B, 4, F, T, C]`` and has no entry/exit pad.
 
 On a CUDA tensor :class:`ChainLayerFn` runs kernel A (``fast8``) or F
 (``fast10``) forward and kernel C or G backward (dx and the PReLU's dalpha
-in one call); dW is plain PyTorch, as the JAX package left it to XLA
-(``_ft_dw_impl``), and db is a sum.
+in one call). dW is P correlations on cuDNN's wgrad, as the JAX package
+left them to XLA (``_ft_dw_impl``); kernel K makes everything they read
+(the PReLU, the input and output combos) and db in one pass.
 """
 
 from __future__ import annotations
 
 import torch
 
+from qasr_torch.ops.kernels.qconv_dw_prep import qconv_dw_prep
 from qasr_torch.ops.kernels.qconv_dx import qconv_dx8, qconv_dx10
-from qasr_torch.ops.kernels.qconv_ft import (
-    SCHEMES,
-    _combo,
-    _prelu_stacked,
-    qconv_ft8,
-    qconv_ft10,
-    qconv_stacked_plain,
-)
+from qasr_torch.ops.kernels.qconv_ft import SCHEMES, qconv_ft8, qconv_ft10, qconv_stacked_plain
 from qasr_torch.ops.quaternion import device_table
+from qasr_torch.utils.profiling import span
 
 # per scheme: the forward kernel's and the transposed kernel's wrappers
 _KERNELS = {"fast8": (qconv_ft8, qconv_dx8), "fast10": (qconv_ft10, qconv_dx10)}
 
 
-def qconv_dw(x_st: torch.Tensor, dz: torch.Tensor, kernel_size, scheme: str = "fast8") -> torch.Tensor:
-    """dW of the stacked conv in ``scheme`` (after ``qconv_ft.py:_ft_dw_impl``):
-    the transpose of :func:`~qasr_torch.ops.kernels.qconv_ft.qconv_stacked_plain`
-    in w.
+def qconv_dw(
+    x: torch.Tensor,
+    dz: torch.Tensor,
+    kernel_size,
+    scheme: str = "fast8",
+    alpha: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """dW and db of the stacked conv ``z = bias + qconv(prelu_alpha(x))`` in
+    ``scheme`` (after ``qconv_ft.py:_ft_dw_impl``): the transpose of
+    :func:`~qasr_torch.ops.kernels.qconv_ft.qconv_stacked_plain` in w, and
+    the sum of dz.
 
-    ``x_st [B,4,F,T,Cin]`` (the conv's input, after any PReLU) and ``dz
-    [B,4,F,T,Cout]`` in the compute dtype. Per product p, one correlation
-    ``conv2d_weight`` of the input combo ``V[p] . x`` with the output combo
-    ``O[:, p] . dz``; the U fold takes the P results back to
-    ``[4, kh, kw, Cin, Cout]`` in f32.
+    ``x [B,4,F,T,Cin]`` (the conv's input before the PReLU of ``alpha
+    [4*Cin]``, or after it when ``alpha`` is None) and ``dz [B,4,F,T,Cout]``
+    in the compute dtype. The input combos ``V[p] . prelu(x)``, the output
+    combos ``O[:, p] . dz`` and db come from kernel K on CUDA tensors (it
+    raises on what it cannot take), from its plain version on the CPU; per
+    product p one correlation ``conv2d_weight``; the U fold takes the P
+    results back to ``[4, kh, kw, Cin, Cout]`` in f32. db is ``[4*Cout]``
+    f32.
     """
     sc = SCHEMES[scheme]
     kh, kw = kernel_size
-    cin, cout = x_st.shape[-1], dz.shape[-1]
-    o = device_table(sc.o_mat, torch.float32, dz.device)
-    dzc = torch.einsum("bqftn,qp->pbftn", dz.float(), o).to(dz.dtype)
+    cin, cout = x.shape[-1], dz.shape[-1]
+    xc, dzc, db = qconv_dw_prep(x, dz, alpha, scheme=sc)
     pad = ((kw - 1) // 2, (kh - 1) // 2)
     dwc = []
-    for p, terms in enumerate(sc.fwd_in):
-        xc = _combo(x_st, terms)  # [B, F, T, Cin]
+    for p in range(sc.n_prods):
         g = torch.nn.grad.conv2d_weight(
-            xc.permute(0, 3, 1, 2), (cout, cin, kw, kh), dzc[p].permute(0, 3, 1, 2),
+            xc[p].permute(0, 3, 1, 2), (cout, cin, kw, kh), dzc[p].permute(0, 3, 1, 2),
             padding=pad,
         )  # [Cout, Cin, kw (F), kh (T)]
         dwc.append(g.float().permute(3, 2, 1, 0))  # [kh, kw, Cin, Cout]
     u = device_table(sc.u, torch.float32, dz.device)
-    return torch.einsum("pa,phwkn->ahwkn", u, torch.stack(dwc))
+    return torch.einsum("pa,phwkn->ahwkn", u, torch.stack(dwc)), db
 
 
 class ChainLayerFn(torch.autograd.Function):
     """``z = bias + qconv(prelu_alpha(x))`` in ``scheme``: kernel A or F
-    forward; backward kernel C or G for dx and dalpha, :func:`qconv_dw` for
-    dW, a sum for db.
+    forward; backward kernel C or G for dx and dalpha, :func:`qconv_dw`
+    (kernel K and cuDNN's wgrad) for dW and db, under the span
+    ``qasr.conv_dw``.
 
     ``x [B,4,F,T,Cin]`` in the compute dtype (the previous layer's
     pre-activation, or the chain's activated input when ``alpha`` is None);
@@ -95,9 +100,9 @@ class ChainLayerFn(torch.autograd.Function):
             dx, dalpha = _KERNELS[ctx.scheme][1](dz, w, None if alpha is None else x, alpha)
             if alpha is not None:
                 dalpha = dalpha.to(alpha.dtype)
-        x_act = x if alpha is None else _prelu_stacked(x, alpha)
-        dw = qconv_dw(x_act, dz, w.shape[1:3], ctx.scheme).to(w_dtype)
-        db = dz.float().sum(dim=(0, 2, 3)).reshape(-1).to(b_dtype)
+        with span("qasr.conv_dw"):
+            dw, db = qconv_dw(x, dz, w.shape[1:3], ctx.scheme, alpha)
+            dw, db = dw.to(w_dtype), db.to(b_dtype)
         return dx, dw, db, dalpha, None
 
 

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from qasr_torch.ops.kernels import qconv_chain, qconv_dx, qconv_ft, qgemm, qgemm8, qlstm_scan
+from qasr_torch.ops.kernels import qconv_dw_prep as kprep
 
 
 def _rand(rng, *shape, scale=1.0):
@@ -705,6 +706,141 @@ def test_beam_on_card_matches_cpu_and_host_beam(cuda_device, prune):
         assert torch.equal(got[1].cpu(), ref[1].to(torch.int32))
         assert torch.equal(got[0].cpu(), ref[0].to(torch.int32))
         torch.testing.assert_close(got[2].cpu(), ref[2].float(), rtol=1e-3, atol=1e-3)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+# (B, F, T, Cin, Cout): QCNN-256's layer at T384 (small B); config 4's three
+# chain layers at a T whose B*F*T is no multiple of K's 64-row block
+_PREP_SHAPES = [(2, 13, 384, 256, 256), (2, 13, 70, 64, 64), (1, 13, 131, 64, 128),
+                (2, 13, 70, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme", ["fast8", "fast10"])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("shape", _PREP_SHAPES)
+def test_qconv_dw_prep_kernel_matches_plain_on_card(cuda_device, dtype, scheme, prologue, shape):
+    """Kernel K against its plain version on values spread over twelve
+    binades and signed slopes: the input and output combos the same bits,
+    db an f32 sum of B*F*T terms in another order (within 1e-5 of the sum
+    of their magnitudes); one launch a call; two calls the same bits."""
+    b, nf, t, cin, cout = shape
+    rng = np.random.default_rng(40 + cin + cout + t)
+    x = _rand(rng, b, 4, nf, t, cin) * 2.0 ** rng.integers(-6, 6, (b, 4, nf, t, cin))
+    dz = _rand(rng, b, 4, nf, t, cout) * 2.0 ** rng.integers(-6, 6, (b, 4, nf, t, cout))
+    x = _t(x.astype(np.float32)).to(cuda_device, dtype)
+    dz = _t(dz.astype(np.float32)).to(cuda_device, dtype)
+    alpha = _t(_rand(rng, 4 * cin, scale=0.5)).to(cuda_device) if prologue else None
+    sc = qconv_ft.SCHEMES[scheme]
+    before = kprep.qconv_dw_prep.launches
+    got = kprep.qconv_dw_prep(x, dz, alpha, scheme=sc)
+    again = kprep.qconv_dw_prep(x, dz, alpha, scheme=sc)
+    torch.cuda.synchronize()
+    assert kprep.qconv_dw_prep.launches == before + 2
+    xc, dzc, db = got
+    want_xc, want_dzc, want_db = kprep.qconv_dw_prep_plain(x, dz, alpha, scheme=sc)
+    assert xc.shape == want_xc.shape and dzc.shape == want_dzc.shape
+    assert torch.equal(_bits(xc), _bits(want_xc)), "input combos"
+    assert torch.equal(_bits(dzc), _bits(want_dzc)), "output combos"
+    scale = dz.float().abs().sum(dim=(0, 2, 3)).reshape(-1)
+    assert db.dtype == torch.float32
+    assert ((db - want_db).abs() <= 1e-5 * scale).all()
+    for g, a in zip(got, again):
+        assert torch.equal(_bits(g), _bits(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scheme", ["fast8", "fast10"])
+@pytest.mark.parametrize("kernel", [(3, 3), (3, 5)])
+def test_qconv_dw_on_kernel_k_matches_plain_prep_on_card(cuda_device, monkeypatch, dtype,
+                                                         scheme, kernel):
+    """:func:`qconv_dw` launches K once and gives the dW and db of its
+    plain version's inputs (the same combos to cuDNN's wgrad, laid out
+    contiguous per product)."""
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    rng = np.random.default_rng(50 + kernel[1])
+    x = _t(_rand(rng, 2, 4, 13, 70, 64, scale=0.5)).to(cuda_device, dtype)
+    dz = _t(_rand(rng, 2, 4, 13, 70, 128)).to(cuda_device, dtype)
+    alpha = _t(_rand(rng, 256, scale=0.25)).to(cuda_device)
+    before = kprep.qconv_dw_prep.launches
+    dw, db = qconv_chain.qconv_dw(x, dz, kernel, scheme, alpha)
+    torch.cuda.synchronize()
+    assert kprep.qconv_dw_prep.launches == before + 1
+    monkeypatch.setattr(qconv_chain, "qconv_dw_prep", kprep.qconv_dw_prep_plain)
+    want_dw, want_db = qconv_chain.qconv_dw(x, dz, kernel, scheme, alpha)
+    assert kprep.qconv_dw_prep.launches == before + 1
+    assert dw.shape == (4, *kernel, 64, 128) and dw.dtype == torch.float32
+    scale = want_dw.abs().max().item()
+    torch.testing.assert_close(dw, want_dw, rtol=tol, atol=tol * scale)
+    torch.testing.assert_close(db, want_db, rtol=1e-5, atol=1e-5 * want_db.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_qconv_dw_prep_refuses_other_tables_on_card(cuda_device):
+    """K compiles both schemes in: a rank-8 table with one coefficient
+    changed, or P = 9, returns cudaErrorInvalidValue; the tables as
+    ``_TABLES`` holds them launch."""
+    from qasr_torch.ops.kernels import _build
+
+    lib = _build.load_library()
+    x = torch.ones(1, 4, 3, 8, 8, device=cuda_device, dtype=torch.bfloat16)
+    xc = torch.empty(8, 1, 3, 8, 8, device=cuda_device, dtype=torch.bfloat16)
+    part = torch.empty(lib.qasr_qconv_dw_prep_blocks(1, 3, 8), 32, device=cuda_device)
+    db = torch.empty(32, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    v, o = qconv_ft._TABLES["fast8"]
+    bad = v.copy()
+    bad[3, 2] = np.float32(0.5)
+
+    def call(vt, p):
+        return lib.qasr_qconv_dw_prep(x.data_ptr(), None, x.data_ptr(), xc.data_ptr(),
+                                      xc.data_ptr(), part.data_ptr(), db.data_ptr(),
+                                      1, 3, 8, 8, 8, p, 1,
+                                      vt.ctypes.data_as(ctypes.c_void_p),
+                                      o.ctypes.data_as(ctypes.c_void_p), stream)
+
+    assert call(np.ascontiguousarray(bad), 8) == 1
+    assert call(v, 9) == 1
+    assert call(v, 8) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(db, torch.full_like(db, 24.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op_variant", ["auto", "fusedchain"])
+def test_train_step_launches_k_once_a_stacked_layer_on_card(cuda_device, op_variant):
+    """One bf16 train step of a small QCNN: kernel K launches once for each
+    stacked layer, under one ``qasr.conv_dw`` range each (``fast8`` and the
+    10-product ``fusedchain``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qasr_torch.configs import get_config
+    from qasr_torch.data.synthetic import random_batch
+    from qasr_torch.train.state import create_train_state
+    from qasr_torch.train.step import train_step
+
+    cfg = get_config("timit_qcnn").override(**{
+        "model.conv_features": (8, 16, 16, 16), "model.dense_features": (16,),
+        "model.vocab": 12, "model.compute_dtype": "bfloat16", "model.op_variant": op_variant,
+        "data.n_mels": 8, "train.warmup_steps": 1})
+    state = create_train_state(cfg, device=cuda_device)
+    n_stacked = sum(state.model.stacked)
+    assert n_stacked == 3
+    batch = random_batch(4, 48, 8, 12, 5, seed=0)
+    train_step(state, batch)
+    before = kprep.qconv_dw_prep.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train_step(state, batch)
+        torch.cuda.synchronize()
+    assert kprep.qconv_dw_prep.launches - before == n_stacked
+    spans = [e for e in prof.events()
+             if e.name == "qasr.conv_dw" and e.device_type == torch.autograd.DeviceType.CPU]
+    assert len(spans) == n_stacked
 
 
 @pytest.mark.cuda

@@ -187,7 +187,9 @@ def test_qconv_dw_fast10_matches_xla_transpose():
     x = _rand(rng, 2, 4, 4, 13, 8, scale=0.5)
     dz = _rand(rng, 2, 4, 4, 13, 16)
     want = jft._ft_dw_impl(jnp.asarray(x), jnp.asarray(dz), (4, 3, 5, 8, 16), jnp.float32, jft.SCHEME10)
-    _close_rel(qconv_dw(_t(x), _t(dz), (3, 5), "fast10"), want, "dw")
+    dw, db = qconv_dw(_t(x), _t(dz), (3, 5), "fast10")
+    _close_rel(dw, want, "dw")
+    _close_rel(db, dz.sum(axis=(0, 2, 3)).reshape(-1), "db")
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,7 @@ READERS = {
     "dense_ms_per_audio_s.train": "qasr.dense",
     "ctc_ms_per_audio_s.train": "qasr.ctc",
     "optimizer_ms_per_audio_s.train": "qasr.optimizer",
+    "conv_dw_ms_per_audio_s.train": "qasr.conv_dw",
 }
 #: spans with a backward of their own
 LAYER_SPANS = ("qasr.ctc", "qasr.qconv", "qasr.dense", "qasr.bilstm", "qasr.qlstm_scan")
@@ -108,6 +109,32 @@ def test_span_names_unique_and_substring_free():
         assert a.startswith("qasr.")
         for b in spans:
             assert a == b or a not in b, (a, b)
+
+
+@pytest.mark.parametrize("scheme,prologue", [("fast8", True), ("fast8", False), ("fast10", True)])
+def test_chain_layer_fn_opens_conv_dw_once_per_backward(scheme, prologue):
+    """:class:`ChainLayerFn`'s backward computes dW and db under one
+    ``qasr.conv_dw`` range (a name of ``SPANS``, and not a part of
+    ``qasr.qconv``, inside whose backward range it runs in a model); its
+    forward opens none."""
+    assert "qasr.conv_dw" in profiling.SPANS
+    rng = np.random.default_rng(11)
+    args = [torch.from_numpy(a) for a in (
+        rng.standard_normal((2, 4, 3, 7, 8)).astype(np.float32),
+        (0.2 * rng.standard_normal((4, 3, 3, 8, 8))).astype(np.float32),
+        np.zeros(32, np.float32), (0.25 * rng.standard_normal(32)).astype(np.float32))]
+    ts = [a.requires_grad_() for a in args]
+    alpha = ts[3] if prologue else None
+    ChainLayerFn.apply(ts[0], ts[1], ts[2], alpha, scheme).sum().backward()
+    with profile(activities=[ProfilerActivity.CPU]) as fwd:
+        z = ChainLayerFn.apply(ts[0], ts[1], ts[2], alpha, scheme)
+    assert not [e for e in fwd.events() if e.name.startswith("qasr.")]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        z.sum().backward()
+    spans = [e for e in prof.events() if e.name == "qasr.conv_dw"]
+    nodes = [e for e in prof.events() if e.name == "ChainLayerFnBackward"]
+    assert len(spans) == len(nodes) == 1
+    assert _contains(nodes[0], spans[0])
 
 
 @pytest.mark.parametrize("name", sorted(READERS))
