@@ -36,8 +36,7 @@ def readings(workload: str, seed: int, mode: str, device: str = "cuda", shrink=N
     if shrink:
         conf, mix = shrink(conf, mix)
     ctx = harness.Context(conf=conf, mix=mix, seed=seed, device=device)
-    drv = harness.load_module(os.path.join(harness.BENCH_DIR, "loops", f"{mix['loop']}.py"),
-                              f"qbench_loop_{mix['loop']}").Loop(ctx)
+    drv = harness.load_loop(harness.BENCH_DIR, mix["loop"]).Loop(ctx)
     kind = mix["loop"]
     if mode == "control":
         drv.prepare()

@@ -11,14 +11,15 @@ and works out the numbers that decide ``correct``. Every metric is read by
 its own file, ``qbench/metrics/<metric>.py``, whose ``read(ctx)`` returns a
 number or None; ``RANGES`` and ``OPS`` in that file name the host ranges
 the traced run opens around the program's calls and the operators whose
-device time it reads. So a configuration, a mix, a cell or a metric is
-added with files and entries only.
+device time it reads. A loop states the length of its traced stretch,
+``PROFILE_ITEMS``, itself. So a configuration, a mix, a loop, a cell or a
+metric is added with files and entries only.
 
 A run: set-up (load, weights on the device from the seed, the first steps,
 every shape warmed), the window (``--seconds`` of steps or requests), with
-``--trace 1`` a profiled stretch of ``PROFILE_ITEMS`` more after it, the
-device's peak memory, the program's state freed, the check against the
-reference, and one JSON line last on standard output.
+``--trace 1`` a profiled stretch of the loop's ``PROFILE_ITEMS`` more after
+it, the device's peak memory, the program's state freed, the check against
+the reference, and one JSON line last on standard output.
 """
 
 from __future__ import annotations
@@ -37,14 +38,22 @@ BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
 #: top-level module names no run may load: the JAX package and JAX itself
 FORBIDDEN = ("jax", "jaxlib", "flax", "qasr", "bench", "benchmarks")
-#: the traced run's profiled stretch, in steps or requests, by loop
-PROFILE_ITEMS = {"train": 4, "serve": 12}
 
 
 def load_module(path: str, name: str):
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def load_loop(bench_dir: str, name: str):
+    """``loops/<name>.py``, which states its traced stretch."""
+    mod = load_module(os.path.join(bench_dir, "loops", f"{name}.py"), f"qbench_loop_{name}")
+    n = getattr(mod, "PROFILE_ITEMS", None)
+    if isinstance(n, bool) or not isinstance(n, int) or n < 1:
+        raise SystemExit(f"qbench: loops/{name}.py states no PROFILE_ITEMS (a positive whole "
+                         f"number: the steps or requests of the traced run's profiled stretch)")
     return mod
 
 
@@ -108,8 +117,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str,
         conf, mix = shrink(conf, mix)
     ctx = Context(conf=conf, mix=mix, seed=seed, device=device)
     ctx.shape = flops.ModelShape.from_config(conf["model"], conf["data"])
-    loop_mod = load_module(os.path.join(bench_dir, "loops", f"{mix['loop']}.py"),
-                           f"qbench_loop_{mix['loop']}")
+    loop_mod = load_loop(bench_dir, mix["loop"])
     metrics = cell_metrics(bench, workload, trace)
     readers = {m["name"]: load_module(os.path.join(bench_dir, "metrics", f"{m['name']}.py"),
                                       f"qbench_metric_{m['name'].replace('.', '_')}")
@@ -129,7 +137,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device: str,
     if trace:
         ranges = [r for mod in readers.values() for r in getattr(mod, "RANGES", ())]
         ops = [o for mod in readers.values() for o in getattr(mod, "OPS", ())]
-        ctx.profiled, ctx.trace = profile(drv, PROFILE_ITEMS[mix["loop"]], ranges, ops, device)
+        ctx.profiled, ctx.trace = profile(drv, loop_mod.PROFILE_ITEMS, ranges, ops, device)
 
     peak = torch.cuda.max_memory_allocated() if device.startswith("cuda") else 0
     attempted, failed = drv.outcome()

@@ -26,6 +26,8 @@ from qbench.traffic import utterances
 
 #: requests the check samples, besides the longest
 SAMPLED = 3
+#: the traced run's profiled stretch, in requests
+PROFILE_ITEMS = 12
 
 
 class Loop:

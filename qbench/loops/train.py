@@ -10,7 +10,10 @@ the first step's logits, read by a hook on the model's call, and its
 gradient as AdamW took it, the parameters after step three), then steps on
 until every batch shape has run twice. The window continues with the same
 state. The check re-runs the three steps in the plain reference from the
-same weights, batches and dropout draws."""
+same weights, batches and dropout draws, in blocks of rows where the
+configuration's optional ``"check": {"rows_per_block": n}`` asks for them
+(so that the reference's saved tensors fit beside a batch that fills the
+card); the program never sees that group."""
 
 from __future__ import annotations
 
@@ -24,6 +27,18 @@ from qbench.traffic import utterances
 
 #: steps the check compares
 COMPARED = 3
+#: the traced run's profiled stretch, in steps
+PROFILE_ITEMS = 4
+
+
+def rows_per_block(conf: dict) -> int | None:
+    """The configuration's ``check.rows_per_block``: the reference runs each
+    compared batch in blocks of that many rows (None: the whole batch in one
+    pass)."""
+    n = conf.get("check", {}).get("rows_per_block")
+    if n is not None and (isinstance(n, bool) or not isinstance(n, int) or n < 1):
+        raise ValueError(f"check.rows_per_block must be a positive integer, not {n!r}")
+    return n
 
 
 def program_config(conf: dict, seed: int):
@@ -42,6 +57,7 @@ def program_config(conf: dict, seed: int):
 class Loop:
     def __init__(self, ctx):
         self.ctx = ctx
+        self.rows_per_block = rows_per_block(ctx.conf)
         self.state = None
         self.i = 0
         self.losses = []
@@ -126,14 +142,15 @@ class Loop:
 
     def reference(self, prec: str = "f32") -> dict:
         """The reference's losses, first gradients and changes over the
-        compared steps, in ``prec``."""
+        compared steps, in ``prec``, in the configuration's blocks of rows."""
         ctx, dev = self.ctx, self.ctx.device
         wseed, dseed, _ = self._seeds()
         params = ref_model.make_params(ctx.conf["model"], ctx.conf["data"]["n_mels"], wseed, dev)
         gen = torch.Generator(device=dev).manual_seed(dseed)
         with exact_f32():
             ref = train_steps(params, ctx.conf["model"], ctx.conf["train"],
-                              self.pool[:COMPARED], gen, dev, prec=prec, remat=True)
+                              self.pool[:COMPARED], gen, dev, prec=prec,
+                              rows_per_block=self.rows_per_block, remat=True)
         return {"losses": ref["losses"], "grad_norms": checks.norms(ref["first_grads"]),
                 "change_norms": checks.norms(ref["change"]), "logits": ref["logits"],
                 "lengths": self.pool[0]["feature_lengths"], "params": params}

@@ -1,6 +1,6 @@
 """What a run may load, how it ends without a card or without the program,
-and that a cell, a mix and a metric are added with files and entries
-only."""
+and that a cell, a mix, a loop and a metric are added with files and
+entries only."""
 
 from __future__ import annotations
 
@@ -116,6 +116,58 @@ def test_a_cell_mix_and_metric_are_added_as_files(tmp_path):
     metrics = json.loads(r.stdout.strip().splitlines()[-1])
     assert metrics["steps_per_s"]["value"] > 0
     assert set(metrics) == {"steps_per_s", "train_audio_s_per_s", "setup_s"}
+
+
+def test_a_loop_is_added_as_a_file(tmp_path):
+    """In a copy: a loop that is ``train.py`` under a new name with its own
+    ``PROFILE_ITEMS``, a mix that names it, a per-layer metric that counts
+    the profiled steps, and a cell using them; the unchanged harness runs the
+    cell traced and profiles the loop's own stretch. A loop that states no
+    stretch stops at load, naming what it lacks."""
+    shutil.copytree(os.path.join(ROOT, "qbench"), tmp_path / "qbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    loops = tmp_path / "qbench" / "loops"
+    src = (loops / "train.py").read_text()
+    assert "\nPROFILE_ITEMS = 4\n" in src
+    (loops / "train_two.py").write_text(src.replace("\nPROFILE_ITEMS = 4\n",
+                                                    "\nPROFILE_ITEMS = 2\n"))
+    (loops / "train_bare.py").write_text(src.replace("\nPROFILE_ITEMS = 4\n", "\n"))
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    with open(tmp_path / "qbench" / "traffic" / "timit_train_b16.json") as f:
+        mix = json.load(f)
+    for loop in ("train_two", "train_bare"):
+        with open(tmp_path / "qbench" / "traffic" / f"timit_{loop}.json", "w") as f:
+            json.dump({**mix, "loop": loop}, f)
+        bench["workloads"].append({"name": f"timit_qcnn.{loop}", "config": "timit_qcnn",
+                                   "traffic": f"timit_{loop}", "chips": 1, "why": "test"})
+    (tmp_path / "qbench" / "metrics" / "profiled_steps.py").write_text(
+        'def read(ctx):\n    return None if ctx.profiled is None else len(ctx.profiled["items"])\n')
+    bench["per_layer"].append({"name": "profiled_steps", "unit": "steps", "better": "higher",
+                               "source": "program_counter", "layer": "train step",
+                               "moves": "train_audio_s_per_s",
+                               "workloads": ["timit_qcnn.train_two", "timit_qcnn.train_bare"]})
+    with open(tmp_path / "BENCHMARK.json", "w") as f:
+        json.dump(bench, f)
+    r = _python(f"""
+        import json, sys
+        sys.path[:0] = [{str(tmp_path)!r}, {HERE!r}, {ROOT!r}]
+        from qbench import harness
+        from tiny import shrink
+        assert harness.ROOT == {str(tmp_path)!r}
+        res = harness.run("timit_qcnn.train_two", 3, 0.3, True, device="cpu", t_start=0.0,
+                          shrink=shrink)
+        print(json.dumps(res["metrics"]))
+        try:
+            harness.run("timit_qcnn.train_bare", 3, 0.3, True, device="cpu", t_start=0.0,
+                        shrink=shrink)
+        except SystemExit as e:
+            print(json.dumps(str(e)))
+    """, cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr[-3000:]
+    *_, metrics, stopped = r.stdout.strip().splitlines()
+    assert json.loads(metrics) == {"profiled_steps": {"value": 2, "unit": "steps"}}
+    assert "loops/train_bare.py" in stopped and "PROFILE_ITEMS" in stopped
 
 
 @pytest.mark.cuda
