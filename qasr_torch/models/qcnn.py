@@ -21,6 +21,7 @@ the 10-product GEMM too.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -41,7 +42,7 @@ from qasr_torch.models.layers import (
 )
 from qasr_torch.ops.initializers import lecun_normal
 from qasr_torch.ops.kernels import qconv_ft
-from qasr_torch.utils.profiling import traced
+from qasr_torch.utils.profiling import span, traced
 
 
 # op_variant -> the scheme of the stacked layers, or None where every layer
@@ -117,6 +118,8 @@ def segment(fn, x: torch.Tensor, remat: bool) -> torch.Tensor:
     (``qasr/train/step.py:35-38``) trades FLOPs for memory. The towers make
     a segment of each conv layer: eager PyTorch recomputes a segment all at
     once, so one segment over the whole forward would hardly lower the peak.
+    Each recompute counts on ``segment.recomputes`` and runs under the
+    ``qasr.remat`` span (:class:`_Recompute`).
 
     The recompute would replay torch's global RNG state only, never an
     explicit ``torch.Generator``, so no segment may hold a ``Dropout`` (no
@@ -124,7 +127,38 @@ def segment(fn, x: torch.Tensor, remat: bool) -> torch.Tensor:
     as no segment draws, none stashes the RNG state."""
     if not remat:
         return fn(x)
-    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=_remat_contexts)
+
+
+#: recomputed segments since the last reset (counted as each recompute starts)
+segment.recomputes = 0
+
+_FORWARD = contextlib.nullcontext()
+
+
+class _Recompute:
+    """A segment's recompute context: counts the recompute and opens the
+    ``qasr.remat`` span, which with no profiler recording is one flag check.
+    In the backward, a stacked layer's recompute runs inside its
+    ``qasr.qconv`` range, from the layer's node, whose saved tensors it
+    makes."""
+
+    __slots__ = ("rf",)
+
+    def __enter__(self):
+        segment.recomputes += 1
+        self.rf = span("qasr.remat")
+        return self.rf.__enter__()
+
+    def __exit__(self, *exc):
+        return self.rf.__exit__(*exc)
+
+
+def _remat_contexts():
+    """``checkpoint``'s ``context_fn``: the forward as it is, the recompute
+    under :class:`_Recompute`."""
+    return _FORWARD, _Recompute()
 
 
 def quaternion_conv_tower(

@@ -86,6 +86,7 @@ SPANS = (
     "qasr.ctc",          # loss_fn and its backward
     "qasr.qconv",        # a stacked layer's chain_layer and its backward
     "qasr.conv_dw",      # ChainLayerFn's dW and db: kernel K, cuDNN's wgrad, the U fold
+    "qasr.remat",        # a checkpoint segment's recompute in the backward (train.remat_convs)
     "qasr.bilstm",       # QBiLSTM: projection, glue, recurrence; and its backward
     "qasr.qlstm_scan",   # QLstmScanFn: kernels D and E, the dW einsums
     "qasr.dense",        # the encoders' dense layers and output; and its backward
