@@ -153,9 +153,11 @@ few):
  15. config 5 ``librispeech_large`` (conv 64..256 x 10, dense 1024 x 3,
               bf16) with its tools: one step with ``train.remat_convs`` off
               and on from the same weights and batch (loss and gradients the
-              same bits, launches A 18 / C 9 / B 3 + 3 with remat, peak bytes
-              and step ms); ``qasr_torch.tools.memory_envelope`` at the
-              reference's seven points (every row measured or out of memory,
+              same bits, launches A 9 / C 9 / B 3 + 3 with remat as without,
+              as the stacked layers run bare and only the thin layer is
+              recomputed, peak bytes and step ms);
+              ``qasr_torch.tools.memory_envelope`` at the reference's seven
+              points (every row measured or out of memory,
               remat below no remat, B8 x T2048 fits); the docs' run on
               mini-LibriSpeech through ``python -m qasr_torch.cli`` (400
               of its 1200 steps, cut for time; streaming, B8, dev-clean
@@ -3201,8 +3203,11 @@ def _p15_remat(dev: torch.device, smi: str, large) -> int:
     """(a) One config-5 step with ``train.remat_convs`` off and on from the
     same weights and batch (B8 x T512): the loss and gradients the same bits
     (a gradient that two runs without remat already differ on is held at
-    ``TOL_BF16``), launches, peak bytes and step ms. Returns the f32
-    parameters' bytes."""
+    ``TOL_BF16``), launches (kernel A once a stacked layer either way: remat
+    leaves the layers on ``ChainLayerFn`` bare and recomputes the thin one
+    alone, as ``segment.recomputes`` and ``segment.bare`` count), peak bytes
+    and step ms. Returns the f32 parameters' bytes."""
+    from qasr_torch.models import qcnn
     from qasr_torch.tools import memory_envelope
     from qasr_torch.train.state import create_train_state
     from qasr_torch.train.step import batch_to_device, forward_backward, train_step
@@ -3219,8 +3224,10 @@ def _p15_remat(dev: torch.device, smi: str, large) -> int:
         st = create_train_state(cfg5.override(**{"train.remat_convs": remat}), device=dev,
                                 params=init)
         _reset_counts()
+        qcnn.segment.recomputes = qcnn.segment.bare = 0
         loss = forward_backward(st, batch)
         counts = _read_counts()
+        segments = (qcnn.segment.recomputes, qcnn.segment.bare)
         grads = {k: p.grad.detach().clone() for k, p in st.model.named_parameters()}
         if remat in res:  # the second run without remat: its determinism, nothing timed
             res["again"] = {"loss": loss, "grads": grads}
@@ -3229,16 +3236,19 @@ def _p15_remat(dev: torch.device, smi: str, large) -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         ms = _time_ms(lambda: train_step(st, batch), 3, 1)
-        res[remat] = {"loss": loss, "grads": grads, "counts": counts, "ms": ms,
-                      "peak": torch.cuda.max_memory_allocated(dev) - held}
+        res[remat] = {"loss": loss, "grads": grads, "counts": counts, "segments": segments,
+                      "ms": ms, "peak": torch.cuda.max_memory_allocated(dev) - held}
         del st
         torch.cuda.empty_cache()
-    want = {False: _want(qconv_ft8=9, qconv_dx8=9, qgemm8=3, qgemm8_dx=3, qconv_dw_prep=9),
-            True: _want(qconv_ft8=18, qconv_dx8=9, qgemm8=3, qgemm8_dx=3, qconv_dw_prep=9)}
+    want = _want(qconv_ft8=9, qconv_dx8=9, qgemm8=3, qgemm8_dx=3, qconv_dw_prep=9)
+    want_segments = {False: (0, 0), True: (1, 9)}
     for remat in (False, True):
-        if res[remat]["counts"] != want[remat]:
+        if res[remat]["counts"] != want:
             raise RuntimeError(f"phase 15 remat={remat}: launches {res[remat]['counts']}, "
-                               f"expected {want[remat]}")
+                               f"expected {want}")
+        if res[remat]["segments"] != want_segments[remat]:
+            raise RuntimeError(f"phase 15 remat={remat}: segment.recomputes, segment.bare "
+                               f"{res[remat]['segments']}, expected {want_segments[remat]}")
     off, on, again = res[False], res[True], res["again"]
     if not torch.equal(off["loss"], on["loss"]):
         raise RuntimeError(f"phase 15 remat: loss {on['loss'].item()!r} vs "
@@ -3264,7 +3274,8 @@ def _p15_remat(dev: torch.device, smi: str, large) -> int:
           f"bit-equal, {len(loose)} non-deterministic without remat too, held at "
           f"{TOL_BF16} (worst rel_norm {worst:.3e}: {loose}); launches a step without remat "
           f"{ {k: v for k, v in off['counts'].items() if v} }, with "
-          f"{ {k: v for k, v in on['counts'].items() if v} }; peak bytes (the state's and the "
+          f"{ {k: v for k, v in on['counts'].items() if v} }; segment.recomputes, segment.bare "
+          f"{off['segments']} -> {on['segments']}; peak bytes (the state's and the "
           f"step's, above what lived before) {off['peak']} -> "
           f"{on['peak']} ({on['peak'] / off['peak']:.3f}x); step ms {off['ms']:.3f} -> "
           f"{on['ms']:.3f} ({on['ms'] / off['ms']:.3f}x) on {smi}; "

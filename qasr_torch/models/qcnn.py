@@ -41,7 +41,7 @@ from qasr_torch.models.layers import (
     tf_packed_to_stacked,
 )
 from qasr_torch.ops.initializers import lecun_normal
-from qasr_torch.ops.kernels import qconv_ft
+from qasr_torch.ops.kernels import qconv_chain, qconv_ft
 from qasr_torch.utils.profiling import span, traced
 
 
@@ -116,10 +116,13 @@ def segment(fn, x: torch.Tensor, remat: bool) -> torch.Tensor:
     in the backward (``torch.utils.checkpoint``, non-reentrant), as the
     reference's ``jax.checkpoint`` over the train forward
     (``qasr/train/step.py:35-38``) trades FLOPs for memory. The towers make
-    a segment of each conv layer: eager PyTorch recomputes a segment all at
-    once, so one segment over the whole forward would hardly lower the peak.
-    Each recompute counts on ``segment.recomputes`` and runs under the
-    ``qasr.remat`` span (:class:`_Recompute`).
+    a segment of each conv layer that a checkpoint can free something of:
+    eager PyTorch recomputes a segment all at once, so one segment over the
+    whole forward would hardly lower the peak. A stacked layer on
+    ``ChainLayerFn``, whose node saves only its input, is no segment
+    (:func:`quaternion_conv_tower`). Each recompute counts on
+    ``segment.recomputes`` and runs under the ``qasr.remat`` span
+    (:class:`_Recompute`).
 
     The recompute would replay torch's global RNG state only, never an
     explicit ``torch.Generator``, so no segment may hold a ``Dropout`` (no
@@ -133,6 +136,9 @@ def segment(fn, x: torch.Tensor, remat: bool) -> torch.Tensor:
 
 #: recomputed segments since the last reset (counted as each recompute starts)
 segment.recomputes = 0
+#: stacked layers that ran with remat and no segment since the last reset
+#: (counted in the forward; see :func:`quaternion_conv_tower`)
+segment.bare = 0
 
 _FORWARD = contextlib.nullcontext()
 
@@ -140,9 +146,9 @@ _FORWARD = contextlib.nullcontext()
 class _Recompute:
     """A segment's recompute context: counts the recompute and opens the
     ``qasr.remat`` span, which with no profiler recording is one flag check.
-    In the backward, a stacked layer's recompute runs inside its
-    ``qasr.qconv`` range, from the layer's node, whose saved tensors it
-    makes."""
+    In the backward, a stacked layer's recompute (on the plain route) runs
+    inside its ``qasr.qconv`` range, from the layer's node, whose saved
+    tensors it makes."""
 
     __slots__ = ("rf",)
 
@@ -179,11 +185,19 @@ def quaternion_conv_tower(
     :func:`stacked_routing`; the layers were built to match). A run of
     stacked layers passes pre-activations: each layer's PReLU is applied in
     the next layer's prologue, and the run's last PReLU in torch. With
-    ``remat`` each layer is a :func:`segment`: a packed layer with its PReLU
-    (and the pool where it follows), a stacked layer with the previous
-    layer's PReLU in its prologue. Returns ``(x, in_stacked)``: when
-    ``in_stacked`` the result is still ``[B, 4, F, T, C]`` and the caller
-    owns the exit transpose.
+    ``remat`` each packed layer is a :func:`segment` with its PReLU (and the
+    pool where it follows), and so is a stacked layer on the plain route
+    (``plain`` or a CPU tensor), with the previous layer's PReLU in its
+    prologue: its autograd graph saves the combos and intermediates. A
+    stacked layer that takes ``ChainLayerFn`` (``qconv_chain.takes_chain_fn``:
+    a CUDA tensor off the plain route) runs bare and counts on
+    ``segment.bare``: that node saves only its input, the kernel and the
+    slopes, so a checkpoint would keep the same input, free nothing, and
+    run the forward kernel again in the backward only to rebuild them. Its
+    backward reads the same ``(x, w, alpha)`` either way, so the gradients
+    are the same bits. Returns ``(x, in_stacked)``: when ``in_stacked`` the
+    result is still ``[B, 4, F, T, C]`` and the caller owns the exit
+    transpose.
     """
     in_stacked = False
     pending = None  # PReLU deferred into the next stacked conv's prologue
@@ -205,7 +219,11 @@ def quaternion_conv_tower(
             def layer(x, conv=conv, act=act, pool=pool):
                 x = act(conv(x, plain=plain))
                 return freq_max_pool(x, pool_size) if pool else x
-        x = segment(layer, x, remat)
+        if remat and stacked[i] and qconv_chain.takes_chain_fn(x, plain):
+            segment.bare += 1
+            x = layer(x)
+        else:
+            x = segment(layer, x, remat)
     if in_stacked:
         x = pending(x)
     return x, in_stacked
@@ -258,7 +276,8 @@ class ConvTowerEncoder(nn.Module):
 
     def _run_tower(self, x: torch.Tensor, plain: bool, remat: bool = False) -> torch.Tensor:
         """``x [B, T, F, 4]`` -> ``[B, T, 4*(F*C)]`` in the compute dtype;
-        ``remat`` makes each conv layer a checkpoint :func:`segment`."""
+        ``remat`` makes each conv layer that a checkpoint can free
+        something of a :func:`segment` (:func:`quaternion_conv_tower`)."""
         if x.ndim != 4:
             raise ValueError(f"expected [B, T, F, 4*C] input, got {tuple(x.shape)}")
         n = len(self.stacked)
@@ -348,8 +367,9 @@ class QCNNEncoder(ConvTowerEncoder):
         runs every kernel's plain PyTorch version, on any device. In train
         mode the dropout masks come from ``generator`` (on x's device),
         cut to ``global_rows`` of a larger batch when given (:class:`Dropout`).
-        ``remat`` (``train.remat_convs``) recomputes each conv layer in the
-        backward (:func:`segment`). ``lengths`` is accepted and unused: the
+        ``remat`` (``train.remat_convs``) recomputes the conv layers in the
+        backward, except the stacked ones on ``ChainLayerFn``
+        (:func:`quaternion_conv_tower`). ``lengths`` is accepted and unused: the
         model is frame-local, as the JAX encoder's
         (``qasr/models/qcnn.py:222``)."""
         del lengths

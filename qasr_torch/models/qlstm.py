@@ -409,8 +409,8 @@ class QLSTMEncoder(ConvTowerEncoder):
         runs every kernel's plain PyTorch version, on any device. In train
         mode the dropout masks come from ``generator``, cut to ``global_rows``
         of a larger batch when given (:class:`Dropout`). ``remat``
-        recomputes each conv layer of the tower in the backward
-        (``qcnn.segment``)."""
+        recomputes the tower's conv layers in the backward, except the
+        stacked ones on ``ChainLayerFn`` (``qcnn.quaternion_conv_tower``)."""
         x = self._run_tower(x, plain, remat)
         for i in range(self.lstm_layers):
             x = self.lstm(i)(x, lengths, plain=plain)

@@ -106,6 +106,14 @@ class ChainLayerFn(torch.autograd.Function):
         return dx, dw, db, dalpha, None
 
 
+def takes_chain_fn(x_st: torch.Tensor, plain: bool = False) -> bool:
+    """Whether :func:`chain_layer` runs this call through
+    :class:`ChainLayerFn`: a CUDA tensor off the plain route. That node
+    saves only its input, the kernel and the slopes, never its output, so a
+    checkpoint around it frees nothing (``models/qcnn.py:segment``)."""
+    return not plain and x_st.is_cuda
+
+
 def chain_layer(
     x_st: torch.Tensor,
     w: torch.Tensor,
@@ -122,10 +130,10 @@ def chain_layer(
     None for the first chain layer, whose input is already activated.
     ``plain=True`` or a CPU tensor runs the plain PyTorch version under
     autograd (the card's reference path); otherwise a CUDA tensor goes
-    through :class:`ChainLayerFn`.
+    through :class:`ChainLayerFn` (:func:`takes_chain_fn`).
     """
     if scheme not in _KERNELS:
         raise ValueError(f"unknown scheme {scheme!r} (choose fast8 | fast10)")
-    if plain or not x_st.is_cuda:
-        return qconv_stacked_plain(x_st, w, bias, alpha_prev, scheme=SCHEMES[scheme])
-    return ChainLayerFn.apply(x_st, w, bias, alpha_prev, scheme)
+    if takes_chain_fn(x_st, plain):
+        return ChainLayerFn.apply(x_st, w, bias, alpha_prev, scheme)
+    return qconv_stacked_plain(x_st, w, bias, alpha_prev, scheme=SCHEMES[scheme])

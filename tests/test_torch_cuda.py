@@ -883,3 +883,46 @@ def test_qlstm_arm_on_card(cuda_device, arm):
         assert launched == [0, 0, 0, 0]
     else:
         assert launched[0] == (1 if arm == "block" else 3) and launched[3] == 3, launched
+
+
+@pytest.mark.cuda
+def test_remat_step_launches_a_once_a_stacked_layer_on_card(cuda_device):
+    """One bf16 step of a small config-5-shaped model (a thin conv and the
+    pool, then a stacked run widening 8 -> 32, three dense layers) with
+    ``train.remat_convs`` off and on from the same weights and batch: with
+    remat kernel A still launches once a stacked layer, since those layers
+    run bare (``segment.bare``) and only the thin layer is recomputed; the
+    loss is the same bits, and so is every gradient that two steps without
+    remat give in the same bits (the rest, from a library reduction whose
+    order may vary, within 1e-2 of its norm)."""
+    from qasr_torch.configs import get_config
+    from qasr_torch.data.synthetic import random_batch
+    from qasr_torch.models import qcnn
+    from qasr_torch.train.state import create_train_state
+    from qasr_torch.train.step import batch_to_device, forward_backward
+
+    cfg = get_config("librispeech_large").override(**{
+        "model.conv_features": (8, 8, 16, 16, 32, 32), "model.dense_features": (32, 32, 32)})
+    batch = batch_to_device(random_batch(4, 64, cfg.data.n_mels, cfg.model.vocab, 8, seed=0),
+                            cuda_device)
+    init = create_train_state(cfg, device=cuda_device).model.state_dict()
+    out = []
+    for remat in (False, False, True):
+        state = create_train_state(cfg.override(**{"train.remat_convs": remat}),
+                                   device=cuda_device, params=init)
+        n_stacked = sum(state.model.stacked)
+        before = qconv_ft.qconv_ft8.launches
+        qcnn.segment.recomputes = qcnn.segment.bare = 0
+        loss = forward_backward(state, batch)
+        torch.cuda.synchronize()
+        assert qconv_ft.qconv_ft8.launches - before == n_stacked
+        assert (qcnn.segment.recomputes, qcnn.segment.bare) == ((1, n_stacked) if remat else (0, 0))
+        out.append((loss, {k: p.grad.clone() for k, p in state.model.named_parameters()}))
+    assert n_stacked == 5
+    (off, g_off), (_, g_again), (on, g_on) = out
+    assert torch.equal(on, off)
+    for k, g in g_off.items():
+        if torch.equal(g, g_again[k]):
+            assert torch.equal(g_on[k], g), k
+        else:
+            assert ((g_on[k] - g).norm() <= 1e-2 * g.norm()).item(), k

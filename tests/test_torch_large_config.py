@@ -11,8 +11,12 @@ the forward's logits, and three train steps with dropout against
 program: ``segment.recomputes`` counts one recompute a conv layer a step,
 and under a profiler each recompute is a ``qasr.remat`` range in the
 backward, a stacked layer's inside that layer's ``qasr.qconv`` range (so a
-reader of ``qasr.qconv`` counts the recompute once). Last, the file keeps
-every width of the preset.
+reader of ``qasr.qconv`` counts the recompute once). On the route the card
+takes (``ChainLayerFn``, forced here through ``qconv_chain.takes_chain_fn``
+on CPU tensors, where its wrappers take the plain versions), that node saves
+only its input, the kernel and the slopes, so remat leaves the stacked layers
+bare and checkpoints the packed layer alone, with the same gradients. Last,
+the file keeps every width of the preset.
 """
 
 import copy
@@ -26,8 +30,9 @@ import torch
 
 from qasr_torch.configs import get_config
 from qasr_torch.models import build_model, qcnn
+from qasr_torch.ops.kernels import qconv_chain
 from qasr_torch.train.state import create_train_state
-from qasr_torch.train.step import train_step
+from qasr_torch.train.step import batch_to_device, forward_backward, train_step
 from qasr_torch.utils.profiling import trace
 from qbench.loops.train import program_config
 from qbench.reference import model as ref_model
@@ -172,6 +177,94 @@ def test_remat_ranges_lie_in_the_backward_inside_each_stacked_layer(tmp_path):
         assert sum(_inside(held[0], p) for p in r["qasr.qconv"]) == 1
     outside = [x for x in remat if not any(_inside(q, x) for q in qconv_bwd)]
     assert len(outside) == len(CONV) - n_stacked
+
+
+@pytest.mark.parametrize("scheme", ["fast8", "fast10"])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_chain_layer_fn_saves_only_its_input_kernel_and_slopes(scheme, prologue):
+    """What ``qcnn.quaternion_conv_tower`` leaves bare under remat rests on
+    this: :class:`ChainLayerFn` saves ``x``, ``w`` and ``alpha`` themselves
+    and nothing of its output's size. If the node ever saves more, a
+    checkpoint around it frees something again and the rule in the tower
+    has to go."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((2, 4, 5, 9, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((4, 3, 3, 8, 16)).astype(np.float32))
+    bias = torch.zeros(64, requires_grad=True)
+    alpha = torch.full((32,), 0.25, requires_grad=True) if prologue else None
+    x.requires_grad_()
+    w.requires_grad_()
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        z = qconv_chain.ChainLayerFn.apply(x, w, bias, alpha, scheme)
+    want = [x, w] + ([alpha] if prologue else [])
+    assert len(saved) == len(want), [tuple(t.shape) for t in saved]
+    for got, t in zip(saved, want):
+        assert got is t
+    assert not any(t.shape == z.shape for t in saved)
+    z.square().sum().backward()
+    assert x.grad is not None and w.grad is not None
+
+
+def _force_route(monkeypatch, route: str) -> None:
+    """``"chain_fn"``: every stacked layer off the plain route takes
+    ``ChainLayerFn``, whatever the tensor's device, as a CUDA tensor does."""
+    if route == "chain_fn":
+        monkeypatch.setattr(qconv_chain, "takes_chain_fn", lambda x, plain=False: not plain)
+
+
+def _grads(state, bt):
+    state.model.zero_grad(set_to_none=True)
+    loss = forward_backward(state, batch_to_device(bt, torch.device("cpu")))
+    return loss, {k: p.grad.clone() for k, p in state.model.named_parameters()}
+
+
+@pytest.mark.parametrize("route", ["chain_fn", "plain"])
+def test_remat_leaves_chain_fn_layers_bare_with_the_same_gradients(route, monkeypatch):
+    """A remat step from the same weights and batch: on the ``ChainLayerFn``
+    route the packed layer is recomputed and the stacked layers run bare
+    (``segment.bare``), on the plain route every conv layer is recomputed;
+    either way the loss and gradients are those without remat, bit for
+    bit."""
+    _force_route(monkeypatch, route)
+    bt = batch(small(False))
+    params = _state(small(False)).model.state_dict()
+    out = {}
+    for remat in REMAT:
+        state = _state(small(remat), params)
+        n_stacked = sum(state.model.stacked)
+        qcnn.segment.recomputes = qcnn.segment.bare = 0
+        out[remat] = _grads(state, bt)
+        bare = n_stacked if remat and route == "chain_fn" else 0
+        assert qcnn.segment.bare == bare
+        assert qcnn.segment.recomputes == (len(CONV) - bare if remat else 0)
+    assert 0 < n_stacked < len(CONV)
+    assert torch.equal(out[True][0], out[False][0])
+    for k, g in out[True][1].items():
+        assert torch.equal(g, out[False][1][k]), k
+
+
+def test_chain_fn_route_traces_remat_ranges_for_the_packed_layers_only(tmp_path, monkeypatch):
+    """On the ``ChainLayerFn`` route a remat step under a profiler holds one
+    ``qasr.remat`` range a packed layer (config 5 has one, the thin conv
+    with the pool), in the backward and in no ``qasr.qconv`` range; each
+    stacked layer has one ``qasr.qconv`` range in the forward and one in
+    the backward."""
+    _force_route(monkeypatch, "chain_fn")
+    conf = small(True)
+    state = _state(conf)
+    train_step(state, batch(conf))
+    with trace(str(tmp_path), force=True):
+        train_step(state, batch(conf, seed=1))
+    r = _ranges(os.path.join(tmp_path, "trace.json"))
+    (backward,) = r["qasr.backward"]
+    n_stacked = sum(state.model.stacked)
+    assert len(r["qasr.remat"]) == len(CONV) - n_stacked
+    for x in r["qasr.remat"]:
+        assert _inside(backward, x)
+        assert not any(_inside(q, x) for q in r["qasr.qconv"])
+    assert sum(_inside(backward, q) for q in r["qasr.qconv"]) == n_stacked
+    assert len(r["qasr.qconv"]) == 2 * n_stacked
 
 
 def test_file_keeps_every_width_of_the_preset():
